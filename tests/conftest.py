@@ -27,6 +27,12 @@ def pytest_addoption(parser):
              "pytest -q --deselect-from tests/seed-skips.txt")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels "
+                   "have no CPU form); skips without one")
+
+
 def pytest_collection_modifyitems(config, items):
     path = config.getoption("--deselect-from")
     if not path:
