@@ -7,8 +7,8 @@ Phases, each printing what it found; any failure raises, and the script
 exits non-zero without printing a result:
 
 1. card:   name and power limit, as nvidia-smi reports them;
-2. build:  every CUDA kernel of the port, compiled from the repo's
-           sources with nvcc (one process per source, all at once);
+2. build:  the port's CUDA kernel, compiled from the repo's source with
+           nvcc;
 3. kernel vs plain: ``ssb_fused.spja`` against ``ref.spja`` on the card
            on synthetic inputs from a seed — bit-identical required;
 4. main path: ``ssb.generate(sf=20)`` (120 M lineorder rows), resident
@@ -16,14 +16,14 @@ exits non-zero without printing a result:
            ``compile_plan(plan, "fused").execute(db, cache=...)``: 13
            kernel launches per pass, every result bit-identical to the
            numpy oracle, to the plain version on the card and to a second
-           pass; then per-query times beside the device-memory bound.
+           pass; then per-query times beside the least time the card
+           could take for the work this data needs (``must_move``).
 
 The line before the last lists every kernel of the path as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import functools
 import json
 import statistics
@@ -37,6 +37,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory, published peak
+SEGMENT = 64                    # bytes of one device-memory access
+# int32 ALU peak of an H100 SXM: 132 SMs x 64 int32 lanes x 1.98 GHz =
+# 16.7 TOP/s, a quarter of the published 67 TFLOP/s float32 rate (128
+# float32 lanes, an FMA counted as 2)
+INT32_OPS_PER_S = 67e12 / 4
+SF = 20                         # the paper's scale factor (§5.1)
 SEED = 20
 QUERY_REPS = 5                  # end-to-end runs per query (median)
 KERNEL_REPS = 10                # back-to-back launches per timing
@@ -94,51 +100,98 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
         a.tobytes() == b.tobytes()
 
 
-def live_sector_bytes(spja_args) -> int:
-    """Bytes of the 32-byte sectors (8 rows) the kernel cannot skip on
-    this data.  It loads a row's next column only while the row is live
-    (predicates in order, then join keys, then measures), so a sector of
-    a later column is read only when one of its rows is still live; a
-    column read at an earlier stage costs nothing again."""
+def segment_bytes(touched: torch.Tensor) -> int:
+    """Bytes of the 64-byte segments of an int32 array that hold at least
+    one touched element."""
+    per = SEGMENT // 4
+    pad = torch.nn.functional.pad(touched, (0, (-touched.shape[0]) % per))
+    return SEGMENT * int(pad.view(-1, per).any(dim=1).sum())
+
+
+def probe_walk(keys: torch.Tensor, htk: torch.Tensor):
+    """Each key's linear probe as the kernel walks it: (hit slot or -1,
+    slots visited, probe steps taken)."""
     from repro_torch.core import blocks
+    n_slots = htk.shape[0]
+    hit_slot = torch.full(keys.shape, -1, dtype=torch.int64,
+                          device=keys.device)
+    visited = torch.zeros(n_slots, dtype=torch.bool, device=keys.device)
+    lanes = torch.arange(keys.shape[0], device=keys.device)
+    want, slot, steps = keys, blocks.hash_fn(keys, n_slots), 0
+    for _ in range(n_slots):
+        if lanes.numel() == 0:
+            break
+        visited[slot] = True
+        steps += lanes.numel()
+        k_at = htk[slot]
+        hit = k_at == want
+        hit_slot[lanes[hit]] = slot[hit]
+        walking = ~(hit | (k_at == blocks.EMPTY))
+        lanes, want = lanes[walking], want[walking]
+        slot = (slot[walking] + 1) & (n_slots - 1)
+    return hit_slot, visited, steps
+
+
+def must_move(spja_args, n_groups: int) -> dict:
+    """What one ``spja`` call needs on this data, for its bound.
+
+    Bytes: the kernel loads a row's next column only while the row is
+    live (predicates in order, then join keys, then measures), so each
+    column costs the 64-byte segments that hold a live row when it is
+    first read (the first column in full); each table costs the segments
+    of the slots its probes visit (keys) or hit (payloads); the output is
+    (n_groups,) f32.  Operations: 2 compares per predicate and live row, 4
+    per probe step (multiply, mask, 2 compares), 2 per hit (group
+    multiply-add), 2 per summed row (measure op and add)."""
     from repro_torch.kernels import ref
-    pred_cols, bounds, join_keys, tables, _, m1, m2 = spja_args
-    live = torch.ones(m1.shape[0], dtype=torch.bool, device=m1.device)
-    seen, total = set(), 0
+    pred_cols, bounds, join_keys, tables, mults, m1, m2 = spja_args
+    n = m1.shape[0]
+    live = torch.ones(n, dtype=torch.bool, device=m1.device)
+    seen, fact, table, ops = set(), 0, 0, 0
 
     def read(col):
-        nonlocal total
+        nonlocal fact
         if col.data_ptr() not in seen:
             seen.add(col.data_ptr())
-            pad = torch.nn.functional.pad(live, (0, (-live.shape[0]) % 8))
-            total += 32 * int(pad.view(-1, 8).any(dim=1).sum())
+            fact += segment_bytes(live)
 
     for col, (lo, hi) in zip(pred_cols,
                              ref.bounds_list(bounds, len(pred_cols))):
         read(col)
+        ops += 2 * int(live.sum())
         live &= (col >= lo) & (col <= hi)
-    for j, keys in enumerate(join_keys):
+    group = torch.zeros(n, dtype=torch.int64, device=m1.device)
+    for j, (keys, mult) in enumerate(
+            zip(join_keys, ref.mults_list(mults, len(join_keys)))):
         read(keys)
+        htk, htv = tables[2 * j], tables[2 * j + 1]
         rows = live.nonzero().squeeze(1)
-        _, found = blocks.block_lookup(keys[rows], tables[2 * j],
-                                       tables[2 * j + 1])
-        live[rows] = found > 0
+        slot, visited, steps = probe_walk(keys[rows], htk)
+        hit = slot >= 0
+        hit_slots = torch.zeros_like(visited)
+        hit_slots[slot[hit]] = True
+        table += segment_bytes(visited) + segment_bytes(hit_slots)
+        ops += 4 * steps + 2 * int(hit.sum())
+        live[rows] = hit
+        group[rows[hit]] += htv[slot[hit]].to(torch.int64) * mult
+    live &= (group & 0xFFFFFFFF) < n_groups     # the kernel's uint32 test
     read(m1)
     if m2 is not None:
         read(m2)
-    return total
+    ops += 2 * int(live.sum())
+    moved = fact + table + 4 * n_groups
+    return {"fact_bytes": fact, "table_bytes": table, "bytes": moved,
+            "ops": ops, "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / INT32_OPS_PER_S * 1e3}
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sf", type=float, default=20.0,
-                    help="scale factor of the main path (default: 20)")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, cases, ref, ssb_fused
+    from repro_torch import cases
+    from repro_torch.kernels import build, ref, ssb_fused
     from repro_torch.sql import engine, hashtable, ssb
     from repro_torch.sql.compile import compile_plan, fused_inputs
 
@@ -156,13 +209,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(dev)}", flush=True)
 
     t = phase("2 build")
-    logs = build.build_all()
-    for name in build.KERNELS:
-        print(f"{name}: {build.library_path(name).relative_to(ROOT)}")
-        for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {line.strip()}")
-        build.load(name)
+    log = build.build("ssb_fused")
+    print(build.library_path("ssb_fused").relative_to(ROOT))
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"  {line.strip()}")
+    build.load("ssb_fused")
     print(f"build_s {time.perf_counter() - t:.3f}", flush=True)
 
     t = phase("3 kernel vs plain (synthetic, bit-identical)")
@@ -189,9 +241,9 @@ def main() -> int:
               f"max_abs_err={err} ok", flush=True)
     print(f"phase3_s {time.perf_counter() - t:.3f}", flush=True)
 
-    t = phase(f"4 main path: 13 SSB queries, fused, SF {args.sf:g}")
+    t = phase(f"4 main path: 13 SSB queries, fused, SF {SF}")
     t0 = time.perf_counter()
-    db = ssb.generate(sf=args.sf, seed=SEED)
+    db = ssb.generate(sf=SF, seed=SEED)
     print(f"generate_s {time.perf_counter() - t0:.3f} "
           f"lineorder_rows {db.lineorder.n_rows} "
           f"columns {len(db.lineorder.columns)}")
@@ -260,9 +312,10 @@ def main() -> int:
         n_cols = len({s.data_ptr() for s in streams})
         fact_bytes = 4 * db.lineorder.n_rows * n_cols
         table_bytes = sum(t.numel() * t.element_size() for t in a[3])
-        moved = fact_bytes + table_bytes + 4 * plan.n_groups
-        bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        live_bytes = live_sector_bytes(a)
+        stream_ms = (fact_bytes + table_bytes + 4 * plan.n_groups) \
+            / HBM_BYTES_PER_S * 1e3
+        need = must_move(a, plan.n_groups)
+        bound_ms = max(need["bytes_ms"], need["ops_ms"])
         row = {"query": name, "n_groups": plan.n_groups,
                "launches": launches[name],
                "groups_nonzero": int(np.count_nonzero(first[name])),
@@ -271,14 +324,22 @@ def main() -> int:
                "query_ms_max": max(times), "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "fact_columns": n_cols,
                "fact_GB": fact_bytes / 1e9, "table_MB": table_bytes / 1e6,
-               "GBps": fact_bytes / kernel_ms / 1e6, "bound_ms": bound_ms,
-               "bound_share": bound_ms / kernel_ms,
-               "live_sector_GB": live_bytes / 1e9,
-               "live_sector_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3}
+               "GBps": fact_bytes / kernel_ms / 1e6,
+               "stream_bound_ms": stream_ms,
+               "stream_share": stream_ms / kernel_ms,
+               "need_fact_GB": need["fact_bytes"] / 1e9,
+               "need_table_MB": need["table_bytes"] / 1e6,
+               "need_Gops": need["ops"] / 1e9,
+               "bytes_ms": need["bytes_ms"], "ops_ms": need["ops_ms"],
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if need["bytes_ms"] >= need["ops_ms"]
+               else "operations",
+               "bound_share": bound_ms / kernel_ms}
         rows.append(row)
         print(json.dumps(row), flush=True)
     tot = {k: sum(r[k] for r in rows)
-           for k in ("query_ms", "kernel_ms", "plain_ms", "bound_ms")}
+           for k in ("query_ms", "kernel_ms", "plain_ms", "stream_bound_ms",
+                     "bytes_ms", "ops_ms", "bound_ms")}
     print(f"totals {json.dumps(tot)}")
     print(f"phase4_s {time.perf_counter() - t:.3f}")
     print(f"total_s {time.perf_counter() - t_all:.3f}")
@@ -287,7 +348,9 @@ def main() -> int:
     print(json.dumps({"kernels": [dict(
         KERNEL, launches=main_launches, max_abs_err=max_err,
         ms=tot["kernel_ms"], plain_ms=tot["plain_ms"],
-        bound_ms=tot["bound_ms"], bound_by="bytes", library_ms=None)]}))
+        bound_ms=tot["bound_ms"],
+        bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        library_ms=None)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,13 +21,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ssb_fused",)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,37 +53,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def _command(name: str, out: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
-
-
-def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Build every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns each newly built kernel's
-    compiler log (``-Xptxas -v``: registers, shared memory, spills);
-    raises on the first failure."""
+def build(name: str) -> str:
+    """Build the named kernel unless it is built.  Returns the compiler
+    log (``-Xptxas -v``: registers, shared memory, spills), empty when
+    the library was already there; raises if ``nvcc`` fails."""
+    lib = library_path(name)
+    if lib.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running: List[Tuple[str, Path, Path, subprocess.Popen]] = []
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        running.append((name, lib, tmp, subprocess.Popen(
-            _command(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    logs: Dict[str, str] = {}
-    failed = []
-    for name, lib, tmp, proc in running:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, lib)            # atomic: readers see whole files
-        logs[name] = log
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return logs
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    res = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{res.returncode}\n{res.stdout}")
+    os.replace(tmp, lib)                # atomic: readers see whole files
+    return res.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -92,7 +77,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            build_all([name])
+            build(name)
             lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
         return lib

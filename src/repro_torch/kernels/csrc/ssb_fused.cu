@@ -8,14 +8,15 @@
 // payload * mult (int32, wrapping), measure m1 / m1*m2 / m1-m2, and a sum
 // per group.
 //
-// What bounds it: the fact bytes streamed.  Each query reads every row of
-// each column it touches once (q2.1: 4 columns x 120 M rows x 4 B =
-// 1.92 GB at SF 20) against 3.35 TB/s of device memory; the dimension
-// tables are at most a few MB at SF 20 (the host build keeps the load at
-// or below one half), so the probes stay in the 50 MB L2.  Measured by
-// chip_smoke.py at SF 20 on an H100 80GB HBM3 at 700 W (PERF.md): flight
-// 1 runs at 68-89 % of that streaming bound; the join flights are held
-// back by their probes (flight 2 at 18-21 %).
+// What bounds it: device-memory bytes at 3.35 TB/s.  A query's first
+// column is read in full; a later column only in the 64-byte segments
+// that still hold a live row, and a table only in the segments its
+// probes visit.  At most that is every row of each column touched (q2.1:
+// 4 columns x 120 M rows x 4 B = 1.92 GB at SF 20); chip_smoke.py counts
+// what each query's data needs (must_move) and PERF.md holds the kernel's
+// share of that bound per query.  The dimension tables are at most a few
+// MB at SF 20 (the host build keeps the load at or below one half), so
+// the probes stay in the 50 MB L2.
 //
 // Design for this card, not a copy of the Pallas grid:
 //  * The TPU kernel carries one f32 accumulator through a grid that runs

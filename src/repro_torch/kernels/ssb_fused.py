@@ -7,9 +7,9 @@ streams.  The kernel sums exactly in int64 (see the source's note), so it
 takes the int32 measure columns themselves, not f32 copies, and its result
 is bit-identical to ``ref.spja`` and to the numpy oracle.
 
-On a CPU tensor the wrapper runs the plain version (``ref.spja``); on a
-CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
-kernel launches of this process.
+The wrapper launches the kernel on CUDA tensors or raises; the choice of
+the plain version for a CPU tensor is ``ops.spja``'s alone.
+``LAUNCHES`` counts the kernel launches of this process.
 """
 from __future__ import annotations
 
@@ -73,10 +73,6 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     ``pred_bounds`` (P, 2) and ``group_mults`` (J,): host integers, taken
     by value."""
     global LAUNCHES
-    if m1.device.type == "cpu":
-        return ref.spja(pred_cols, pred_bounds, join_keys, join_tables,
-                        group_mults, m1, m2, measure_op=measure_op,
-                        n_groups=n_groups)
     if m1.device.type != "cuda":
         raise ValueError(f"spja: no kernel for device {m1.device}")
     device = m1.device

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cases, ops, ref, ssb_fused
+from repro_torch import cases
+from repro_torch.kernels import ops, ref, ssb_fused
 from repro_torch.sql import engine, hashtable, ssb
 
 pytestmark = pytest.mark.cuda

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cases, ops
+from repro_torch import cases
+from repro_torch.kernels import ops, ssb_fused
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
 from repro_torch.sql import hashtable as THT
@@ -86,6 +87,16 @@ def test_mode_contract_on_cpu_tensors(mode):
     else:
         out = ops.spja(*args, mode=mode, **kw)
         assert out.device.type == "cpu" and out.dtype == torch.float32
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper launches or raises; only ``ops`` picks the plain
+    version for a CPU tensor."""
+    args, kw = cases.spja_case(7, 256, 1, 1, "first", 4).args("cpu")
+    before = ssb_fused.LAUNCHES
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        ssb_fused.spja(*args, **kw)
+    assert ssb_fused.LAUNCHES == before
 
 
 def test_unported_strategies_raise_naming_the_roadmap():

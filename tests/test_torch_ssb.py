@@ -21,7 +21,7 @@ from repro.kernels import ref as RREF
 from repro.sql import compile as RC
 from repro.sql import engine as RE
 from repro.sql import ssb as RSSB
-from repro_torch.kernels import cases
+from repro_torch import cases
 from repro_torch.kernels import ref as TREF
 from repro_torch.sql import engine as TE
 from repro_torch.sql import plan as TP
