@@ -1,11 +1,14 @@
-"""Synthetic SPJA inputs for holding the kernel against its plain version.
+"""Synthetic inputs for holding each kernel against its plain version.
 
-One generator, made from a numpy seed, serves ``chip_smoke.py`` (kernel
+The generators, made from a numpy seed, serve ``chip_smoke.py`` (kernel
 vs plain on the card), the card tests and the CPU tests (plain version
-vs the reference package).  It covers what the SSB data never shows:
+vs the reference package).  They cover what the SSB data never shows:
 duplicate build keys (the first row wins), probe chains that wrap the
 end of the table, negative keys, an all-EMPTY build side, probe keys
-that miss, and group ids past ``n_groups`` (dropped).
+that miss, group ids past ``n_groups`` (dropped), selectivity 0 and 1,
+f32 predicate columns, int32 sums that overflow and f32 sums that are
+not integers.  Every case is a tuple of host arrays and scalars;
+``tensors`` moves its arrays to a device.
 """
 from __future__ import annotations
 
@@ -125,3 +128,84 @@ def spja_case(seed: int, n: int, n_preds: int, n_joins: int,
     return SpjaCase(pred_cols, np.array(bounds, np.int32).reshape(-1, 2),
                     join_keys, tables, np.array(mults, np.int32), m1, m2,
                     measure_op, n_groups)
+
+
+def tensors(case: tuple, device) -> tuple:
+    """The case with each numpy array as a tensor on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 if isinstance(a, np.ndarray) else a for a in case)
+
+
+def select_case(seed: int, n: int, selectivity: str = "mid",
+                dtype: str = "int32") -> tuple:
+    """(x, y, lo, hi) for ``select_scan``: x int32 or f32 in [0, 100),
+    y int32 row tags; ``selectivity`` "mid" keeps about half the rows,
+    "none" none, "all" all."""
+    rng = np.random.default_rng(seed)
+    if dtype == "float32":
+        x = (rng.random(n) * 100).astype(np.float32)
+    else:
+        x = rng.integers(0, 100, n, dtype=np.int32)
+    y = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    lo, hi = {"mid": (20, 69), "none": (1000, 2000),
+              "all": (0, 100)}[selectivity]
+    if dtype == "float32":
+        lo, hi = lo + 0.5, hi + 0.25
+    return x, y, lo, hi
+
+
+PROBE_KINDS = ("duplicate_wrap", "empty", "misses")
+
+
+def probe_case(seed: int, n: int, kind: str = "duplicate_wrap",
+               build_rows: int = 500) -> tuple:
+    """(keys, vals, htk, htv) for ``probe_join``: "duplicate_wrap" probes
+    a table with duplicate keys and chains that wrap its end, 80 % of
+    the keys found; "empty" an all-EMPTY table; "misses" a table none of
+    the keys is in."""
+    rng = np.random.default_rng(seed)
+    rows = 0 if kind == "empty" else build_rows
+    dkeys, _, htk, htv = _dim_table(rng, rows, 1 << 20,
+                                    duplicates=kind == "duplicate_wrap",
+                                    wrap=kind == "duplicate_wrap")
+    others = rng.integers(1 << 24, 1 << 30, n, dtype=np.int32)
+    if kind == "duplicate_wrap":
+        keys = np.where(rng.random(n) < 0.8, rng.choice(dkeys, n), others)
+    else:
+        keys = others
+    vals = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    return keys.astype(np.int32), vals, htk, htv
+
+
+def project_case(seed: int, n: int) -> tuple:
+    """(x1, x2) standard-normal f32 for ``project`` (the sigmoid's output
+    stays clear of f32 denormals, which XLA flushes to zero)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+GROUP_KINDS = ("int32_overflow", "f32_integers", "f32_random")
+
+
+def group_case(seed: int, n: int, n_groups: int,
+               kind: str = "f32_integers", out_of_range: bool = False
+               ) -> tuple:
+    """(group_ids, vals, n_groups) for ``group_sum``: "int32_overflow"
+    int32 values whose sums wrap; "f32_integers" integer-valued f32 in
+    [0, 1000) (exact in f64, and in f32 while a sum stays under 2^24);
+    "f32_random" non-integer f32.  ``out_of_range`` adds ids past the
+    grid and negative ones (dropped)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_groups, n, dtype=np.int32)
+    if out_of_range:
+        bad = rng.random(n) < 0.05
+        ids[bad] = rng.choice(np.array([-1, -7, n_groups, n_groups + 9],
+                                       np.int32), int(bad.sum()))
+    if kind == "int32_overflow":
+        vals = rng.integers(1 << 29, (1 << 31) - 1, n, dtype=np.int32)
+    elif kind == "f32_integers":
+        vals = rng.integers(0, 1000, n).astype(np.float32)
+    else:
+        vals = rng.standard_normal(n).astype(np.float32) * 1000
+    return ids, vals, n_groups

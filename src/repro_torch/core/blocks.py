@@ -34,6 +34,27 @@ def block_pred_range(tile: torch.Tensor, lo, hi) -> torch.Tensor:
     return ((tile >= lo) & (tile <= hi)).to(torch.int32)
 
 
+def block_scan(bitmap: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlockScan: exclusive prefix sum of a 0/1 bitmap and its total, both
+    int64 on the bitmap's device (the total a 0-d tensor: no host round
+    trip)."""
+    inc = torch.cumsum(bitmap, 0, dtype=torch.int64)
+    total = inc[-1] if inc.numel() else inc.new_zeros(())
+    return inc - bitmap, total
+
+
+def block_shuffle(tile: torch.Tensor, bitmap: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """BlockShuffle: stable compaction of the entries whose bitmap is set
+    to the front, by their ``block_scan`` offsets.  The entries past the
+    total are zero (the reference leaves them arbitrary; callers read only
+    the first ``total``)."""
+    n = tile.shape[0]
+    idx = torch.where(bitmap > 0, offsets, n)    # unmatched -> drop slot n
+    out = torch.zeros((n + 1,), dtype=tile.dtype, device=tile.device)
+    return out.scatter_(0, idx, tile)[:n]
+
+
 def block_lookup(keys: torch.Tensor, ht_keys: torch.Tensor,
                  ht_vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """BlockLookup: each key's payload by linear probing.

@@ -4,13 +4,18 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, bound with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \\
-         csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc \\
+         -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library lands under ``build/kernels/`` at the repo root (git
-ignores it), named by a hash of the source and the flags, and is built
-at first use.  No ``nvcc`` or a failed build raises: there is no
-fallback.
+ignores it), named by a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags, and is built at first use.  No ``nvcc``
+or a failed build raises: there is no fallback.
+
+Every library exports ``kernel_error_string(int)``; ``check`` turns a
+launcher's nonzero return into a ``RuntimeError`` with that text, and
+``check_stream`` is what every wrapper asks of a tensor before it passes
+its pointer.
 """
 from __future__ import annotations
 
@@ -21,15 +26,26 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
+SMEM_LIMIT = 232_448            # shared memory one block may use (227 KB)
+# every library's C entries: name -> (restype, argtypes)
+Signatures = Dict[str, Tuple[object, Sequence[object]]]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def names() -> Tuple[str, ...]:
+    """Every kernel library the repo's sources define."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
 def nvcc() -> str:
@@ -47,10 +63,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    # the flags without the -I path, so a checkout's location does not
+    # change the name
+    digest.update(" ".join(NVCC_FLAGS[:-2]).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:
@@ -61,7 +80,8 @@ def build(name: str) -> str:
     if lib.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}."
+                        f"{threading.get_ident()}.tmp.so")
     res = subprocess.run(
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -72,12 +92,39 @@ def build(name: str) -> str:
     return res.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built if needed, loaded once per process."""
+def load(name: str, signatures: Signatures) -> ctypes.CDLL:
+    """The kernel's library, built if needed, loaded once per process,
+    with ``signatures`` and ``kernel_error_string`` bound."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
             build(name)
             lib = ctypes.CDLL(str(library_path(name)))
+            sigs = {"kernel_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+                    **signatures}
+            for fn, (restype, argtypes) in sigs.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = list(argtypes)
             _LOADED[name] = lib
         return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({lib.kernel_error_string(rc).decode()})")
+
+
+def check_stream(t: torch.Tensor, what: str, n: int, device: torch.device,
+                 dtypes: Sequence[torch.dtype] = (torch.int32,)) -> None:
+    """Raise unless ``t`` is a contiguous 1-D tensor of ``n`` rows of one
+    of ``dtypes`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes or t.dim() != 1 or not t.is_contiguous():
+        kinds = "/".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{what} must be a contiguous 1-D {kinds} tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.shape[0] != n:
+        raise ValueError(f"{what} has {t.shape[0]} rows, expected {n}")

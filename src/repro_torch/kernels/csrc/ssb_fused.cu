@@ -41,23 +41,29 @@
 //    spaced kThreads apart, so a warp reads 128 contiguous bytes per
 //    column.  A grid-stride loop over a grid of as many blocks as fit on
 //    the SMs at once; the ragged tail is masked.
-//  * Each thread walks its own probe until its key or an EMPTY slot (the
-//    reference's lock-step loop gives the same answer per lane).  A row
-//    already filtered skips its later loads and probes.  A walk is
-//    capped at one lap of the table, so a malformed full table is a
-//    miss, never a hang.
+//  * Each thread walks its own probe (hash.cuh) until its key or an EMPTY
+//    slot (the reference's lock-step loop gives the same answer per
+//    lane).  A row already filtered skips its later loads and probes.
 //  * A live row whose group id falls outside [0, n_groups) is dropped,
 //    as the reference's scatter drops it.
 #include <cuda_runtime.h>
 
+#include "hash.cuh"
+
 namespace {
 
-constexpr int kMaxPreds = 4;     // SSB needs at most 3
-constexpr int kMaxJoins = 4;     // SSB needs at most 4
+// A plan past these caps lowers operator-at-a-time.  The by-value
+// parameter struct stays far below the 4 KB kernel-parameter limit.
+constexpr int kMaxPreds = 8;
+constexpr int kMaxJoins = 8;
+// SSB needs at most 3 predicates and 4 joins.  The kernel unrolls its
+// predicate and join slots, and 8 + 8 slots take 57 registers a thread
+// where 4 + 4 take 32 (ptxas): half the blocks an SM, and 1.45x the
+// 13-query time (chip_smoke.py, H100).  So a plan that fits 4 + 4 runs
+// an instance with 4 + 4 slots.
+constexpr int kNarrow = 4;
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
-constexpr int kEmpty = -2147483647 - 1;      // INT32_MIN
-constexpr unsigned kHashMul = 2654435761u;
 constexpr int kDefaultSmem = 48 * 1024;
 
 struct SpjaParams {
@@ -79,22 +85,7 @@ struct SpjaParams {
   int n_groups;
 };
 
-__device__ __forceinline__ bool probe(const int* __restrict__ htk,
-                                      const int* __restrict__ htv,
-                                      unsigned mask, int key, int* payload) {
-  unsigned slot = (static_cast<unsigned>(key) * kHashMul) & mask;
-  for (unsigned step = 0; step <= mask; ++step) {
-    const int k = __ldg(htk + slot);
-    if (k == key) {
-      *payload = __ldg(htv + slot);
-      return true;
-    }
-    if (k == kEmpty) return false;
-    slot = (slot + 1u) & mask;
-  }
-  return false;
-}
-
+template <int kPreds, int kJoins>
 __global__ void __launch_bounds__(kThreads)
 spja_kernel(const SpjaParams p) {
   extern __shared__ unsigned long long acc[];
@@ -115,7 +106,7 @@ spja_kernel(const SpjaParams p) {
       if (r >= p.n) break;
       bool live = true;
 #pragma unroll
-      for (int q = 0; q < kMaxPreds; ++q) {
+      for (int q = 0; q < kPreds; ++q) {
         if (q < p.n_preds && live) {
           const int v = __ldg(p.pred_cols[q] + r);
           live = v >= p.pred_lo[q] && v <= p.pred_hi[q];
@@ -123,7 +114,7 @@ spja_kernel(const SpjaParams p) {
       }
       unsigned group = 0u;
 #pragma unroll
-      for (int j = 0; j < kMaxJoins; ++j) {
+      for (int j = 0; j < kJoins; ++j) {
         if (j < p.n_joins && live) {
           int payload = 0;
           live = probe(p.ht_keys[j], p.ht_vals[j], p.ht_mask[j],
@@ -161,6 +152,36 @@ spja_kernel(const SpjaParams p) {
     const unsigned long long v = acc[g];
     if (v != 0ull) atomicAdd(p.out + g, v);
   }
+}
+
+// One launch of the instance with kPreds + kJoins slots: as many blocks as
+// fit on the SMs at once, fewer for a small n.
+template <int kPreds, int kJoins>
+int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
+  cudaError_t err;
+  if (smem > static_cast<size_t>(kDefaultSmem)) {
+    err = cudaFuncSetAttribute(spja_kernel<kPreds, kJoins>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, spja_kernel<kPreds, kJoins>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+
+  const long long tile = static_cast<long long>(kThreads) * kItems;
+  long long grid = (p.n + tile - 1) / tile;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  if (grid > resident) grid = resident;
+  spja_kernel<kPreds, kJoins><<<static_cast<unsigned>(grid), kThreads, smem,
+                                stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -206,32 +227,12 @@ extern "C" int spja_launch(const void* const* ptrs, const int* ints,
   const size_t smem = p.n_groups == 1
                           ? 0
                           : static_cast<size_t>(p.n_groups) * sizeof(long long);
-  cudaError_t err;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    err = cudaFuncSetAttribute(spja_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spja_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-
-  const long long tile = static_cast<long long>(kThreads) * kItems;
-  long long grid = (n + tile - 1) / tile;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  if (grid > resident) grid = resident;
-  spja_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.n_preds <= kNarrow && p.n_joins <= kNarrow)
+    return launch<kNarrow, kNarrow>(p, smem, s);
+  return launch<kMaxPreds, kMaxJoins>(p, smem, s);
 }
 
-extern "C" const char* spja_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

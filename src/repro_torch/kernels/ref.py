@@ -3,6 +3,9 @@
 Each function has its kernel's signature and semantics but is straight
 tensor code with no tiling.  It runs on either device: the tests run it
 on the CPU, ``chip_smoke.py`` runs it on the card beside the kernel.
+Counts come back as 0-d int64 tensors on the inputs' device, and the
+compacting functions return (n,) outputs whose entries past the count
+are zero.
 """
 from __future__ import annotations
 
@@ -85,3 +88,49 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     sums = B.block_group_aggregate(group, measure(m1, m2, measure_op),
                                    live, n_groups)
     return sums.to(torch.float32)
+
+
+def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SELECT y WHERE lo <= x <= hi -> (out (n,), count): the selected
+    entries of y in row order, then zeros.  Runs on the tensors' own
+    device with no host round trip."""
+    bitmap = B.block_pred_range(x, lo, hi)
+    offsets, count = B.block_scan(bitmap)
+    return B.block_shuffle(y, bitmap, offsets), count
+
+
+def probe_join(keys: torch.Tensor, vals: torch.Tensor,
+               ht_keys: torch.Tensor, ht_vals: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The keys found in a linear-probe table -> (payload (n,), vals (n,),
+    count): each found row's table payload and its own val, in row
+    order, then zeros."""
+    payload, found = B.block_lookup(keys, ht_keys, ht_vals)
+    offsets, count = B.block_scan(found)
+    return (B.block_shuffle(payload, found, offsets),
+            B.block_shuffle(vals, found, offsets), count)
+
+
+def project(x1: torch.Tensor, x2: torch.Tensor, a, b,
+            sigmoid: bool = False) -> torch.Tensor:
+    """a*x1 + b*x2 in f32, each product and the sum rounded once;
+    optionally 1 / (1 + exp(-y))."""
+    y = a * x1 + b * x2
+    if sigmoid:
+        y = 1.0 / (1.0 + torch.exp(-y))
+    return y
+
+
+def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
+              n_groups: int) -> torch.Tensor:
+    """SUM(vals) GROUP BY group_ids -> (n_groups,) in vals' dtype (f32 or
+    int32).  int32 sums wrap as the reference's int32 accumulator does
+    (summed in int64, cut to int32); f32 sums are taken in f64 and
+    rounded to f32 once, so integer-valued f32 sums are exact.  An id
+    outside [0, n_groups) is dropped."""
+    acc = torch.float64 if vals.is_floating_point() else torch.int64
+    live = torch.ones(group_ids.shape, dtype=torch.int32,
+                      device=group_ids.device)
+    return B.block_group_aggregate(group_ids, vals.to(acc), live,
+                                   n_groups).to(vals.dtype)

@@ -23,35 +23,19 @@ from repro_torch.kernels import ref
 
 LAUNCHES = 0
 
-MAX_PREDS = 4                   # kMaxPreds in the CUDA source
-MAX_JOINS = 4                   # kMaxJoins
-SMEM_LIMIT = 232_448            # shared memory one block may use (227 KB)
+MAX_PREDS = 8                   # kMaxPreds in the CUDA source
+MAX_JOINS = 8                   # kMaxJoins
 _OP_CODE = {"first": 0, "mul": 1, "sub": 2}
 _I32 = (-(1 << 31), (1 << 31) - 1)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("ssb_fused")
-    if not getattr(lib, "_spja_bound", False):
-        lib.spja_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.c_void_p,
-                                    ctypes.c_void_p]
-        lib.spja_launch.restype = ctypes.c_int
-        lib.spja_error_string.argtypes = [ctypes.c_int]
-        lib.spja_error_string.restype = ctypes.c_char_p
-        lib._spja_bound = True
-    return lib
+_SIGNATURES = {"spja_launch": (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_void_p])}
 
 
-def _check_stream(t: torch.Tensor, what: str, n: int,
-                  device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous 1-D int32 tensor, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if t.shape[0] != n:
-        raise ValueError(f"{what} has {t.shape[0]} rows, expected {n}")
+def library() -> ctypes.CDLL:
+    return build.load("ssb_fused", _SIGNATURES)
 
 
 def _check_i32(vals, what: str) -> None:
@@ -85,9 +69,9 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                          f"and {MAX_JOINS} joins, got {n_preds}, {n_joins}")
     if len(join_tables) != 2 * n_joins:
         raise ValueError(f"{len(join_tables)} join tables for {n_joins} joins")
-    if n_groups < 1 or n_groups * 8 > SMEM_LIMIT:
+    if n_groups < 1 or n_groups * 8 > build.SMEM_LIMIT:
         raise ValueError(f"n_groups={n_groups}: the per-block int64 grid "
-                         f"must fit {SMEM_LIMIT} bytes of shared memory")
+                         f"must fit {build.SMEM_LIMIT} bytes of shared memory")
     two = measure_op != "first"
     if two and m2 is None:
         raise ValueError(f"measure_op {measure_op!r} needs m2")
@@ -96,20 +80,21 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     _check_i32([v for b in bounds for v in b], "pred_bounds")
     _check_i32(mults, "group_mults")
     for i, c in enumerate(pred_cols):
-        _check_stream(c, f"pred_cols[{i}]", n, device)
+        build.check_stream(c, f"pred_cols[{i}]", n, device)
     for j, k in enumerate(join_keys):
-        _check_stream(k, f"join_keys[{j}]", n, device)
-    _check_stream(m1, "m1", n, device)
+        build.check_stream(k, f"join_keys[{j}]", n, device)
+    build.check_stream(m1, "m1", n, device)
     if two:
-        _check_stream(m2, "m2", n, device)
+        build.check_stream(m2, "m2", n, device)
     masks = []
     for j in range(n_joins):
         htk, htv = join_tables[2 * j], join_tables[2 * j + 1]
         s = htk.shape[0]
-        _check_stream(htk, f"join_tables[{2 * j}]", s, device)
-        _check_stream(htv, f"join_tables[{2 * j + 1}]", s, device)
-        if s < 1 or s & (s - 1):
-            raise ValueError(f"join {j}: slot count {s} is not a power of 2")
+        build.check_stream(htk, f"join_tables[{2 * j}]", s, device)
+        build.check_stream(htv, f"join_tables[{2 * j + 1}]", s, device)
+        if s < 1 or s & (s - 1) or s > 1 << 32:
+            raise ValueError(f"join {j}: slot count {s} is not a power of 2 "
+                             "up to 2^32")
         masks.append(s - 1)
 
     out = torch.zeros((n_groups,), dtype=torch.int64, device=device)
@@ -132,13 +117,11 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
         *pad([lo for lo, _ in bounds], MAX_PREDS),
         *pad([hi for _, hi in bounds], MAX_PREDS),
         *pad(masks, MAX_JOINS), *pad(mults, MAX_JOINS))
-    lib = _library()
+    lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.spja_launch(ctypes.addressof(ptrs), ctypes.addressof(ints),
                              n, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"spja kernel launch failed: CUDA error {rc} "
-                           f"({lib.spja_error_string(rc).decode()})")
+    build.check(lib, rc, "spja")
     LAUNCHES += 1
     return out.to(torch.float32)

@@ -5,7 +5,8 @@ plan builder, the fused-lowering wrapper, and the independent numpy
 oracle, copied so the port answers to the same ground truth.
 
   ``ssb_queries()``       -> Dict[str, Plan]
-  ``run_query(db, plan)``  -> fused (Crystal) lowering on the card
+  ``run_query(db, plan)``  -> fused (Crystal) lowering on the card, or
+                             ``strategy="opat"``
   ``run_query_oracle``    -> independent pure-numpy plan interpreter
 """
 from __future__ import annotations
@@ -185,11 +186,12 @@ def build_join_tables(db: Database, plan: Plan, device=None):
 
 def run_query(db: Database, plan: Plan, mode: str = "auto",
               cache: Optional[HashTableCache] = None,
-              device=None) -> np.ndarray:
-    """Execute through the Crystal fused-SPJA lowering on ``device`` (the
-    card unless the caller names the CPU) -> (n_groups,) f32."""
-    return compile_plan(plan, "fused").execute(db, mode=mode, cache=cache,
-                                               device=device)
+              device=None, strategy: str = "fused") -> np.ndarray:
+    """Execute through ``strategy``'s lowering (the Crystal fused SPJA
+    kernel by default) on ``device`` (the card unless the caller names
+    the CPU) -> (n_groups,) f32."""
+    return compile_plan(plan, strategy).execute(db, mode=mode, cache=cache,
+                                                device=device)
 
 
 def run_query_oracle(db: Database, plan: Plan) -> np.ndarray:

@@ -35,6 +35,14 @@ def column_stream(table, col: str, device: torch.device
     return table.on_device(col, device), 32, 0
 
 
+def take(table, col: str, rowids: torch.Tensor,
+         device: torch.device) -> torch.Tensor:
+    """Positional column access for the materializing (opat) path: the
+    resident column gathered at ``rowids`` (plain torch, as the
+    reference's ``take`` is plain jnp outside any kernel)."""
+    return column_stream(table, col, device)[0][rowids]
+
+
 def encoded_bounds(enc, lo: int, hi: int) -> Tuple[int, int]:
     """A closed range predicate in the column's encoded domain: the
     identity for a plain column."""

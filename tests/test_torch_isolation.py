@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch import cases
-from repro_torch.kernels import ops, ssb_fused
+from repro_torch.kernels import (agg, hash_join, ops, project, select_scan,
+                                 ssb_fused)
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
 from repro_torch.sql import hashtable as THT
@@ -69,8 +70,9 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
     plan = TE.ssb_queries()["q2.1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.run_query(db, plan)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        TC.compile_plan(plan, "fused").execute(db)
+    for strategy in ("fused", "opat"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TC.compile_plan(plan, strategy).execute(db)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         THT.build_dim_table(db, plan.joins[0])
 
@@ -97,22 +99,43 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         ssb_fused.spja(*args, **kw)
     assert ssb_fused.LAUNCHES == before
+    calls = [
+        (select_scan, "select_scan", cases.select_case(7, 256), ()),
+        (hash_join, "probe_join", cases.probe_case(7, 256), ()),
+        (project, "project", cases.project_case(7, 256), (1.0, -1.0)),
+        (agg, "group_sum", cases.group_case(7, 256, 4), ()),
+    ]
+    for mod, fn, case, extra in calls:
+        before = mod.LAUNCHES
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            getattr(mod, fn)(*cases.tensors(case, "cpu"), *extra)
+        assert mod.LAUNCHES == before, fn
 
 
 def test_unported_strategies_raise_naming_the_roadmap():
     plan = TE.ssb_queries()["q1.1"]
-    for strategy in ("opat", "part", "shared", "sharded", "auto"):
+    for strategy in ("part", "part_loop", "shared", "sharded", "auto"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.compile_plan(plan, strategy)
-    rows = (TE.QueryBuilder("rows").scan("lineorder")
-            .where_range("lo_discount", 1, 3).build())
-    with pytest.raises(NotImplementedError, match="operator-at-a-time"):
-        TC.compile_plan(rows, "fused")
+    def rows():
+        return (TE.QueryBuilder("rows").scan("lineorder")
+                .where_range("lo_discount", 1, 3))
+
+    ordered = rows().order_by("lo_orderdate").build()
+    for strategy in ("fused", "opat"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*radix"):
+            TC.compile_plan(ordered, strategy)
+    q = TC.compile_plan(rows().build(), "fused")
+    assert (q.strategy, q.requested) == ("opat", "fused")
+    assert q.fallback_reason.startswith("row-returning plan")
     with pytest.raises(ValueError, match="unknown strategy"):
         TC.compile_plan(plan, "bogus")
     q = TC.compile_plan(plan, "fused")
     assert (q.strategy, q.requested, q.fallback_reason) == \
         ("fused", "fused", None)
+    q = TC.compile_plan(plan, "opat")
+    assert (q.strategy, q.requested, q.fallback_reason) == \
+        ("opat", "opat", None)
 
 
 def test_packed_storage_raises_naming_the_storage_slice():
@@ -128,3 +151,21 @@ def test_packed_storage_raises_naming_the_storage_slice():
     arr, phys, ref = ST.column_stream(db.lineorder, "lo_revenue", "cpu")
     assert (phys, ref) == (32, 0)
     np.testing.assert_array_equal(arr.numpy(), db.lineorder["lo_revenue"])
+
+
+def test_library_name_follows_the_source_and_every_shared_header(
+        tmp_path, monkeypatch):
+    """A stale library is never loaded: editing a ``.cu`` or any shared
+    ``.cuh`` renames the library it builds to."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = build.library_path("k")
+    assert len({first, second, third}) == 3
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    assert build.names() == ("k",)

@@ -1,12 +1,13 @@
-"""``chip_smoke.py``'s bound: the bytes and operations one ``spja`` call
-needs on its data, held against a row-by-row count in plain Python.
-Tolerance: exact (integer counts)."""
+"""``chip_smoke.py``'s bounds: the bytes and operations one ``spja`` call,
+and one call of each opat kernel, needs on its data, held against a
+row-by-row count in plain Python.  Tolerance: exact (integer counts)."""
 import importlib.util
 import pathlib
 
 import pytest
 
 from repro_torch import cases
+from repro_torch.kernels import ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -84,3 +85,56 @@ def test_must_move_counts_what_the_kernel_touches(i):
     want = _brute(c)
     assert {k: got[k] for k in want} == want
     assert got["bytes_ms"] == want["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+
+
+def _probe_brute(keys, htk):
+    """(found rows, probe steps, 64-byte segments visited + hit) of a
+    linear probe walked key by key."""
+    seg, mask = smoke.SEGMENT // 4, len(htk) - 1
+    found = steps = 0
+    visited, hits = set(), set()
+    for key in keys.tolist():
+        slot = ((key & 0xFFFFFFFF) * 2654435761) & mask
+        for _ in range(len(htk)):
+            visited.add(slot)
+            steps += 1
+            if htk[slot] == key:
+                found += 1
+                hits.add(slot)
+                break
+            if htk[slot] == -2 ** 31:
+                break
+            slot = (slot + 1) & mask
+    return found, steps, smoke.SEGMENT * (len({s // seg for s in visited})
+                                          + len({s // seg for s in hits}))
+
+
+@pytest.mark.parametrize("fn,case", [
+    ("select_scan", cases.select_case(1, 777, "mid")),
+    ("select_scan", cases.select_case(2, 333, "none", "float32")),
+    ("probe_join", cases.probe_case(3, 900, "duplicate_wrap", 60)),
+    ("probe_join", cases.probe_case(4, 100, "empty")),
+    ("project", cases.project_case(5, 501) + (1.0, -1.0)),
+    ("group_sum", cases.group_case(6, 640, 37, "f32_integers")),
+    ("group_sum", cases.group_case(7, 640, 5, "int32_overflow")),
+])
+def test_opat_need_counts_what_the_function_moves(fn, case):
+    args = cases.tensors(case, "cpu")
+    n = len(case[0])
+    got = smoke.opat_need(fn, args, getattr(ref, fn)(*args))
+    if fn == "select_scan":
+        x, _, lo, hi = case
+        count = int(sum(lo <= v <= hi for v in x.tolist()))
+        want = (8 * n + 4 * count, 2 * n, smoke.INT32_OPS_PER_S)
+    elif fn == "probe_join":
+        found, steps, table = _probe_brute(case[0], case[2])
+        want = (8 * n + 8 * found + table, 4 * steps, smoke.INT32_OPS_PER_S)
+    elif fn == "project":
+        want = (12 * n, 3 * n, smoke.F32_OPS_PER_S)
+    else:
+        rate = smoke.F32_OPS_PER_S if case[1].dtype.kind == "f" \
+            else smoke.INT32_OPS_PER_S
+        want = (8 * n + 4 * case[2], n, rate)
+    assert (got["bytes"], got["ops"]) == want[:2]
+    assert got["bytes_ms"] == want[0] / smoke.HBM_BYTES_PER_S * 1e3
+    assert got["ops_ms"] == want[1] / want[2] * 1e3
