@@ -12,7 +12,9 @@ exits non-zero without printing a result:
 3. kernel vs plain: each kernel against its plain version on the card on
            synthetic inputs from a seed — bit-identical, except the
            sigmoid (rtol 1e-6) and non-integer f32 group sums (two runs
-           identical, within one f32 ulp of the plain version);
+           identical, within one f32 ulp of the plain version); the
+           packed kernels at every packed width, with ragged n,
+           frame-of-reference keys and measures and sign-bit words;
 4. main path: ``ssb.generate(sf=20)`` (120 M lineorder rows), resident
            on the card, all 13 SSB queries through
            ``compile_plan(plan, "fused").execute(db, cache=...)``: 13
@@ -27,7 +29,18 @@ exits non-zero without printing a result:
            query; every result bit-identical to phase 4's oracle and fused
            results, to a second pass and to the plain versions on the
            card; then per-query times beside fused (the fig17 analogue)
-           and each kernel's time over one pass beside its bound.
+           and each kernel's time over one pass beside its bound;
+6. packed storage: phase 4's database packed (``storage.pack_database``)
+           and resident on the card, the 13 queries ``fused`` (``spja`` on
+           packed streams) and ``opat`` (the leading filter through
+           ``select_scan_packed``) through the same hash cache — every
+           build a hit, every result bit-identical to phase 4's oracle
+           and fused results, a second pass and the plain versions on
+           the card, launches checked against the plans; per-query
+           packed times beside phase 4's plain ones and the packed bound;
+           ``select_scan_packed`` over one pass and ``unpack`` of every
+           packed column (bit-identical to the resident plain column)
+           beside their bounds.
 
 The line before the last lists every kernel of both paths as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -74,6 +87,12 @@ OPAT = [("select_scan", "select_scan", "select_scan.cu",
         ("project", "project", "project.cu",
          "src/repro/kernels/project.py:33"),
         ("agg", "group_sum", "agg.cu", "src/repro/kernels/agg.py:80")]
+# the packed kernels: (wrapper module, function, its launch counter, CUDA
+# source, the Pallas kernel it replaces)
+PACKED = [("select_scan", "select_scan_packed", "PACKED_LAUNCHES",
+           "select_scan.cu", "src/repro/kernels/select_scan.py:219"),
+          ("unpack", "unpack", "LAUNCHES", "unpack.cu",
+           "src/repro/kernels/unpack.py:30")]
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
@@ -101,6 +120,20 @@ SYNTHETIC = [
           n_groups=243, duplicates=True, wrap=True)),
 ]
 BIG = 10_000_019                # a ragged n past every tile and grid size
+# (label, cases.packed_spja_case arguments): packed predicates at every
+# width, frame-of-reference keys and measures (SSB data packs with
+# reference 0 only), n not a multiple of a word's values
+PACKED_SPJA = [
+    (f"packed preds at {phys} bits, 2 joins, sub, 100 groups",
+     dict(n=BIG, n_preds=3, n_joins=2, measure_op="sub", n_groups=100,
+          pred_phys=phys, duplicates=True, wrap=True))
+    for phys in (1, 2, 4, 8, 16)] + [
+    ("packed, 7000 groups, small measures at 8 and 4 bits, mul",
+     dict(n=4_000_037, n_preds=1, n_joins=3, measure_op="mul",
+          n_groups=7000, pred_phys=16, small=True)),
+    ("packed, n = 37", dict(n=37, n_preds=2, n_joins=1, measure_op="first",
+                            n_groups=4, pred_phys=2)),
+]
 # fn -> [(label, cases generator, its arguments, extra positional call
 # arguments, sigmoid)]
 OPAT_SYNTHETIC = {
@@ -124,6 +157,16 @@ OPAT_SYNTHETIC = {
          (g, BIG, g, kind, True), (), False)
         for kind in ("int32_overflow", "f32_integers", "f32_random")
         for g in (1, 7000)],
+    "select_scan_packed": [
+        (f"{sel} at {phys} bits, n={n}", "select_packed_case",
+         (n + phys, n, phys, sel), (), False)
+        for n, phys, sel in [(BIG, p, "mid") for p in (1, 2, 4, 8, 16)] +
+        [(BIG, 4, "none"), (BIG, 16, "all"), (37, 2, "mid")]],
+    "unpack": [
+        (f"{phys} bits, ref {r}, n={n}", "unpack_case", (n + phys, n, phys, r),
+         (), False)
+        for n, phys, r in [(BIG, p, r) for p in (1, 2, 4, 8, 16)
+                           for r in (0, -5000)] + [(37, 4, 1 << 20)]],
 }
 
 
@@ -152,10 +195,11 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
         a.tobytes() == b.tobytes()
 
 
-def segment_bytes(touched: torch.Tensor) -> int:
-    """Bytes of the 64-byte segments of an int32 array that hold at least
-    one touched element."""
-    per = SEGMENT // 4
+def segment_bytes(touched: torch.Tensor, rows_per_segment: int = 16) -> int:
+    """Bytes of the 64-byte segments of a stream that hold at least one
+    touched row: 16 rows a segment for an int32 column, 16·c for a column
+    packed c values a word."""
+    per = rows_per_segment
     pad = torch.nn.functional.pad(touched, (0, (-touched.shape[0]) % per))
     return SEGMENT * int(pad.view(-1, per).any(dim=1).sum())
 
@@ -184,38 +228,52 @@ def probe_walk(keys: torch.Tensor, htk: torch.Tensor):
     return hit_slot, visited, steps
 
 
-def must_move(spja_args, n_groups: int) -> dict:
+def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
+              key_refs=None, m_widths=None, m_refs=None, n_rows=None,
+              measure_op=None) -> dict:
     """What one ``spja`` call needs on this data, for its bound.
 
     Bytes: the kernel loads a row's next column only while the row is
     live (predicates in order, then join keys, then measures), so each
     column costs the 64-byte segments that hold a live row when it is
-    first read (the first column in full); each table costs the segments
-    of the slots its probes visit (keys) or hit (payloads); the output is
+    first read (the first column in full); a column packed c values a
+    word holds 16·c rows a segment.  Each table costs the segments of the
+    slots its probes visit (keys) or hit (payloads); the output is
     (n_groups,) f32.  Operations: 2 compares per predicate and live row, 4
     per probe step (multiply, mask, 2 compares), 2 per hit (group
-    multiply-add), 2 per summed row (measure op and add)."""
+    multiply-add), 2 per summed row (measure op and add), and 2 per value
+    decoded from a packed stream (shift, mask)."""
     from repro_torch.kernels import ref
     pred_cols, bounds, join_keys, tables, mults, m1, m2 = spja_args
-    n = m1.shape[0]
+    n = m1.shape[0] if n_rows is None else int(n_rows)
+    n_meas = 1 if m2 is None else 2
+    pred_widths = ref.stream_widths(pred_widths, len(pred_cols))
+    key_widths = ref.stream_widths(key_widths, len(join_keys))
+    m_widths = ref.stream_widths(m_widths, n_meas)
+    key_refs = ref.refs_list(key_refs, len(join_keys))
+    m_refs = ref.refs_list(m_refs, n_meas)
     live = torch.ones(n, dtype=torch.bool, device=m1.device)
     seen, fact, table, ops = set(), 0, 0, 0
 
-    def read(col):
-        nonlocal fact
+    def read(col, width, r=0):
+        """The stream's values; counts its bytes on its first read."""
+        nonlocal fact, ops
         if col.data_ptr() not in seen:
             seen.add(col.data_ptr())
-            fact += segment_bytes(live)
+            fact += segment_bytes(live, 16 * (32 // width))
+            if width != 32:
+                ops += 2 * int(live.sum())
+        return ref.decode_stream(col, width, r, n)
 
-    for col, (lo, hi) in zip(pred_cols,
-                             ref.bounds_list(bounds, len(pred_cols))):
-        read(col)
+    for col, w, (lo, hi) in zip(pred_cols, pred_widths,
+                                ref.bounds_list(bounds, len(pred_cols))):
+        vals = read(col, w)
         ops += 2 * int(live.sum())
-        live &= (col >= lo) & (col <= hi)
+        live &= (vals >= lo) & (vals <= hi)
     group = torch.zeros(n, dtype=torch.int64, device=m1.device)
-    for j, (keys, mult) in enumerate(
-            zip(join_keys, ref.mults_list(mults, len(join_keys)))):
-        read(keys)
+    for j, (col, w, mult) in enumerate(
+            zip(join_keys, key_widths, ref.mults_list(mults, len(join_keys)))):
+        keys = read(col, w, key_refs[j])
         htk, htv = tables[2 * j], tables[2 * j + 1]
         rows = live.nonzero().squeeze(1)
         slot, visited, steps = probe_walk(keys[rows], htk)
@@ -227,14 +285,23 @@ def must_move(spja_args, n_groups: int) -> dict:
         live[rows] = hit
         group[rows[hit]] += htv[slot[hit]].to(torch.int64) * mult
     live &= (group & 0xFFFFFFFF) < n_groups     # the kernel's uint32 test
-    read(m1)
+    read(m1, m_widths[0], m_refs[0])
     if m2 is not None:
-        read(m2)
+        read(m2, m_widths[1], m_refs[1])
     ops += 2 * int(live.sum())
     moved = fact + table + 4 * n_groups
     return {"fact_bytes": fact, "table_bytes": table, "bytes": moved,
             "ops": ops, "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
             "ops_ms": ops / INT32_OPS_PER_S * 1e3}
+
+
+def call_rows(fn: str, args: tuple) -> int:
+    """The rows one call of an opat kernel (or ``unpack``) works on."""
+    if fn == "select_scan_packed":
+        return args[1].shape[0]
+    if fn == "unpack":
+        return int(args[1])
+    return args[0].shape[0]
 
 
 def opat_need(fn: str, args: tuple, out) -> dict:
@@ -249,9 +316,19 @@ def opat_need(fn: str, args: tuple, out) -> dict:
     probe step.  project: 12n bytes, 3 f32 operations a row.  group_sum:
     ids and vals read (8n), the (n_groups,) sums written in the values'
     type (4 bytes a group), an add a row (in the values' type, f32 on the
-    path)."""
-    n = args[0].shape[0]
-    if fn == "select_scan":
+    path).  select_scan_packed: the packed words and y read (4 bytes a
+    word, 4 a row), the selected entries written, 4 operations a row
+    (shift, mask, 2 compares).  unpack: the words read and the n values
+    written, 3 operations a value (shift, mask, add)."""
+    n = call_rows(fn, args)
+    if fn == "select_scan_packed":
+        count = int(out[1])
+        moved = 4 * args[0].shape[0] + 4 * n + 4 * count
+        ops, rate = 4 * n, INT32_OPS_PER_S
+    elif fn == "unpack":
+        moved = 4 * -(-n // (32 // args[2])) + 4 * n
+        ops, rate = 3 * n, INT32_OPS_PER_S
+    elif fn == "select_scan":
         count = int(out[1])
         moved, ops, rate = 8 * n + 4 * count, 2 * n, INT32_OPS_PER_S
     elif fn == "probe_join":
@@ -393,7 +470,8 @@ class Timed:
         lib_ms = (None if self.library is None else
                   event_ms(lambda: self.library(*args, **kw), CALL_REPS))
         self.rows.append(dict(opat_need(self.fn, args, out),
-                              n=args[0].shape[0], ms=ms, plain_ms=plain_ms,
+                              n=call_rows(self.fn, args), ms=ms,
+                              plain_ms=plain_ms,
                               library_ms=lib_ms))
         return out
 
@@ -412,10 +490,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import cases
     from repro_torch.kernels import build, ref, ssb_fused
-    from repro_torch.sql import engine, hashtable, ssb
+    from repro_torch.sql import engine, hashtable, ssb, storage
+    from repro_torch.sql import plan as P
     from repro_torch.sql.compile import compile_plan, fused_inputs
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
-            for m, *_ in OPAT}
+            for m, *_ in OPAT + PACKED}
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -444,9 +523,11 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t:.3f}", flush=True)
 
     t = phase("3 kernel vs plain (synthetic, bit-identical)")
-    max_err = 0.0
-    for i, (label, kw) in enumerate(SYNTHETIC):
-        c = cases.spja_case(1000 + i, **kw)
+    max_err = packed_err = 0.0
+    spja_cases = [(label, kw, cases.spja_case) for label, kw in SYNTHETIC] + \
+        [(label, kw, cases.packed_spja_case) for label, kw in PACKED_SPJA]
+    for i, (label, kw, make) in enumerate(spja_cases):
+        c = make(1000 + i, **kw)
         a, k = c.args(dev)
         before = ssb_fused.LAUNCHES
         got = ssb_fused.spja(*a, **k)
@@ -455,7 +536,10 @@ def main() -> int:
         want = ref.spja(*a, **k)
         torch.cuda.synchronize()
         err = float((got.double() - want.double()).abs().max())
-        max_err = max(max_err, err)
+        if c.packed:
+            packed_err = max(packed_err, err)
+        else:
+            max_err = max(max_err, err)
         if not torch.equal(got, want):
             raise AssertionError(f"{label}: kernel != plain, max |err| {err}")
         nonzero = int((got != 0).sum())
@@ -466,14 +550,15 @@ def main() -> int:
         print(f"{label}: n={c.n} n_groups={c.n_groups} nonzero={nonzero} "
               f"max_abs_err={err} ok", flush=True)
     opat_err = {}
-    for m, fn, *_ in OPAT:
+    for m, fn, counter, *_ in [(m, fn, "LAUNCHES") for m, fn, *_ in OPAT] + \
+            PACKED:
         opat_err[fn] = 0.0
         for label, gen, gen_args, extra, sigmoid in OPAT_SYNTHETIC[fn]:
             args = cases.tensors(getattr(cases, gen)(*gen_args), dev) + extra
             kw = {"sigmoid": sigmoid} if fn == "project" else {}
-            before = mods[m].LAUNCHES
+            before = getattr(mods[m], counter)
             got = getattr(mods[m], fn)(*args, **kw)
-            if mods[m].LAUNCHES != before + 1:
+            if getattr(mods[m], counter) != before + 1:
                 raise AssertionError(f"{fn} {label}: the kernel did not "
                                      "launch")
             again = getattr(mods[m], fn)(*args) if fn == "group_sum" \
@@ -501,12 +586,12 @@ def main() -> int:
     queries = engine.ssb_queries()
     cache = hashtable.HashTableCache()
 
-    def run_pass(mode="auto"):
+    def run_pass(mode="auto", database=db):
         out, launches = {}, {}
         for name, plan in queries.items():
             before = ssb_fused.LAUNCHES
             out[name] = compile_plan(plan, "fused").execute(
-                db, mode=mode, cache=cache)
+                database, mode=mode, cache=cache)
             launches[name] = ssb_fused.LAUNCHES - before
         return out, launches
 
@@ -540,52 +625,56 @@ def main() -> int:
           f"plain on card, oracle (oracle_s {oracle_s:.3f}) "
           f"cache hits {cache.hits} misses {cache.misses}", flush=True)
 
-    rows = []
-    for name, plan in queries.items():
+    def fused_row(name, plan, database, launched, result):
+        """One query's fused times, on this database, beside its bound."""
         q = compile_plan(plan, "fused")
         times = []
         for _ in range(QUERY_REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            q.execute(db, cache=cache)
+            q.execute(database, cache=cache)
             times.append((time.perf_counter() - t0) * 1e3)
-        a, k = fused_inputs(plan, db, cache, dev)
+        a, k = fused_inputs(plan, database, cache, dev)
         kernel_ms = event_ms(functools.partial(ssb_fused.spja, *a, **k),
                              KERNEL_REPS)
         plain_ms = event_ms(functools.partial(ref.spja, *a, **k),
                             PLAIN_REPS)
-        streams = [*a[0], *a[2], a[5]] + ([a[6]] if a[6] is not None else [])
-        n_cols = len({s.data_ptr() for s in streams})
-        fact_bytes = 4 * db.lineorder.n_rows * n_cols
+        streams = {s.data_ptr(): s for s in [*a[0], *a[2], a[5]] + (
+            [a[6]] if a[6] is not None else [])}
+        n_cols = len(streams)
+        fact_bytes = sum(4 * s.numel() for s in streams.values())
         table_bytes = sum(t.numel() * t.element_size() for t in a[3])
         stream_ms = (fact_bytes + table_bytes + 4 * plan.n_groups) \
             / HBM_BYTES_PER_S * 1e3
-        need = must_move(a, plan.n_groups)
+        need = must_move(a, **k)
         bound_ms = max(need["bytes_ms"], need["ops_ms"])
-        row = {"query": name, "n_groups": plan.n_groups,
-               "launches": launches[name],
-               "groups_nonzero": int(np.count_nonzero(first[name])),
-               "result_sum": float(first[name].astype(np.float64).sum()),
-               "query_ms": statistics.median(times),
-               "query_ms_max": max(times), "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "fact_columns": n_cols,
-               "fact_GB": fact_bytes / 1e9, "table_MB": table_bytes / 1e6,
-               "GBps": fact_bytes / kernel_ms / 1e6,
-               "stream_bound_ms": stream_ms,
-               "stream_share": stream_ms / kernel_ms,
-               "need_fact_GB": need["fact_bytes"] / 1e9,
-               "need_table_MB": need["table_bytes"] / 1e6,
-               "need_Gops": need["ops"] / 1e9,
-               "bytes_ms": need["bytes_ms"], "ops_ms": need["ops_ms"],
-               "bound_ms": bound_ms,
-               "bound_by": "bytes" if need["bytes_ms"] >= need["ops_ms"]
-               else "operations",
-               "bound_share": bound_ms / kernel_ms}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-    tot = {k: sum(r[k] for r in rows)
-           for k in ("query_ms", "kernel_ms", "plain_ms", "stream_bound_ms",
-                     "bytes_ms", "ops_ms", "bound_ms")}
+        return {"query": name, "n_groups": plan.n_groups,
+                "launches": launched,
+                "groups_nonzero": int(np.count_nonzero(result)),
+                "result_sum": float(result.astype(np.float64).sum()),
+                "query_ms": statistics.median(times),
+                "query_ms_max": max(times), "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "fact_columns": n_cols,
+                "fact_GB": fact_bytes / 1e9, "table_MB": table_bytes / 1e6,
+                "GBps": fact_bytes / kernel_ms / 1e6,
+                "stream_bound_ms": stream_ms,
+                "stream_share": stream_ms / kernel_ms,
+                "need_fact_GB": need["fact_bytes"] / 1e9,
+                "need_table_MB": need["table_bytes"] / 1e6,
+                "need_Gops": need["ops"] / 1e9,
+                "bytes_ms": need["bytes_ms"], "ops_ms": need["ops_ms"],
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if need["bytes_ms"] >= need["ops_ms"]
+                else "operations",
+                "bound_share": bound_ms / kernel_ms}
+
+    rows = []
+    for name, plan in queries.items():
+        rows.append(fused_row(name, plan, db, launches[name], first[name]))
+        print(json.dumps(rows[-1]), flush=True)
+    totals = ("query_ms", "kernel_ms", "plain_ms", "stream_bound_ms",
+              "bytes_ms", "ops_ms", "bound_ms")
+    tot = {k: sum(r[k] for r in rows) for k in totals}
     print(f"totals {json.dumps(tot)}")
     print("profile fused " + json.dumps(profiled(run_pass)), flush=True)
     print(f"phase4_s {time.perf_counter() - t:.3f}", flush=True)
@@ -602,13 +691,13 @@ def main() -> int:
     def counts():
         return [mod.LAUNCHES for mod in kernel_mods]
 
-    def run_opat(mode="auto"):
+    def run_opat(mode="auto", database=db, count=counts):
         out, per = {}, {}
         for name, plan in queries.items():
-            before = counts()
+            before = count()
             out[name] = compile_plan(plan, "opat").execute(
-                db, mode=mode, cache=cache)
-            per[name] = [a - b for a, b in zip(counts(), before)]
+                database, mode=mode, cache=cache)
+            per[name] = [a - b for a, b in zip(count(), before)]
         return out, per
 
     for mod in kernel_mods:
@@ -681,8 +770,9 @@ def main() -> int:
     for name in queries:
         if not same_bits(timed[name], opat[name]):
             raise AssertionError(f"{name}: the timed opat pass differs")
-    for (m, fn, src, replaces), launched in zip(OPAT, opat_launches):
-        calls = timers[fn].rows
+    def kernel_entry(fn, src, replaces, launched, err, calls):
+        """The kernels line's entry for one kernel from its timed calls
+        (each printed on its own line)."""
         for r in calls:
             print(json.dumps({"call": fn, "n": r["n"], "ms": r["ms"],
                               "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
@@ -696,17 +786,182 @@ def main() -> int:
         entry = {"name": fn, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}",
                  "replaces": replaces, "launches": launched,
-                 "max_abs_err": max(opat_err[fn], timers[fn].err),
-                 "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                 "bound_ms": bound_ms,
+                 "max_abs_err": err, "ms": tot["ms"],
+                 "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                  else "operations",
                  "library_ms": sum(lib) if lib else None}
-        kernels.append(entry)
         print(json.dumps(dict(entry, calls=len(calls), GB=tot["bytes"] / 1e9,
                               Gops=tot["ops"] / 1e9,
                               bound_share=bound_ms / tot["ms"])), flush=True)
+        return entry
+
+    for (m, fn, src, replaces), launched in zip(OPAT, opat_launches):
+        kernels.append(kernel_entry(fn, src, replaces, launched,
+                                    max(opat_err[fn], timers[fn].err),
+                                    timers[fn].rows))
     print(f"phase5_s {time.perf_counter() - t:.3f}")
+
+    t = phase(f"6 packed storage: 13 SSB queries, fused and opat, SF {SF}")
+    t0 = time.perf_counter()
+    pdb = storage.pack_database(db)
+    print(f"pack_s {time.perf_counter() - t0:.3f}")
+    for col, pc in pdb.lineorder.columns.items():
+        e = pc.encoding
+        print(f"{col}: {e.kind} width {e.width} phys {e.phys} ref {e.ref}")
+    pdb.to(dev)
+    torch.cuda.synchronize()
+    print(f"resident_GB {pdb.lineorder.resident_bytes(dev) / 1e9:.3f} "
+          f"(plain {db.lineorder.resident_bytes(dev) / 1e9:.3f})", flush=True)
+    hits, misses = cache.hits, cache.misses
+
+    ssb_fused.LAUNCHES = 0
+    pfirst, plaunched = run_pass(database=pdb)
+    packed_launches = ssb_fused.LAUNCHES
+    if packed_launches != len(queries) or set(plaunched.values()) != {1}:
+        raise AssertionError(f"expected one launch per query, got "
+                             f"{plaunched}")
+    ssb_fused.LAUNCHES = 0
+    psecond, _ = run_pass(database=pdb)
+    if ssb_fused.LAUNCHES != len(queries):
+        raise AssertionError(f"second pass launched {ssb_fused.LAUNCHES}")
+    pplain, pl = run_pass(mode="ref", database=pdb)
+    if set(pl.values()) != {0}:
+        raise AssertionError("mode='ref' launched the kernel")
+    for name in queries:
+        for other, what in ((oracle[name], "numpy oracle"),
+                            (first[name], "plain fused path"),
+                            (psecond[name], "second pass"),
+                            (pplain[name], "plain version on the card")):
+            if not same_bits(pfirst[name], other):
+                diff = np.abs(pfirst[name].astype(np.float64) - other).max()
+                raise AssertionError(f"{name} packed fused: differs from the "
+                                     f"{what} (max |diff| {diff})")
+        packed_err = max(packed_err, float(np.abs(
+            pfirst[name].astype(np.float64) - pplain[name]).max()))
+
+    sel_mod = mods["select_scan"]
+
+    def counts6():
+        return [sel_mod.PACKED_LAUNCHES] + counts()
+
+    def reset6():
+        sel_mod.PACKED_LAUNCHES = 0
+        for mod in kernel_mods:
+            mod.LAUNCHES = 0
+
+    reset6()
+    popat, pper = run_opat(database=pdb, count=counts6)
+    popat_launches = counts6()
+    reset6()
+    popat_second, _ = run_opat(database=pdb, count=counts6)
+    if counts6() != popat_launches:
+        raise AssertionError(f"second packed opat pass launched {counts6()}, "
+                             f"the first {popat_launches}")
+    popat_plain, pp = run_opat(mode="ref", database=pdb, count=counts6)
+    if any(any(v) for v in pp.values()):
+        raise AssertionError("mode='ref' launched a kernel")
+    for name, plan in queries.items():
+        lead = int(bool(plan.filters) and isinstance(plan.chain[1], P.Filter))
+        shape = [lead, len(plan.filters) - lead, len(plan.joins),
+                 int(plan.measure_op == "sub"), 1]
+        if pper[name] != shape:
+            if popat[name].any() or any(
+                    a > b for a, b in zip(pper[name], shape)):
+                raise AssertionError(f"{name}: packed opat launches "
+                                     f"{pper[name]}, the plan's {shape}")
+            print(f"{name}: rows ran out, launches {pper[name]} of {shape}")
+        for other, what in ((oracle[name], "numpy oracle"),
+                            (first[name], "plain fused path"),
+                            (popat_second[name], "second pass"),
+                            (popat_plain[name], "plain versions on the card")):
+            if not same_bits(popat[name], other):
+                diff = np.abs(popat[name].astype(np.float64) - other).max()
+                raise AssertionError(f"{name} packed opat: differs from the "
+                                     f"{what} (max |diff| {diff})")
+    if cache.misses != misses:
+        raise AssertionError(f"{cache.misses - misses} hash-table builds "
+                             "missed the cache warmed on the plain database")
+    print(f"launches_per_pass spja={packed_launches} " + " ".join(
+        f"{fn}={n}" for fn, n in zip(
+            ["select_scan_packed"] + [fn for _, fn, *_ in OPAT],
+            popat_launches)) +
+        " bit-identical: oracle, plain fused, second pass, plain on card; "
+        f"cache hits {cache.hits - hits} misses {cache.misses - misses}",
+        flush=True)
+
+    prows = []
+    for (name, plan), plain_row in zip(queries.items(), rows):
+        row = fused_row(name, plan, pdb, plaunched[name], pfirst[name])
+        q = compile_plan(plan, "opat")
+        times = []
+        for _ in range(QUERY_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.execute(pdb, cache=cache)
+            times.append((time.perf_counter() - t0) * 1e3)
+        row.update({"opat_launches": pper[name],
+                    "opat_query_ms": statistics.median(times),
+                    "plain_kernel_ms": plain_row["kernel_ms"],
+                    "plain_query_ms": plain_row["query_ms"],
+                    "plain_bound_ms": plain_row["bound_ms"],
+                    "plain_need_fact_GB": plain_row["need_fact_GB"]})
+        prows.append(row)
+        print(json.dumps(row), flush=True)
+    ptot = {k: sum(r[k] for r in prows)
+            for k in totals + ("opat_query_ms", "plain_kernel_ms",
+                               "plain_query_ms", "plain_bound_ms")}
+    print(f"totals {json.dumps(ptot)}", flush=True)
+    kernels[0]["packed"] = {
+        "launches": packed_launches, "max_abs_err": packed_err,
+        "ms": ptot["kernel_ms"], "plain_ms": ptot["plain_ms"],
+        "bound_ms": ptot["bound_ms"],
+        "bound_by": "bytes" if ptot["bytes_ms"] >= ptot["ops_ms"]
+        else "operations"}
+
+    (m, fn, _, src, replaces), (um, ufn, _, usrc, ureplaces) = PACKED
+    with Timed(mods[m], fn, getattr(ref, fn)) as timer:
+        timed, _ = run_opat(database=pdb, count=counts6)
+    for name in queries:
+        if not same_bits(timed[name], popat[name]):
+            raise AssertionError(f"{name}: the timed packed opat pass "
+                                 "differs")
+    kernels.append(kernel_entry(fn, src, replaces, popat_launches[0],
+                                max(opat_err[fn], timer.err), timer.rows))
+
+    unp = mods[um]
+    packed_cols = [(col, pc.encoding)
+                   for col, pc in pdb.lineorder.columns.items()
+                   if pc.encoding.kind != "plain"]
+    unp.LAUNCHES = 0
+    for col, e in packed_cols:
+        words = pdb.lineorder.on_device(col, dev)
+        got = unp.unpack(words, e.n_rows, e.phys, e.ref)
+        for other, what in ((ref.unpack(words, e.n_rows, e.phys, e.ref),
+                             "plain version"),
+                            (db.lineorder.on_device(col, dev),
+                             "resident plain column")):
+            if not torch.equal(got, other):
+                raise AssertionError(f"unpack {col}: differs from the {what}")
+    unpack_launches = unp.LAUNCHES
+    if unpack_launches != len(packed_cols):
+        raise AssertionError(f"unpack launched {unpack_launches} times for "
+                             f"{len(packed_cols)} columns")
+    print(f"unpack: {unpack_launches} packed columns bit-identical to the "
+          "plain version and the resident plain column", flush=True)
+    calls = []
+    for col, e in packed_cols:
+        a = (pdb.lineorder.on_device(col, dev), e.n_rows, e.phys, e.ref)
+        out = unp.unpack(*a)
+        calls.append(dict(opat_need(ufn, a, out), n=e.n_rows,
+                          ms=event_ms(functools.partial(unp.unpack, *a),
+                                      KERNEL_REPS),
+                          plain_ms=event_ms(functools.partial(ref.unpack, *a),
+                                            1),
+                          library_ms=None))
+    kernels.append(kernel_entry(ufn, usrc, ureplaces, unpack_launches,
+                                opat_err[ufn], calls))
+    print(f"phase6_s {time.perf_counter() - t:.3f}")
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 

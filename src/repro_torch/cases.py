@@ -7,8 +7,11 @@ duplicate build keys (the first row wins), probe chains that wrap the
 end of the table, negative keys, an all-EMPTY build side, probe keys
 that miss, group ids past ``n_groups`` (dropped), selectivity 0 and 1,
 f32 predicate columns, int32 sums that overflow and f32 sums that are
-not integers.  Every case is a tuple of host arrays and scalars;
-``tensors`` moves its arrays to a device.
+not integers; and, for the packed kernels, every packed width 1-16, row
+counts that are not a multiple of a word's values, frame-of-reference
+keys and measures (SSB data at SF 20 packs with reference 0 only), and
+words whose sign bit is set.  Every case is a tuple of host arrays and
+scalars; ``tensors`` moves its arrays to a device.
 """
 from __future__ import annotations
 
@@ -18,7 +21,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import PHYS_WIDTHS
+from repro_torch.sql import storage
 from repro_torch.sql.hashtable import next_pow2, np_build, np_hash
+
+PACKED_WIDTHS = PHYS_WIDTHS[:-1]        # the widths that pack (below 32)
 
 
 @dataclass
@@ -33,6 +40,9 @@ class SpjaCase:
     m2: Optional[np.ndarray]
     measure_op: str = "first"
     n_groups: int = 1
+    # packed streams (see ``packed_spja_case``): spja's keyword arguments
+    # pred_widths, key_widths, key_refs, m_widths, m_refs, n_rows
+    packed: Optional[dict] = None
 
     def args(self, device) -> tuple:
         """(positional args, keyword args) with the streams and tables as
@@ -44,10 +54,13 @@ class SpjaCase:
             [t(k) for k in self.join_keys],
             [t(h) for h in self.join_tables], self.group_mults,
             t(self.m1), None if self.m2 is None else t(self.m2)),
-            dict(measure_op=self.measure_op, n_groups=self.n_groups))
+            dict(measure_op=self.measure_op, n_groups=self.n_groups,
+                 **(self.packed or {})))
 
     @property
     def n(self) -> int:
+        if self.packed:
+            return int(self.packed["n_rows"])
         return int(self.m1.shape[0])
 
 
@@ -128,6 +141,79 @@ def spja_case(seed: int, n: int, n_preds: int, n_joins: int,
     return SpjaCase(pred_cols, np.array(bounds, np.int32).reshape(-1, 2),
                     join_keys, tables, np.array(mults, np.int32), m1, m2,
                     measure_op, n_groups)
+
+
+def packed_spja_case(seed: int, n: int, n_preds: int, n_joins: int,
+                     measure_op: str, n_groups: int, pred_phys: int = 8,
+                     m_offset: int = 100_000, **kw) -> SpjaCase:
+    """``spja_case`` with every stream bit-packed: predicate columns drawn
+    in [0, 2^pred_phys) and packed at ``pred_phys`` bits (bounds in that
+    domain, one of them reaching its top value, so top lanes with the
+    sign bit set are selected), join keys frame-of-reference packed
+    (their domain holds negative keys; one past 16 bits stays a plain
+    stream among packed ones), measures shifted by ``m_offset`` and
+    frame-of-reference packed."""
+    c = spja_case(seed, n, n_preds, n_joins, measure_op, n_groups, **kw)
+    rng = np.random.default_rng(seed + 1)
+    top = (1 << pred_phys) - 1
+    pred_cols, bounds = [], []
+    for p in range(n_preds):
+        pred_cols.append(rng.integers(0, top + 1, n, dtype=np.int32))
+        lo = int(rng.integers(0, top + 1))
+        bounds.append((lo, top if p == 0 else
+                       min(top, lo + int(rng.integers(0, top + 1)))))
+
+    def pack(vals):         # a domain past 16 bits stays plain
+        col = storage.pack_column(vals)
+        return col.words, col.encoding
+
+    keys = [pack(k) for k in c.join_keys]
+    ms = [pack((m + m_offset).astype(np.int32))
+          for m in ((c.m1,) if c.m2 is None else (c.m1, c.m2))]
+    c.pred_cols = [storage.pack_words(v, pred_phys) for v in pred_cols]
+    c.pred_bounds = np.array(bounds, np.int32).reshape(-1, 2)
+    c.join_keys = [w for w, _ in keys]
+    c.m1 = ms[0][0]
+    c.m2 = ms[1][0] if len(ms) == 2 else None
+    c.packed = dict(
+        pred_widths=(pred_phys,) * n_preds,
+        key_widths=tuple(e.phys for _, e in keys),
+        key_refs=np.array([e.ref for _, e in keys], np.int32),
+        m_widths=tuple(e.phys for _, e in ms),
+        m_refs=np.array([e.ref for _, e in ms], np.int32), n_rows=n)
+    return c
+
+
+def packed_values(rng: np.random.Generator, n: int, phys: int,
+                  ref: int = 0) -> np.ndarray:
+    """n values in [ref, ref + 2^phys) whose first word's top lane holds
+    the top value, so that word's sign bit is set."""
+    vals = rng.integers(0, 1 << phys, n, dtype=np.int64)
+    c = 32 // phys
+    if n >= c:
+        vals[c - 1] = (1 << phys) - 1
+    return (vals + ref).astype(np.int32)
+
+
+def unpack_case(seed: int, n: int, phys: int, ref: int = 0) -> tuple:
+    """(words, n, phys, ref) for ``unpack``: n values packed at ``phys``
+    bits with frame of reference ``ref``."""
+    vals = packed_values(np.random.default_rng(seed), n, phys, ref)
+    return storage.pack_words(vals, phys, ref), n, phys, ref
+
+
+def select_packed_case(seed: int, n: int, phys: int,
+                       selectivity: str = "mid") -> tuple:
+    """(words, y, lo, hi, phys) for ``select_scan_packed``: x packed at
+    ``phys`` bits, bounds in its domain; "mid" keeps about half the rows
+    and includes the top value, "none" none, "all" all."""
+    rng = np.random.default_rng(seed)
+    x = packed_values(rng, n, phys)
+    y = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    top = (1 << phys) - 1
+    lo, hi = {"mid": ((top + 1) // 2, top), "none": (top + 1, top + 9),
+              "all": (0, top)}[selectivity]
+    return storage.pack_words(x, phys), y, lo, hi, phys
 
 
 def tensors(case: tuple, device) -> tuple:

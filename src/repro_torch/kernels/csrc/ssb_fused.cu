@@ -2,11 +2,11 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssb_fused.py::spja
-// (_make_kernel) for plain int32 streams.  Per fact row: closed-range
-// predicates, up to kMaxJoins linear-probe lookups into open-addressing
-// dimension tables (a miss filters the row), group id = sum of
-// payload * mult (int32, wrapping), measure m1 / m1*m2 / m1-m2, and a sum
-// per group.
+// (_make_kernel), for plain int32 streams and bit-packed ones.  Per fact
+// row: closed-range predicates, up to kMaxJoins linear-probe lookups into
+// open-addressing dimension tables (a miss filters the row), group id =
+// sum of payload * mult (int32, wrapping), measure m1 / m1*m2 / m1-m2, and
+// a sum per group.
 //
 // What bounds it: device-memory bytes at 3.35 TB/s.  A query's first
 // column is read in full; a later column only in the 64-byte segments
@@ -46,9 +46,21 @@
 //    lane).  A row already filtered skips its later loads and probes.
 //  * A live row whose group id falls outside [0, n_groups) is dropped,
 //    as the reference's scatter drops it.
+//  * Every stream, plain or bit-packed (src/repro_torch/sql/storage.py's
+//    layout), is loaded by packed.cuh's decode: word r >> lg, lane shift
+//    (r & (c-1)) * phys, mask, then the stream's reference (0 for a
+//    predicate, whose bounds are already in the encoded domain).  A plain
+//    int32 column is phys 32: lg 0, mask all ones, ref 0.  A warp reads
+//    32 neighbouring rows, 128 * phys / 32 contiguous bytes, so a packed
+//    column moves phys / 32 of a plain one's bytes.  One decode for both
+//    kinds is also the faster code: ptxas gives the 4 + 4 instance 23
+//    registers, where separate plain loads took 30, and plain queries run
+//    faster through it (PERF.md, section 6: chip_smoke.py against the
+//    kernel with plain loads, in turns in one call, H100).
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
+#include "packed.cuh"
 
 namespace {
 
@@ -57,14 +69,26 @@ namespace {
 constexpr int kMaxPreds = 8;
 constexpr int kMaxJoins = 8;
 // SSB needs at most 3 predicates and 4 joins.  The kernel unrolls its
-// predicate and join slots, and 8 + 8 slots take 57 registers a thread
-// where 4 + 4 take 32 (ptxas): half the blocks an SM, and 1.45x the
-// 13-query time (chip_smoke.py, H100).  So a plan that fits 4 + 4 runs
-// an instance with 4 + 4 slots.
+// predicate and join slots; with plain int32 loads, 8 + 8 slots took 57
+// registers a thread where 4 + 4 took 32 (ptxas): half the blocks an SM,
+// and 1.45x the 13-query time (chip_smoke.py, H100).  So a plan that fits
+// 4 + 4 runs an instance with 4 + 4 slots.  With the decode below every
+// stream goes through, they take 28 and 23 registers, both full
+// occupancy, and the 8 + 8 instance alone still ran the 13 queries 1.69x
+// slower, plain and packed (spja_ab.py, H100).
 constexpr int kNarrow = 4;
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kDefaultSmem = 48 * 1024;
+
+// How one stream is stored: plain (phys 32, lg 0, mask all ones, ref 0)
+// or packed; ref is added to a key's or a measure's decoded lane.
+struct StreamWidth {
+  int lg;
+  int phys;
+  unsigned mask;
+  unsigned ref;
+};
 
 struct SpjaParams {
   const int* pred_cols[kMaxPreds];
@@ -77,6 +101,9 @@ struct SpjaParams {
   unsigned mults[kMaxJoins];
   const int* m1;
   const int* m2;
+  StreamWidth pred_w[kMaxPreds];
+  StreamWidth key_w[kMaxJoins];
+  StreamWidth m_w[2];
   unsigned long long* out;       // (n_groups,) int64 sums, zeroed
   long long n;
   int n_preds;
@@ -84,6 +111,14 @@ struct SpjaParams {
   int measure_op;                // 0 first, 1 mul, 2 sub
   int n_groups;
 };
+
+// Row r of a stream as an int32 value.
+__device__ __forceinline__ int load(const int* col, long long r,
+                                    const StreamWidth& w) {
+  // an unsigned add wraps as the reference's int32 add
+  return static_cast<int>(packed_lane(reinterpret_cast<const unsigned*>(col),
+                                      r, w.lg, w.phys, w.mask) + w.ref);
+}
 
 template <int kPreds, int kJoins>
 __global__ void __launch_bounds__(kThreads)
@@ -108,7 +143,7 @@ spja_kernel(const SpjaParams p) {
 #pragma unroll
       for (int q = 0; q < kPreds; ++q) {
         if (q < p.n_preds && live) {
-          const int v = __ldg(p.pred_cols[q] + r);
+          const int v = load(p.pred_cols[q], r, p.pred_w[q]);
           live = v >= p.pred_lo[q] && v <= p.pred_hi[q];
         }
       }
@@ -118,16 +153,17 @@ spja_kernel(const SpjaParams p) {
         if (j < p.n_joins && live) {
           int payload = 0;
           live = probe(p.ht_keys[j], p.ht_vals[j], p.ht_mask[j],
-                       __ldg(p.join_keys[j] + r), &payload);
+                       load(p.join_keys[j], r, p.key_w[j]),
+                       &payload);
           group += static_cast<unsigned>(payload) * p.mults[j];
         }
       }
       if (!live || group >= static_cast<unsigned>(p.n_groups)) continue;
-      long long m = __ldg(p.m1 + r);
+      long long m = load(p.m1, r, p.m_w[0]);
       if (p.measure_op == 1) {
-        m *= __ldg(p.m2 + r);
+        m *= load(p.m2, r, p.m_w[1]);
       } else if (p.measure_op == 2) {
-        m -= __ldg(p.m2 + r);
+        m -= load(p.m2, r, p.m_w[1]);
       }
       if (scalar) {
         own += m;
@@ -179,8 +215,8 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
   long long grid = (p.n + tile - 1) / tile;
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (grid > resident) grid = resident;
-  spja_kernel<kPreds, kJoins><<<static_cast<unsigned>(grid), kThreads, smem,
-                                stream>>>(p);
+  spja_kernel<kPreds, kJoins>
+      <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,7 +225,11 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
 // ptrs (device addresses): pred_cols[kMaxPreds], join_keys[kMaxJoins],
 //   ht_keys[kMaxJoins], ht_vals[kMaxJoins], m1, m2 — unused slots null.
 // ints: n_preds, n_joins, measure_op, n_groups, pred_lo[kMaxPreds],
-//   pred_hi[kMaxPreds], ht_mask[kMaxJoins], mults[kMaxJoins].
+//   pred_hi[kMaxPreds], ht_mask[kMaxJoins], mults[kMaxJoins],
+//   pred_phys[kMaxPreds], key_phys[kMaxJoins], m_phys[2],
+//   key_ref[kMaxJoins], m_ref[2] — phys 32 for a plain stream (its ref
+//   is ignored), else the packed width; unused slots phys 32.
+// n: the fact rows (a packed stream holds ceil(n / (32 / phys)) words).
 // out: (n_groups,) int64, zeroed by the caller.  Launches on `stream`,
 // does not synchronise, returns cudaGetLastError().
 extern "C" int spja_launch(const void* const* ptrs, const int* ints,
@@ -217,11 +257,30 @@ extern "C" int spja_launch(const void* const* ptrs, const int* ints,
     p.ht_mask[j] = static_cast<unsigned>(ints[i++]);
   for (int j = 0; j < kMaxJoins; ++j)
     p.mults[j] = static_cast<unsigned>(ints[i++]);
+  bool bad = false;
+  auto width = [&](StreamWidth* w) {
+    w->phys = ints[i++];
+    w->lg = lanes_log2(w->phys);
+    w->mask = w->lg < 0 ? 0u : lane_mask(w->phys);
+    w->ref = 0u;
+    bad = bad || w->lg < 0;
+  };
+  for (int q = 0; q < kMaxPreds; ++q) width(&p.pred_w[q]);
+  for (int j = 0; j < kMaxJoins; ++j) width(&p.key_w[j]);
+  for (int k = 0; k < 2; ++k) width(&p.m_w[k]);
+  for (int j = 0; j < kMaxJoins; ++j) {
+    const int ref = ints[i++];
+    if (p.key_w[j].phys != 32) p.key_w[j].ref = static_cast<unsigned>(ref);
+  }
+  for (int k = 0; k < 2; ++k) {
+    const int ref = ints[i++];
+    if (p.m_w[k].phys != 32) p.m_w[k].ref = static_cast<unsigned>(ref);
+  }
   p.out = static_cast<unsigned long long*>(out);
   p.n = n;
   if (p.n_preds < 0 || p.n_preds > kMaxPreds || p.n_joins < 0 ||
       p.n_joins > kMaxJoins || p.measure_op < 0 || p.measure_op > 2 ||
-      p.n_groups < 1 || n <= 0)
+      p.n_groups < 1 || n <= 0 || bad)
     return static_cast<int>(cudaErrorInvalidValue);
 
   const size_t smem = p.n_groups == 1

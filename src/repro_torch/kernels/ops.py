@@ -14,6 +14,7 @@ from repro_torch.kernels import project as _proj
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import select_scan as _sel
 from repro_torch.kernels import ssb_fused as _fused
+from repro_torch.kernels import unpack as _unp
 
 MODES = ("auto", "kernel", "ref")
 
@@ -33,15 +34,21 @@ def use_kernel(mode: str, device) -> bool:
 
 def spja(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
          m1, m2=None, measure_op: str = "first", n_groups: int = 1,
-         mode: str = "auto"):
-    """Whole SPJA query over int32 fact streams -> (n_groups,) f32 on the
-    streams' device.  Arguments as ``ssb_fused.spja``; an m2 given with
-    ``measure_op="first"`` is ignored (never loaded)."""
+         mode: str = "auto", pred_widths=None, key_widths=None,
+         key_refs=None, m_widths=None, m_refs=None, n_rows=None):
+    """Whole SPJA query over int32 fact streams, plain or bit-packed ->
+    (n_groups,) f32 on the streams' device.  Arguments as
+    ``ssb_fused.spja``; an m2 given with ``measure_op="first"`` is
+    ignored (never loaded).  ``n_rows`` is required when the measure
+    stream is packed (its length is then the word count)."""
     if measure_op not in ("mul", "sub"):
         m2 = None
     fn = _fused.spja if use_kernel(mode, m1.device) else _ref.spja
     return fn(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
-              m1, m2, measure_op=measure_op, n_groups=n_groups)
+              m1, m2, measure_op=measure_op, n_groups=n_groups,
+              pred_widths=pred_widths, key_widths=key_widths,
+              key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
+              n_rows=n_rows)
 
 
 def select_scan(x, y, lo, hi, mode: str = "auto"):
@@ -49,6 +56,28 @@ def select_scan(x, y, lo, hi, mode: str = "auto"):
     past the count.  x: int32 or f32; y: 4-byte."""
     fn = _sel.select_scan if use_kernel(mode, x.device) else _ref.select_scan
     return fn(x, y, lo, hi)
+
+
+def select_scan_packed(words, y, lo, hi, phys: int, mode: str = "auto"):
+    """``select_scan`` over a bit-packed predicate column at ``phys``
+    bits, the bounds in the encoded domain (``storage.encoded_bounds``)
+    -> (out (n,), count) with n = y.shape[0].  A plain column (phys 32)
+    goes to ``select_scan``."""
+    if phys == 32:
+        return select_scan(words, y, lo, hi, mode=mode)
+    fn = _sel.select_scan_packed if use_kernel(mode, words.device) else \
+        _ref.select_scan_packed
+    return fn(words, y, lo, hi, phys)
+
+
+def unpack(words, n: int, phys: int, ref=0, mode: str = "auto"):
+    """Materializing bit-unpack: ``(n_words,)`` packed int32 words at
+    ``phys`` bits -> the first ``n`` int32 values (+ ref).  A plain
+    column (phys 32) is ``words[:n] + ref``."""
+    if phys == 32:
+        return words[:n] + int(ref)
+    fn = _unp.unpack if use_kernel(mode, words.device) else _ref.unpack
+    return fn(words, n, phys, ref)
 
 
 def probe_join(keys, vals, ht_keys, ht_vals, mode: str = "auto"):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as B
+from repro_torch.kernels.common import PHYS_WIDTHS, decode_words
 
 MEASURE_OPS = ("first", "mul", "sub")
 
@@ -59,35 +60,102 @@ def measure(m1: torch.Tensor, m2, measure_op: str) -> torch.Tensor:
     return m
 
 
+def refs_list(refs, k: int) -> List[int]:
+    """The first k frame-of-reference values (all 0 when None)."""
+    if refs is None:
+        return [0] * k
+    r = _host_ints(refs).reshape(-1)
+    if r.shape[0] < k:
+        raise ValueError(f"{r.shape[0]} references for {k} streams")
+    return [int(v) for v in r[:k]]
+
+
+def stream_widths(widths, k: int) -> Tuple[int, ...]:
+    """The first k streams' widths: 32 (a plain int32 column) unless
+    given, else one of the packed layout's widths."""
+    w = tuple(int(v) for v in widths)[:k] if widths else (32,) * k
+    if len(w) < k or any(v not in PHYS_WIDTHS for v in w):
+        raise ValueError(f"widths {w} for {k} streams: each must be one "
+                         f"of {PHYS_WIDTHS}")
+    return w
+
+
+def decode_stream(arr: torch.Tensor, width: int, ref: int,
+                  n: int) -> torch.Tensor:
+    """A stream as its n int32 values: a plain column as it is, a packed
+    word stream decoded with its reference."""
+    if width == 32:
+        return arr
+    return decode_words(arr, width, ref)[:n]
+
+
 def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
          join_keys: Sequence[torch.Tensor],
          join_tables: Sequence[torch.Tensor], group_mults,
          m1: torch.Tensor, m2=None, measure_op: str = "first",
-         n_groups: int = 1) -> torch.Tensor:
-    """Fused select-project-join-aggregate over int32 streams ->
-    (n_groups,) f32.
+         n_groups: int = 1, pred_widths=None, key_widths=None,
+         key_refs=None, m_widths=None, m_refs=None,
+         n_rows=None) -> torch.Tensor:
+    """Fused select-project-join-aggregate -> (n_groups,) f32.
 
     Range predicates, then one linear-probe lookup per join (a miss
     filters the row), group id = sum of payload * mult in int32, measure
     m1 / m1*m2 / m1-m2.  Sums are exact in int64 (``index_add_``) and
     cast to f32 once, so the result is the exact sum rounded to nearest
     — the numpy oracle's float64 sum cast to f32, and the CUDA kernel's
-    result, bit for bit."""
-    n = m1.shape[0]
-    live = torch.ones((n,), dtype=torch.bool, device=m1.device)
-    for col, (lo, hi) in zip(pred_cols,
-                             bounds_list(pred_bounds, len(pred_cols))):
-        live &= B.block_pred_range(col, lo, hi) > 0
-    group = torch.zeros((n,), dtype=torch.int32, device=m1.device)
-    for j, (keys, mult) in enumerate(
-            zip(join_keys, mults_list(group_mults, len(join_keys)))):
-        payload, found = B.block_lookup(keys, join_tables[2 * j],
+    result, bit for bit.
+
+    Any stream may be bit-packed (its width below 32): it is then the
+    word stream of ``repro_torch.sql.storage``, of ``n_rows`` values.
+    Packed predicate columns compare their raw lanes (the bounds are in
+    the encoded domain); packed keys and measures add their reference
+    (``key_refs``, ``m_refs``; ignored on plain streams)."""
+    n_meas = 2 if measure_op in ("mul", "sub") else 1
+    pred_widths = stream_widths(pred_widths, len(pred_cols))
+    key_widths = stream_widths(key_widths, len(join_keys))
+    m_widths = stream_widths(m_widths, n_meas)
+    krefs = refs_list(key_refs, len(join_keys))
+    mrefs = refs_list(m_refs, n_meas)
+    if n_rows is None:
+        if m_widths[0] != 32:
+            raise ValueError("n_rows is required when the measure stream "
+                             "is bit-packed")
+        n_rows = m1.shape[0]
+    n = int(n_rows)
+    device = m1.device
+    live = torch.ones((n,), dtype=torch.bool, device=device)
+    for col, w, (lo, hi) in zip(pred_cols, pred_widths,
+                                bounds_list(pred_bounds, len(pred_cols))):
+        live &= B.block_pred_range(decode_stream(col, w, 0, n), lo, hi) > 0
+    group = torch.zeros((n,), dtype=torch.int32, device=device)
+    for j, (keys, w, mult) in enumerate(
+            zip(join_keys, key_widths,
+                mults_list(group_mults, len(join_keys)))):
+        payload, found = B.block_lookup(decode_stream(keys, w, krefs[j], n),
+                                        join_tables[2 * j],
                                         join_tables[2 * j + 1])
         live &= found > 0
         group += payload * mult
-    sums = B.block_group_aggregate(group, measure(m1, m2, measure_op),
-                                   live, n_groups)
+    ms = [decode_stream(m, w, r, n)
+          for m, w, r in zip((m1, m2)[:n_meas], m_widths, mrefs)]
+    sums = B.block_group_aggregate(
+        group, measure(ms[0], ms[1] if n_meas == 2 else None, measure_op),
+        live, n_groups)
     return sums.to(torch.float32)
+
+
+def unpack(words: torch.Tensor, n: int, phys: int, ref=0) -> torch.Tensor:
+    """The first ``n`` values of a packed word stream at ``phys`` bits
+    per value, plus the frame of reference."""
+    return decode_words(words, phys, int(ref))[:n]
+
+
+def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
+                       phys: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``select_scan`` over a bit-packed predicate column: SELECT y WHERE
+    lo <= decode(x) <= hi with the bounds in the encoded domain; rows
+    past ``y.shape[0]`` (a last word's padding lanes) never match."""
+    return select_scan(decode_words(words, phys)[:y.shape[0]], y, lo, hi)
 
 
 def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi

@@ -1,14 +1,17 @@
 """Selection scan on the card: SELECT y WHERE lo <= x <= hi, stable
 (paper Fig. 4b, Q0/Q3; the opat chain's filter).
 
-Wrapper of the hand-written CUDA kernel ``csrc/select_scan.cu``, the port
-of the Pallas TPU kernel ``repro/kernels/select_scan.py::select_scan``.
-Same contract as ``ref.select_scan``: (out (n,), count), the selected
-entries in row order and zeros past the count, bit for bit.
+Wrappers of the hand-written CUDA kernels ``csrc/select_scan.cu``, the
+port of the Pallas TPU kernels ``repro/kernels/select_scan.py::
+select_scan`` and ``select_scan_packed`` (the predicate column bit-packed,
+decoded in registers).  Same contract as ``ref.select_scan`` and
+``ref.select_scan_packed``: (out (n,), count), the selected entries in row
+order and zeros past the count, bit for bit.
 
-The wrapper launches the kernel on CUDA tensors or raises; the choice of
-the plain version for a CPU tensor is ``ops.select_scan``'s alone.
-``LAUNCHES`` counts the kernel launches of this process.
+The wrappers launch the kernel on CUDA tensors or raise; the choice of the
+plain version for a CPU tensor is ``ops``' alone.  ``LAUNCHES`` counts the
+plain kernel's launches of this process, ``PACKED_LAUNCHES`` the packed
+kernel's.
 """
 from __future__ import annotations
 
@@ -19,13 +22,19 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import PHYS_WIDTHS
 
 LAUNCHES = 0
+PACKED_LAUNCHES = 0
 
 _X_TYPES = (torch.int32, torch.float32)
 _Y_TYPES = (torch.int32, torch.float32, torch.uint32)
 _SIGNATURES = {
     "select_scan_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "select_scan_packed_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
@@ -75,4 +84,41 @@ def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
             scratch[1].data_ptr(), out.data_ptr(), count.data_ptr(), stream)
     build.check(lib, rc, "select_scan")
     LAUNCHES += 1
+    return out, count
+
+
+def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
+                       phys: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SELECT y WHERE lo <= decode(x) <= hi -> (out (n,), count 0-d
+    int64), n = y.shape[0].  words: the packed int32 word stream of x at
+    ``phys`` bits, ceil(n / (32 / phys)) words; lo, hi: int32 bounds in
+    the encoded domain; y: (n,) 4-byte."""
+    global PACKED_LAUNCHES
+    if words.device.type != "cuda":
+        raise ValueError(f"select_scan_packed: no kernel for device "
+                         f"{words.device}")
+    if phys not in PHYS_WIDTHS:
+        raise ValueError(f"phys {phys} not in {PHYS_WIDTHS}")
+    n = y.shape[0]
+    build.check_stream(words, "words", -(-n // (32 // phys)), words.device)
+    build.check_stream(y, "y", n, words.device, _Y_TYPES)
+    if n >= 1 << 31:
+        raise ValueError(f"select_scan_packed takes under 2^31 rows, got {n}")
+    lo_bits = bound_bits(lo, torch.int32)
+    hi_bits = bound_bits(hi, torch.int32)
+    out = torch.zeros_like(y)
+    count = torch.zeros((), dtype=torch.int64, device=y.device)
+    if n == 0:
+        return out, count
+    lib = library()
+    tiles = -(-n // lib.select_scan_tile_rows())
+    scratch = torch.empty((2, tiles), dtype=torch.int32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = lib.select_scan_packed_launch(
+            words.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits, phys,
+            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
+            count.data_ptr(), stream)
+    build.check(lib, rc, "select_scan_packed")
+    PACKED_LAUNCHES += 1
     return out, count

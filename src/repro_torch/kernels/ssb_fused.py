@@ -3,9 +3,10 @@
 
 Wrapper of the hand-written CUDA kernel ``csrc/ssb_fused.cu``, the port of
 the Pallas TPU kernel ``repro/kernels/ssb_fused.py::spja`` for plain int32
-streams.  The kernel sums exactly in int64 (see the source's note), so it
-takes the int32 measure columns themselves, not f32 copies, and its result
-is bit-identical to ``ref.spja`` and to the numpy oracle.
+streams and bit-packed ones (``repro_torch.sql.storage``'s word layout,
+decoded in registers).  The kernel sums exactly in int64 (see the source's
+note), so it takes the int32 measure columns themselves, not f32 copies,
+and its result is bit-identical to ``ref.spja`` and to the numpy oracle.
 
 The wrapper launches the kernel on CUDA tensors or raises; the choice of
 the plain version for a CPU tensor is ``ops.spja``'s alone.
@@ -44,26 +45,51 @@ def _check_i32(vals, what: str) -> None:
             raise ValueError(f"{what} value {v} is outside int32")
 
 
+def _check_width(t: torch.Tensor, what: str, width: int, n: int,
+                 device: torch.device) -> None:
+    """A plain stream holds n int32 values, a packed one the
+    ceil(n / (32 / width)) words that hold n values."""
+    c = 32 // width
+    build.check_stream(t, what, -(-n // c), device)
+
+
 def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
          join_keys: Sequence[torch.Tensor],
          join_tables: Sequence[torch.Tensor], group_mults,
          m1: torch.Tensor, m2=None, measure_op: str = "first",
-         n_groups: int = 1) -> torch.Tensor:
+         n_groups: int = 1, pred_widths=None, key_widths=None,
+         key_refs=None, m_widths=None, m_refs=None,
+         n_rows=None) -> torch.Tensor:
     """Run one SPJA query in one kernel launch -> (n_groups,) f32.
 
-    ``pred_cols``/``join_keys``/``m1``/``m2``: (n,) int32 fact columns on
-    one device; ``join_tables``: (htk0, htv0, htk1, htv1, ...) int32
-    open-addressing tables with a power-of-two slot count;
-    ``pred_bounds`` (P, 2) and ``group_mults`` (J,): host integers, taken
-    by value."""
+    ``pred_cols``/``join_keys``/``m1``/``m2``: int32 fact streams on one
+    device, each a plain (n,) column or, where its width in
+    ``pred_widths``/``key_widths``/``m_widths`` is below 32, the packed
+    word stream of n values; ``join_tables``: (htk0, htv0, htk1, htv1,
+    ...) int32 open-addressing tables with a power-of-two slot count;
+    ``pred_bounds`` (P, 2, in each column's encoded domain),
+    ``group_mults`` (J,), ``key_refs`` (J,) and ``m_refs``: host
+    integers, taken by value.  ``n_rows`` is n (default: m1's length,
+    which a packed m1 does not give)."""
     global LAUNCHES
     if m1.device.type != "cuda":
         raise ValueError(f"spja: no kernel for device {m1.device}")
     device = m1.device
-    n = m1.shape[0]
     n_preds, n_joins = len(pred_cols), len(join_keys)
     if measure_op not in _OP_CODE:
         raise ValueError(f"measure_op {measure_op!r} not in {tuple(_OP_CODE)}")
+    n_meas = 1 if measure_op == "first" else 2
+    pred_widths = ref.stream_widths(pred_widths, n_preds)
+    key_widths = ref.stream_widths(key_widths, n_joins)
+    m_widths = ref.stream_widths(m_widths, n_meas)
+    krefs = ref.refs_list(key_refs, n_joins)
+    mrefs = ref.refs_list(m_refs, n_meas)
+    if n_rows is None:
+        if m_widths[0] != 32:
+            raise ValueError("n_rows is required when the measure stream "
+                             "is bit-packed")
+        n_rows = m1.shape[0]
+    n = int(n_rows)
     if n_preds > MAX_PREDS or n_joins > MAX_JOINS:
         raise ValueError(f"spja kernel takes at most {MAX_PREDS} predicates "
                          f"and {MAX_JOINS} joins, got {n_preds}, {n_joins}")
@@ -79,13 +105,14 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     mults = ref.mults_list(group_mults, n_joins)
     _check_i32([v for b in bounds for v in b], "pred_bounds")
     _check_i32(mults, "group_mults")
-    for i, c in enumerate(pred_cols):
-        build.check_stream(c, f"pred_cols[{i}]", n, device)
-    for j, k in enumerate(join_keys):
-        build.check_stream(k, f"join_keys[{j}]", n, device)
-    build.check_stream(m1, "m1", n, device)
+    _check_i32(krefs + mrefs, "key_refs/m_refs")
+    for i, (c, w) in enumerate(zip(pred_cols, pred_widths)):
+        _check_width(c, f"pred_cols[{i}]", w, n, device)
+    for j, (k, w) in enumerate(zip(join_keys, key_widths)):
+        _check_width(k, f"join_keys[{j}]", w, n, device)
+    _check_width(m1, "m1", m_widths[0], n, device)
     if two:
-        build.check_stream(m2, "m2", n, device)
+        _check_width(m2, "m2", m_widths[1], n, device)
     masks = []
     for j in range(n_joins):
         htk, htv = join_tables[2 * j], join_tables[2 * j + 1]
@@ -101,8 +128,8 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     if n == 0:
         return out.to(torch.float32)
 
-    def pad(xs, k):
-        return list(xs) + [0] * (k - len(xs))
+    def pad(xs, k, fill=0):
+        return list(xs) + [fill] * (k - len(xs))
 
     ptrs = (ctypes.c_void_p * (MAX_PREDS + 3 * MAX_JOINS + 2))(
         *pad([c.data_ptr() for c in pred_cols], MAX_PREDS),
@@ -112,11 +139,14 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
         *pad([join_tables[2 * j + 1].data_ptr() for j in range(n_joins)],
              MAX_JOINS),
         m1.data_ptr(), m2.data_ptr() if two else 0)
-    ints = (ctypes.c_int * (4 + 2 * MAX_PREDS + 2 * MAX_JOINS))(
+    ints = (ctypes.c_int * (8 + 3 * MAX_PREDS + 4 * MAX_JOINS))(
         n_preds, n_joins, _OP_CODE[measure_op], n_groups,
         *pad([lo for lo, _ in bounds], MAX_PREDS),
         *pad([hi for _, hi in bounds], MAX_PREDS),
-        *pad(masks, MAX_JOINS), *pad(mults, MAX_JOINS))
+        *pad(masks, MAX_JOINS), *pad(mults, MAX_JOINS),
+        *pad(list(pred_widths), MAX_PREDS, 32),
+        *pad(list(key_widths), MAX_JOINS, 32), *pad(list(m_widths), 2, 32),
+        *pad(krefs, MAX_JOINS), *pad(mrefs, 2))
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -7,16 +7,19 @@ The port of ``repro.sql.compile``.  Two strategies lower so far:
             paper's Crystal model, §5.3: zero intermediate
             materialization, one pass over the fact table in device
             memory).  The fact columns are resident on the device
-            (``ssb.Table.on_device``): a query sends no fact bytes over
-            PCIe, and the measures go to the kernel as their int32
-            columns, with no per-query f32 copy.
+            (``ssb.Table.on_device``, ``storage.PackedTable.on_device``):
+            a query sends no fact bytes over PCIe, and the measures go to
+            the kernel as their int32 columns or packed word streams,
+            with no per-query f32 copy.
 ``opat``  — operator-at-a-time: every Filter predicate, HashJoin,
             Project and GroupAgg is its own kernel launch
             (``select_scan``, ``probe_join``, ``project``, ``group_sum``)
             and re-materializes the live row ids, group ids and gathered
             columns in device memory between operators — the
             materializing engine fig17 compares fused against.  It is
-            also where a plan the fused kernel cannot express runs.
+            also where a plan the fused kernel cannot express runs.  On a
+            packed fact table the leading range filter selects straight
+            off the word stream (``select_scan_packed``).
 
 ``execute`` runs the whole table in one pass — the reference's path when
 the fact table is one morsel.  The other strategies, and a row plan that
@@ -127,16 +130,18 @@ def _rewritten_bounds(fact, bounds) -> np.ndarray:
     return out
 
 
-def _measure_streams(fact, proj: P.Project, device: torch.device
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _measure_streams(fact, proj: P.Project, device: torch.device):
     """The measure inputs as the kernel consumes them: the resident int32
-    columns (the kernel sums exactly in int64, so no f32 copy is made).
-    Stream count follows the measure *op*: an m2 on an op="first"
-    projection is never loaded."""
-    m1 = ST.column_stream(fact, proj.m1, device)[0]
-    m2 = (ST.column_stream(fact, proj.m2, device)[0]
-          if proj.op in ("mul", "sub") else None)
-    return m1, m2
+    column or packed word stream (the kernel sums exactly in int64, so no
+    f32 copy is made).  Returns (m1, m2, m_widths, m_refs).  Stream count
+    follows the measure *op*: an m2 on an op="first" projection is never
+    loaded."""
+    streams = [ST.column_stream(fact, c, device)
+               for c in ([proj.m1] if proj.op not in ("mul", "sub")
+                         else [proj.m1, proj.m2])]
+    m2 = streams[1][0] if len(streams) == 2 else None
+    return (streams[0][0], m2, tuple(w for _, w, _ in streams),
+            np.array([r for _, _, r in streams], np.int32))
 
 
 def fused_inputs(plan: P.Plan, db: ssb.Database,
@@ -148,10 +153,10 @@ def fused_inputs(plan: P.Plan, db: ssb.Database,
     exactly these."""
     fact = getattr(db, plan.scan.table)
     bounds = plan.preds           # fusability guarantees the range view
-    pred_cols = [ST.column_stream(fact, c, device)[0] for c, _, _ in bounds]
+    pred_streams = [ST.column_stream(fact, c, device) for c, _, _ in bounds]
     joins = plan.joins
-    join_keys = [ST.column_stream(fact, j.fact_col, device)[0]
-                 for j in joins]
+    key_streams = [ST.column_stream(fact, j.fact_col, device)
+                   for j in joins]
     join_tables: List[torch.Tensor] = []
     for j in joins:
         htk, htv = (cache.get_or_build(db, j, device) if cache is not None
@@ -159,10 +164,14 @@ def fused_inputs(plan: P.Plan, db: ssb.Database,
         join_tables.extend([htk, htv])
     mults = np.array([j.mult for j in joins], np.int32)
     proj = plan.project
-    m1, m2 = _measure_streams(fact, proj, device)
-    return ((pred_cols, _rewritten_bounds(fact, bounds), join_keys,
-             join_tables, mults, m1, m2),
-            dict(measure_op=proj.op, n_groups=plan.n_groups))
+    m1, m2, m_widths, m_refs = _measure_streams(fact, proj, device)
+    return (([s[0] for s in pred_streams], _rewritten_bounds(fact, bounds),
+             [s[0] for s in key_streams], join_tables, mults, m1, m2),
+            dict(measure_op=proj.op, n_groups=plan.n_groups,
+                 pred_widths=tuple(s[1] for s in pred_streams),
+                 key_widths=tuple(s[1] for s in key_streams),
+                 key_refs=np.array([s[2] for s in key_streams], np.int32),
+                 m_widths=m_widths, m_refs=m_refs, n_rows=fact.n_rows))
 
 
 def _execute_fused(plan: P.Plan, db: ssb.Database, mode: str,
@@ -212,6 +221,8 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
     rowids = _positions(n, device)
     group = torch.zeros((n,), dtype=torch.int32, device=device)
     measure = None
+    dense = True        # rowids still the identity: the leading filter
+    #   on a packed column selects straight off the word stream
     for node in plan.chain[1:]:
         empty = rowids.shape[0] == 0
         if isinstance(node, P.Filter):
@@ -220,6 +231,19 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                     break
                 if isinstance(pred, (P.RangePred, P.EqPred)):
                     col, lo, hi = P.range_bounds(pred)
+                    enc = ST.encoding_of(fact, col)
+                    if dense and enc is not None and enc.kind != "plain":
+                        # decode-on-scan over the packed words, bounds in
+                        # the encoded domain; the output IS the surviving
+                        # row ids (identity rowids: value == position)
+                        lo2, hi2 = ST.encoded_bounds(enc, lo, hi)
+                        words, phys, _ = ST.column_stream(fact, col, device)
+                        out, cnt = ops.select_scan_packed(
+                            words, rowids, lo2, hi2, phys, mode=mode)
+                        rowids = out[:int(cnt)]
+                        group = group[rowids]
+                        dense = False
+                        continue
                     x = ST.take(fact, col, rowids, device)
                     # emit a selection vector, then gather each live
                     # column through it — the materialization traffic
@@ -232,7 +256,9 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                     sel = torch.from_numpy(
                         P.pred_mask(pred, fact)).to(device)[rowids]
                 rowids, group = rowids[sel], group[sel]
+                dense = False
         elif isinstance(node, P.HashJoin):
+            dense = False
             if not empty:
                 rowids, group = _probe_whole(node, fact, db, rowids, group,
                                              mode, cache, device)

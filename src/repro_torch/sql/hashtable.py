@@ -28,6 +28,7 @@ from repro_torch.core.blocks import EMPTY   # probe kernels compare against it
 from repro_torch.device import resolve
 from repro_torch.sql import plan as P
 from repro_torch.sql import ssb
+from repro_torch.sql.storage import PackedTable
 
 
 def np_hash(keys: np.ndarray, n_slots: int) -> np.ndarray:
@@ -125,13 +126,16 @@ def db_fingerprint(db, tables: Optional[Iterable[str]] = None) -> Tuple:
     """Cheap data identity of a Database: per table, (attr, name, n_rows,
     crc32 of every column's data).  Build sides depend on non-key
     columns too (dim filters and payloads), so all columns participate.
+    A ``PackedTable`` decodes on access, so a packed database
+    fingerprints as its plain original: a cache warmed on one serves the
+    other, and never a database of other data.
     ``tables`` restricts the fingerprint to the named attributes (the
     cache only ever builds from dimension tables); ``None``
     fingerprints everything."""
     names = None if tables is None else set(tables)
     items = []
     for attr, t in vars(db).items():
-        if not isinstance(t, ssb.Table):
+        if not isinstance(t, (ssb.Table, PackedTable)):
             continue
         if names is not None and attr not in names:
             continue

@@ -89,8 +89,10 @@ class Database:
     sf: float
 
     def to(self, device) -> "Database":
-        """Pre-upload every fact column to ``device`` (the dims stay on the
-        host: they only feed the host hash build).  Returns ``self``."""
+        """Pre-upload every fact column to ``device`` — a plain table's
+        int32 columns, a ``storage.PackedTable``'s word streams (the dims
+        stay on the host: they only feed the host hash build).  Returns
+        ``self``."""
         for col in self.lineorder.columns:
             self.lineorder.on_device(col, device)
         return self
@@ -193,3 +195,54 @@ def generate(sf: float = 0.01, seed: int = 0) -> Database:
         name: rng.integers(lo, hi, n_lo, dtype=np.int32)
         for name, lo, hi in _lineorder_specs(n_part, n_supp, n_cust)})
     return Database(lineorder, date, supplier, customer, part, sf)
+
+
+def generate_packed(sf: float = 0.01, seed: int = 0,
+                    chunk_rows: int = 1 << 20) -> Database:
+    """Generate straight into the packed representation, drawing the fact
+    table ``chunk_rows`` at a time, so the plain lineorder is never held
+    whole.
+
+    Bit-identical to ``storage.pack_database(generate(sf, seed))``: the
+    rng draw order is shared (``_dimensions`` + ``_lineorder_specs``),
+    numpy's Generator draws a chunked stream as it draws a whole one, and
+    each column takes two passes over a saved rng state — a stats pass
+    for ``storage.encoding_from_stats``, then a pack pass writing
+    word-aligned chunks (``chunk_rows`` is floored to a multiple of 32
+    rows, a word boundary of every packed width)."""
+    from repro_torch.sql import storage as ST  # storage imports ssb
+
+    rng = np.random.default_rng(seed)
+    n_lo, n_supp, n_cust, n_part = _scale(sf)
+    date, supplier, customer, part = _dimensions(rng, n_supp, n_cust,
+                                                 n_part)
+    chunk = max(32, (int(chunk_rows) // 32) * 32)
+    cols: Dict[str, ST.PackedColumn] = {}
+    for name, lo, hi in _lineorder_specs(n_part, n_supp, n_cust):
+        state = rng.bit_generator.state
+        vmin = vmax = None
+        for c0 in range(0, n_lo, chunk):
+            vals = rng.integers(lo, hi, min(chunk, n_lo - c0),
+                                dtype=np.int32)
+            m0, m1 = int(vals.min()), int(vals.max())
+            vmin = m0 if vmin is None else min(vmin, m0)
+            vmax = m1 if vmax is None else max(vmax, m1)
+        enc = ST.encoding_from_stats(vmin, vmax, n_lo)
+        rng.bit_generator.state = state
+        if enc.kind == "plain":
+            words = np.empty(n_lo, np.int32)
+            for c0 in range(0, n_lo, chunk):
+                m = min(chunk, n_lo - c0)
+                words[c0:c0 + m] = rng.integers(lo, hi, m, dtype=np.int32)
+        else:
+            c = enc.values_per_word
+            words = np.empty((n_lo + c - 1) // c, np.int32)
+            for c0 in range(0, n_lo, chunk):
+                m = min(chunk, n_lo - c0)
+                w = ST.pack_words(rng.integers(lo, hi, m, dtype=np.int32),
+                                  enc.width, enc.ref)
+                words[c0 // c:c0 // c + len(w)] = w
+        cols[name] = ST.PackedColumn(enc, words)
+    lineorder = ST.PackedTable("lineorder", cols)
+    return Database(lineorder, ST.pack_table(date), ST.pack_table(supplier),
+                    ST.pack_table(customer), ST.pack_table(part), sf)

@@ -16,8 +16,8 @@ import torch
 
 from repro_torch import cases
 from repro_torch.kernels import (agg, hash_join, ops, project, ref,
-                                 select_scan, ssb_fused)
-from repro_torch.sql import engine, hashtable, ssb
+                                 select_scan, ssb_fused, unpack)
+from repro_torch.sql import engine, hashtable, ssb, storage
 
 pytestmark = pytest.mark.cuda
 
@@ -92,10 +92,10 @@ def _on(case, device):
     return cases.tensors(case, device)
 
 
-def _launched(mod, fn, *args, **kw):
-    before = mod.LAUNCHES
+def _launched(mod, fn, *args, counter="LAUNCHES", **kw):
+    before = getattr(mod, counter)
     out = getattr(mod, fn)(*args, **kw)
-    assert mod.LAUNCHES == before + 1
+    assert getattr(mod, counter) == before + 1
     return out
 
 
@@ -175,3 +175,112 @@ def test_opat_queries_on_card_match_oracle_and_fused(cuda):
         np.testing.assert_array_equal(
             got, engine.run_query(db, plan, mode="ref", cache=cache,
                                   strategy="opat"), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# compressed storage: the packed kernels
+# ---------------------------------------------------------------------------
+
+
+PACKED_CASES = [
+    dict(n=1, n_preds=1, n_joins=1, measure_op="first", n_groups=4),
+    dict(n=37, n_preds=2, n_joins=0, measure_op="mul", n_groups=1),
+    dict(n=100_003, n_preds=3, n_joins=2, measure_op="sub", n_groups=100,
+         duplicates=True, wrap=True),
+    dict(n=65_537, n_preds=1, n_joins=3, measure_op="mul", n_groups=7000,
+         small=True),
+    dict(n=50_001, n_preds=2, n_joins=2, measure_op="first", n_groups=1,
+         empty_join=True),
+]
+
+
+@pytest.mark.parametrize("phys", cases.PACKED_WIDTHS)
+@pytest.mark.parametrize("i", range(len(PACKED_CASES)))
+def test_spja_packed_kernel_bit_identical_to_plain(cuda, phys, i):
+    """Packed predicate columns at every width, frame-of-reference keys
+    and measures, n not a multiple of a word's values."""
+    c = cases.packed_spja_case(2000 + i, pred_phys=phys, **PACKED_CASES[i])
+    args, kw = c.args(cuda)
+    got = _launched(ssb_fused, "spja", *args, **kw)
+    want = ref.spja(*args, **kw)
+    assert torch.equal(got, want)
+    assert torch.equal(ssb_fused.spja(*args, **kw), got)
+    if c.n > 1000 and not PACKED_CASES[i].get("empty_join"):
+        assert bool(got.any())
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048, 100_003])
+@pytest.mark.parametrize("phys", cases.PACKED_WIDTHS)
+@pytest.mark.parametrize("sel", ["mid", "none", "all"])
+def test_select_scan_packed_kernel_bit_identical_to_plain(cuda, n, phys,
+                                                          sel):
+    args = _on(cases.select_packed_case(n + phys, n, phys, sel), cuda)
+    out, cnt = _launched(select_scan, "select_scan_packed", *args,
+                         counter="PACKED_LAUNCHES")
+    want, want_cnt = ref.select_scan_packed(*args)
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+    assert int(cnt) == {"none": 0, "all": n}.get(sel, int(cnt))
+
+
+def test_select_scan_packed_counts_its_own_launches(cuda):
+    args = _on(cases.select_packed_case(1, 1000, 4), cuda)
+    plain, packed = select_scan.LAUNCHES, select_scan.PACKED_LAUNCHES
+    select_scan.select_scan_packed(*args)
+    assert (select_scan.LAUNCHES, select_scan.PACKED_LAUNCHES) == \
+        (plain, packed + 1)
+
+
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+@pytest.mark.parametrize("phys", cases.PACKED_WIDTHS)
+@pytest.mark.parametrize("ref_", [0, -5000, 1 << 20])
+def test_unpack_kernel_bit_identical_to_plain(cuda, n, phys, ref_):
+    words, n, phys, r = case = cases.unpack_case(n + phys, n, phys, ref_)
+    w = _on((words,), cuda)[0]
+    got = _launched(unpack, "unpack", w, n, phys, r)
+    want = ref.unpack(w, n, phys, r)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  storage.unpack_words(words, n, phys, r))
+
+
+def test_packed_wrappers_reject_bad_inputs(cuda):
+    words, y, lo, hi, phys = _on(cases.select_packed_case(1, 1000, 4), cuda)
+    with pytest.raises(ValueError, match="rows, expected"):
+        select_scan.select_scan_packed(words[:-1], y, lo, hi, phys)
+    with pytest.raises(ValueError, match="phys 3"):
+        select_scan.select_scan_packed(words, y, lo, hi, 3)
+    with pytest.raises(ValueError, match="past the"):
+        unpack.unpack(words, 8 * words.shape[0] + 1, 4)
+    c = cases.packed_spja_case(5, 1000, 1, 1, "first", 4)
+    args, kw = c.args(cuda)
+    kw["n_rows"] = 2000
+    with pytest.raises(ValueError, match="rows, expected"):
+        ssb_fused.spja(*args, **kw)
+
+
+def test_packed_queries_on_card_match_oracle(cuda):
+    """The 13 queries on a packed database, fused and opat, against the
+    oracle of the plain one; the hash cache warmed on the plain database
+    serves the packed one with hits only."""
+    db = ssb.generate(sf=0.05, seed=7)
+    pdb = storage.pack_database(db).to(cuda)
+    cache = hashtable.HashTableCache()
+    queries = engine.ssb_queries()
+    for plan in queries.values():
+        engine.run_query(db.to(cuda), plan, cache=cache)
+    misses = cache.misses
+    for name, plan in queries.items():
+        want = engine.run_query_oracle(db, plan)
+        before = ssb_fused.LAUNCHES
+        got = engine.run_query(pdb, plan, cache=cache)
+        assert ssb_fused.LAUNCHES == before + 1, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        before = select_scan.PACKED_LAUNCHES
+        got = engine.run_query(pdb, plan, cache=cache, strategy="opat")
+        assert select_scan.PACKED_LAUNCHES == before + int(
+            bool(plan.filters)), name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_array_equal(
+            got, engine.run_query(pdb, plan, mode="ref", cache=cache,
+                                  strategy="opat"), err_msg=name)
+    assert cache.misses == misses

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` load neither
-jax nor the reference package, and the port never quietly runs on the
-host when the caller did not ask for it."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``spja_ab.py`` load neither jax nor the reference package, and the port
+never quietly runs on the host when the caller did not ask for it."""
 import ast
 import os
 import pathlib
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import cases
 from repro_torch.kernels import (agg, hash_join, ops, project, select_scan,
-                                 ssb_fused)
+                                 ssb_fused, unpack)
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
 from repro_torch.sql import hashtable as THT
@@ -21,7 +21,8 @@ from repro_torch.sql import ssb as TSSB
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "spja_ab.py"]
 MODULES = sorted(
     "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
     for p in PKG.rglob("*.py") if p.name != "__init__.py")
@@ -101,6 +102,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert ssb_fused.LAUNCHES == before
     calls = [
         (select_scan, "select_scan", cases.select_case(7, 256), ()),
+        (select_scan, "select_scan_packed",
+         cases.select_packed_case(7, 256, 4), ()),
+        (unpack, "unpack", cases.unpack_case(7, 256, 8), ()),
         (hash_join, "probe_join", cases.probe_case(7, 256), ()),
         (project, "project", cases.project_case(7, 256), (1.0, -1.0)),
         (agg, "group_sum", cases.group_case(7, 256, 4), ()),
@@ -110,6 +114,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="no kernel for device cpu"):
             getattr(mod, fn)(*cases.tensors(case, "cpu"), *extra)
         assert mod.LAUNCHES == before, fn
+    assert select_scan.PACKED_LAUNCHES == 0
 
 
 def test_unported_strategies_raise_naming_the_roadmap():
@@ -139,18 +144,28 @@ def test_unported_strategies_raise_naming_the_roadmap():
 
 
 def test_packed_storage_raises_naming_the_storage_slice():
+    """The compressed-storage slice is in: a packed column streams as its
+    words (no ``NotImplementedError``), a plain one as its int32 values,
+    and a table of neither kind is refused by name."""
     from repro_torch.sql import storage as ST
 
     class Packed:
         pass
 
-    with pytest.raises(NotImplementedError, match="compressed storage"):
+    with pytest.raises(TypeError, match="neither an ssb.Table nor a "
+                       "PackedTable"):
         ST.column_stream(Packed(), "lo_revenue", "cpu")
     assert ST.encoded_bounds(None, 3, 9) == (3, 9)
     db = TSSB.generate(sf=0.001, seed=0)
     arr, phys, ref = ST.column_stream(db.lineorder, "lo_revenue", "cpu")
     assert (phys, ref) == (32, 0)
     np.testing.assert_array_equal(arr.numpy(), db.lineorder["lo_revenue"])
+    packed = ST.pack_table(db.lineorder)
+    words, phys, ref = ST.column_stream(packed, "lo_revenue", "cpu")
+    enc = packed.encoding("lo_revenue")
+    assert (phys, ref) == (enc.phys, enc.ref) and phys < 32
+    np.testing.assert_array_equal(words.numpy(),
+                                  packed.columns["lo_revenue"].words)
 
 
 def test_library_name_follows_the_source_and_every_shared_header(

@@ -8,6 +8,7 @@ import pytest
 
 from repro_torch import cases
 from repro_torch.kernels import ref
+from repro_torch.sql import storage
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -26,24 +27,47 @@ CASES = [
 ]
 
 
+PACKED_CASES = [
+    dict(n=999, n_preds=2, n_joins=1, measure_op="mul", n_groups=8,
+         pred_phys=1),
+    dict(n=1201, n_preds=1, n_joins=2, measure_op="sub", n_groups=30,
+         pred_phys=4, duplicates=True, wrap=True, build_rows=40),
+    dict(n=517, n_preds=3, n_joins=1, measure_op="first", n_groups=1,
+         pred_phys=16, small=True),
+]
+
+
 def _brute(c) -> dict:
-    """Walk every row as the kernel does and count what it touches."""
-    seg = smoke.SEGMENT // 4
+    """Walk every row as the kernel does and count what it touches: a
+    stream packed c values a word holds 16·c rows a 64-byte segment, and
+    each value decoded from it costs 2 operations."""
+    packed = c.packed or {}
+    n_meas = 1 if c.m2 is None else 2
     live = [True] * c.n
     fact = table = ops = 0
 
-    def read():
-        return smoke.SEGMENT * len({r // seg for r in range(c.n) if live[r]})
+    def read(arr, width, r=0):
+        nonlocal fact, ops
+        seg = (smoke.SEGMENT // 4) * (32 // width)
+        fact += smoke.SEGMENT * len({i // seg for i in range(c.n) if live[i]})
+        if width != 32:
+            ops += 2 * sum(live)
+            return storage.unpack_words(arr, c.n, width, r)
+        return arr
 
-    for col, (lo, hi) in zip(c.pred_cols, c.pred_bounds.reshape(-1, 2)):
-        fact += read()
+    widths = packed.get("pred_widths", (32,) * len(c.pred_cols))
+    for col, w, (lo, hi) in zip(c.pred_cols, widths,
+                                c.pred_bounds.reshape(-1, 2)):
+        col = read(col, w)
         for r in range(c.n):
             if live[r]:
                 ops += 2
                 live[r] = bool(lo <= col[r] <= hi)
     group = [0] * c.n
+    key_widths = packed.get("key_widths", (32,) * len(c.join_keys))
+    key_refs = packed.get("key_refs", [0] * len(c.join_keys))
     for j, keys in enumerate(c.join_keys):
-        fact += read()
+        keys = read(keys, key_widths[j], int(key_refs[j]))
         htk, htv = c.join_tables[2 * j], c.join_tables[2 * j + 1]
         mask = len(htk) - 1
         visited, hits = set(), set()
@@ -67,11 +91,14 @@ def _brute(c) -> dict:
                 hits.add(slot)
                 ops += 2
                 group[r] += int(htv[slot]) * int(c.group_mults[j])
+        seg = smoke.SEGMENT // 4
         table += smoke.SEGMENT * (len({s // seg for s in visited})
                                   + len({s // seg for s in hits}))
     for r in range(c.n):
         live[r] = live[r] and (group[r] & 0xFFFFFFFF) < c.n_groups
-    fact += read() * (2 if c.m2 is not None else 1)
+    m_widths = packed.get("m_widths", (32,) * n_meas)
+    for m, w in zip((c.m1, c.m2)[:n_meas], m_widths):
+        read(m, w)
     ops += 2 * sum(live)
     return {"fact_bytes": fact, "table_bytes": table,
             "bytes": fact + table + 4 * c.n_groups, "ops": ops}
@@ -85,6 +112,36 @@ def test_must_move_counts_what_the_kernel_touches(i):
     want = _brute(c)
     assert {k: got[k] for k in want} == want
     assert got["bytes_ms"] == want["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+
+
+@pytest.mark.parametrize("i", range(len(PACKED_CASES)))
+def test_must_move_counts_packed_streams_by_their_words(i):
+    c = cases.packed_spja_case(400 + i, **PACKED_CASES[i])
+    args, kw = c.args("cpu")
+    got = smoke.must_move(args, **kw)
+    want = _brute(c)
+    assert {k: got[k] for k in want} == want
+    # the same streams decoded to plain int32 columns move more bytes
+    unpacked = smoke.must_move(_decoded(c, args), c.n_groups)
+    assert got["fact_bytes"] < unpacked["fact_bytes"]
+    assert got["table_bytes"] == unpacked["table_bytes"]
+
+
+def _decoded(c, args) -> tuple:
+    """A packed case's spja arguments with every stream decoded."""
+    j = c.packed
+
+    def dec(a, w, r):
+        return None if a is None else ref.decode_stream(a, w, int(r), c.n)
+
+    m_widths = tuple(j["m_widths"]) + (32,)
+    m_refs = tuple(j["m_refs"]) + (0,)
+    return ([dec(a, w, 0) for a, w in zip(args[0], j["pred_widths"])],
+            args[1],
+            [dec(a, w, r) for a, w, r in zip(args[2], j["key_widths"],
+                                             j["key_refs"])],
+            args[3], args[4], dec(args[5], m_widths[0], m_refs[0]),
+            dec(args[6], m_widths[1], m_refs[1]))
 
 
 def _probe_brute(keys, htk):
@@ -138,3 +195,30 @@ def test_opat_need_counts_what_the_function_moves(fn, case):
     assert (got["bytes"], got["ops"]) == want[:2]
     assert got["bytes_ms"] == want[0] / smoke.HBM_BYTES_PER_S * 1e3
     assert got["ops_ms"] == want[1] / want[2] * 1e3
+
+
+@pytest.mark.parametrize("fn,case", [
+    ("select_scan_packed", cases.select_packed_case(8, 777, 4, "mid")),
+    ("select_scan_packed", cases.select_packed_case(9, 333, 16, "none")),
+    ("select_scan_packed", cases.select_packed_case(10, 65, 1, "all")),
+    ("unpack", cases.unpack_case(11, 777, 2, -5000)),
+    ("unpack", cases.unpack_case(12, 33, 16, 0)),
+])
+def test_opat_need_counts_packed_words_once(fn, case):
+    """Words read once (4 bytes each), y read once, the output written
+    once; a decoded value costs 2 operations, a compare pair 2, a
+    reference add 1."""
+    args = cases.tensors(case, "cpu")
+    got = smoke.opat_need(fn, args, getattr(ref, fn)(*args))
+    words = case[0]
+    if fn == "select_scan_packed":
+        _, y, lo, hi, phys = case
+        x = storage.unpack_words(words, len(y), phys)
+        count = sum(lo <= v <= hi for v in x.tolist())
+        want = (4 * len(words) + 4 * len(y) + 4 * count, 4 * len(y))
+    else:
+        _, n, phys, _ = case
+        want = (4 * (-(-n // (32 // phys))) + 4 * n, 3 * n)
+    assert (got["bytes"], got["ops"]) == want
+    assert got["bytes_ms"] == want[0] / smoke.HBM_BYTES_PER_S * 1e3
+    assert got["ops_ms"] == want[1] / smoke.INT32_OPS_PER_S * 1e3
