@@ -40,9 +40,26 @@ exits non-zero without printing a result:
            packed times beside phase 4's plain ones and the packed bound;
            ``select_scan_packed`` over one pass and ``unpack`` of every
            packed column (bit-identical to the resident plain column)
-           beside their bounds.
+           beside their bounds;
+7. partitioned join: the 13 queries through ``compile_plan(plan,
+           "part")`` and ``"part_loop"`` on phase 4's database and on
+           phase 6's packed one, through the same hash cache — per join,
+           ``part`` launches one ``histogram``, one ``partition_multi``
+           scatter and one ``part_probe``, ``part_loop`` one histogram,
+           one scatter and one ``probe_join`` per non-empty partition;
+           every result bit-identical to phase 4's oracle, a second pass
+           and the plain versions on the card; per-query times beside
+           fused and opat, each new kernel's time over one pass beside
+           its bound; then the Fig. 8 analogue, one FK join of 2^27 fact
+           rows against dims of 2^12 to 2^24 rows, through fused, opat,
+           part and part_loop, each against the oracle;
+8. ORDER BY: ``engine.order_by`` of lineorder by ``lo_orderdate`` (four
+           8-bit radix passes) against numpy's stable argsort, and a
+           filter + join + ``OrderBy`` row plan against numpy's stable
+           argsort of its survivors; ``radix_sort`` timed beside its bound
+           and ``torch.sort(stable=True)``.
 
-The line before the last lists every kernel of both paths as JSON; the
+The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
 """
 from __future__ import annotations
@@ -93,6 +110,21 @@ PACKED = [("select_scan", "select_scan_packed", "PACKED_LAUNCHES",
            "select_scan.cu", "src/repro/kernels/select_scan.py:219"),
           ("unpack", "unpack", "LAUNCHES", "unpack.cu",
            "src/repro/kernels/unpack.py:30")]
+# the partitioned join's and ORDER BY's kernels, the same fields
+PARTITIONED = [
+    ("radix_part", "histogram", "HIST_LAUNCHES", "radix_part.cu",
+     "src/repro/kernels/radix_part.py:52"),
+    ("radix_part", "partition_multi", "SCATTER_LAUNCHES", "radix_part.cu",
+     "src/repro/kernels/radix_part.py:111"),
+    ("part_probe", "part_probe", "LAUNCHES", "part_probe.cu",
+     "src/repro/kernels/part_probe.py:94")]
+PART_N = 2_000_003              # rows of the synthetic partitioned probes
+# the Fig. 8 analogue (benchmarks/run.py::_fig8_db's shape): 2^27 fact
+# rows, FK uniform over a dim of 2^12 .. 2^24 rows (the last a 256 MB
+# table, past the 50 MB L2)
+FIG8_FACT = 1 << 27
+FIG8_DIMS = (1 << 12, 1 << 16, 1 << 20, 1 << 24)
+STRATEGIES = ("fused", "opat", "part", "part_loop")
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
@@ -206,26 +238,49 @@ def segment_bytes(touched: torch.Tensor, rows_per_segment: int = 16) -> int:
 
 def probe_walk(keys: torch.Tensor, htk: torch.Tensor):
     """Each key's linear probe as the kernel walks it: (hit slot or -1,
-    slots visited, probe steps taken)."""
+    slots visited, probe steps taken).  ``htk`` is one ``(S,)`` table, or
+    the packed ``(P, S)`` tables of a partitioned join, where a key walks
+    row ``key & (P - 1)``; slots are then flat indices into them."""
     from repro_torch.core import blocks
-    n_slots = htk.shape[0]
+    n_parts, n_slots = (1, htk.shape[0]) if htk.dim() == 1 else htk.shape
+    flat = htk.reshape(-1)
     hit_slot = torch.full(keys.shape, -1, dtype=torch.int64,
                           device=keys.device)
-    visited = torch.zeros(n_slots, dtype=torch.bool, device=keys.device)
+    visited = torch.zeros(flat.shape[0], dtype=torch.bool,
+                          device=keys.device)
     lanes = torch.arange(keys.shape[0], device=keys.device)
+    base = (keys.to(torch.int64) & (n_parts - 1)) * n_slots
     want, slot, steps = keys, blocks.hash_fn(keys, n_slots), 0
     for _ in range(n_slots):
         if lanes.numel() == 0:
             break
-        visited[slot] = True
+        at = base + slot
+        visited[at] = True
         steps += lanes.numel()
-        k_at = htk[slot]
+        k_at = flat[at]
         hit = k_at == want
-        hit_slot[lanes[hit]] = slot[hit]
+        hit_slot[lanes[hit]] = at[hit]
         walking = ~(hit | (k_at == blocks.EMPTY))
-        lanes, want = lanes[walking], want[walking]
+        lanes, want, base = lanes[walking], want[walking], base[walking]
         slot = (slot[walking] + 1) & (n_slots - 1)
     return hit_slot, visited, steps
+
+
+def mean_probe(htk: torch.Tensor) -> float:
+    """Mean slots a hit walks in a linear-probe table, over its keys: each
+    occupied slot's distance from its key's home slot, plus one.  ``htk``
+    is one ``(S,)`` table or packed ``(P, S)`` tables (a key's home is in
+    its own row).  It is the mean probe length of a lookup when every
+    build key is probed alike."""
+    from repro_torch.core import blocks
+    rows = htk.reshape(-1, htk.shape[-1])
+    n_slots = rows.shape[1]
+    used = rows != blocks.EMPTY
+    if not bool(used.any()):
+        return 0.0
+    at = torch.arange(n_slots, device=rows.device)
+    walk = ((at - blocks.hash_fn(rows, n_slots)) & (n_slots - 1)) + 1
+    return float(walk[used].double().mean())
 
 
 def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
@@ -296,7 +351,7 @@ def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
 
 
 def call_rows(fn: str, args: tuple) -> int:
-    """The rows one call of an opat kernel (or ``unpack``) works on."""
+    """The rows one call of a kernel other than ``spja`` works on."""
     if fn == "select_scan_packed":
         return args[1].shape[0]
     if fn == "unpack":
@@ -319,7 +374,17 @@ def opat_need(fn: str, args: tuple, out) -> dict:
     path).  select_scan_packed: the packed words and y read (4 bytes a
     word, 4 a row), the selected entries written, 4 operations a row
     (shift, mask, 2 compares).  unpack: the words read and the n values
-    written, 3 operations a value (shift, mask, add)."""
+    written, 3 operations a value (shift, mask, add).
+
+    histogram: the keys read (4n) and the (tiles, 2^r) counts written, 3
+    operations a row (shift, mask, add).  partition_multi: the key and N
+    payload columns read and written ((1 + N)·8 bytes a row) and the
+    histogram read, 3 operations a row (shift, mask, position add).
+    part_probe: the rowid of each row before the runs' end read (4), the
+    key and group of each live one (rowid >= 0; 8), the 64-byte table
+    segments its probes visit (keys) or hit (payloads), the offs and
+    counts, and rowid and group written per match (8); 4 operations per
+    probe step and 2 per match (group multiply-add)."""
     n = call_rows(fn, args)
     if fn == "select_scan_packed":
         count = int(out[1])
@@ -345,6 +410,25 @@ def opat_need(fn: str, args: tuple, out) -> dict:
         moved, ops = 8 * n + args[1].element_size() * args[2], n
         rate = F32_OPS_PER_S if args[1].is_floating_point() \
             else INT32_OPS_PER_S
+    elif fn == "histogram":
+        tiles = -(-n // 2048)
+        moved, ops, rate = 4 * n + 4 * tiles * (1 << args[2]), 3 * n, \
+            INT32_OPS_PER_S
+    elif fn == "partition_multi":
+        tiles = -(-n // 2048)
+        moved = (1 + len(args[1])) * 8 * n + 4 * tiles * (1 << args[3])
+        ops, rate = 3 * n, INT32_OPS_PER_S
+    elif fn == "part_probe":
+        keys, rowids, _, offs, counts, htk = args[:6]
+        end = min(n, int(offs[-1]) + int(counts[-1])) if offs.numel() else 0
+        live = (rowids[:end] >= 0).nonzero().squeeze(1)
+        count = int(out[2])
+        slot, visited, steps = probe_walk(keys[live], htk)
+        hit = torch.zeros_like(visited)
+        hit[slot[slot >= 0]] = True
+        moved = 4 * end + 8 * live.numel() + segment_bytes(visited) + \
+            segment_bytes(hit) + 8 * offs.numel() + 8 * count
+        ops, rate = 4 * steps + 2 * count, INT32_OPS_PER_S
     else:
         raise ValueError(f"no bound for {fn!r}")
     return {"bytes": moved, "ops": ops,
@@ -370,7 +454,10 @@ def library_call(fn: str):
 
 
 def outputs(got) -> tuple:
-    return got if isinstance(got, tuple) else (got,)
+    """A kernel's outputs as one flat tuple of tensors."""
+    if not isinstance(got, tuple):
+        return (got,)
+    return tuple(t for g in got for t in outputs(g))
 
 
 def check_against_plain(fn: str, label: str, got, want, again=None,
@@ -446,6 +533,50 @@ def profiled(run) -> dict:
             "busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms}
 
 
+@contextlib.contextmanager
+def nonempty_partitions(radix):
+    """Within the block, every ``radix.histogram`` call appends to the
+    yielded list the number of buckets its rows fill: the partitions
+    ``part_loop`` probes."""
+    real, seen = radix.histogram, []
+
+    def recorded(keys, start_bit, r):
+        hist = real(keys, start_bit, r)
+        seen.append(int((hist.sum(0) > 0).sum()))
+        return hist
+    radix.histogram = recorded
+    try:
+        yield seen
+    finally:
+        radix.histogram = real
+
+
+def fig8_db(ssb, rng: np.random.Generator, n_dim: int,
+            revenue: np.ndarray):
+    """``benchmarks/run.py::_fig8_db``'s star join: a fact FK uniform over
+    a dim of ``n_dim`` rows with payload ``p_group = key % 64``."""
+    i32 = np.int32
+    fact = ssb.Table("lineorder", {
+        "lo_partkey": rng.integers(0, n_dim, revenue.shape[0], dtype=i32),
+        "lo_revenue": revenue})
+    dim = ssb.Table("part", {"p_partkey": np.arange(n_dim, dtype=i32),
+                             "p_group": np.arange(n_dim, dtype=i32) % 64})
+    stub = ssb.Table("stub", {"x": np.zeros(1, i32)})
+    return ssb.Database(fact, stub, stub, stub, dim, sf=0.0)
+
+
+def query_ms(q, database, cache) -> list:
+    """Host times of QUERY_REPS runs of one compiled query, each from a
+    synchronised start to its result on the host."""
+    times = []
+    for _ in range(QUERY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q.execute(database, cache=cache)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 class Timed:
     """Stands in for a kernel wrapper for one timed pass: each call runs
     the wrapper CALL_REPS times back to back between CUDA events (after
@@ -491,10 +622,11 @@ def main() -> int:
     from repro_torch import cases
     from repro_torch.kernels import build, ref, ssb_fused
     from repro_torch.sql import engine, hashtable, ssb, storage
+    from repro_torch.sql import model as M
     from repro_torch.sql import plan as P
-    from repro_torch.sql.compile import compile_plan, fused_inputs
+    from repro_torch.sql.compile import SORT_BITS, compile_plan, fused_inputs
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
-            for m, *_ in OPAT + PACKED}
+            for m, *_ in OPAT + PACKED + PARTITIONED}
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -570,6 +702,57 @@ def main() -> int:
             what = (f"count={int(got[-1])}" if isinstance(got, tuple)
                     else f"nonzero={int((got != 0).sum())}")
             print(f"{fn} {label}: {what} max_abs_err={err} ok", flush=True)
+    radix, pprobe = mods["radix_part"], mods["part_probe"]
+    part_err = {fn: 0.0 for _, fn, *_ in PARTITIONED}
+
+    def held(fn, label, got, again, want):
+        """A radix-slice kernel against its plain version and its own
+        second run, bit for bit."""
+        if not all(torch.equal(a, b) for a, b in
+                   zip(outputs(got), outputs(again))):
+            raise AssertionError(f"{fn} {label}: two runs differ")
+        part_err[fn] = max(part_err[fn],
+                           check_against_plain(fn, label, got, want))
+
+    for i, (start_bit, r, kind, n_vals) in enumerate(cases.RADIX_CASES):
+        for n in (BIG, 37):
+            keys, vals, _, _ = cases.tensors(cases.radix_case(
+                3000 + i, n, start_bit, r, kind, n_vals), dev)
+            label = f"{kind}, bits {start_bit}+{r}, {n_vals} payloads, n={n}"
+            before = (radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES)
+            hist = radix.histogram(keys, start_bit, r)
+            again = radix.histogram(keys, start_bit, r)
+            held("histogram", label, hist, again,
+                 ref.histogram(keys, start_bit, r))
+            got = radix.partition_multi(keys, vals, start_bit, r, hist=hist)
+            again = radix.partition_multi(keys, vals, start_bit, r)
+            held("partition_multi", label, got, again,
+                 ref.partition_multi(keys, vals, start_bit, r))
+            if (radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES) != \
+                    (before[0] + 3, before[1] + 2):
+                raise AssertionError(f"radix {label}: the kernels did not "
+                                     "launch as called")
+            print(f"histogram + partition_multi {label}: buckets filled "
+                  f"{int((hist.sum(0) > 0).sum())} ok", flush=True)
+    keys, (vals,), _, _ = cases.tensors(
+        cases.radix_case(3100, BIG, 0, 1, "negative", 1), dev)
+    got = radix.radix_sort(keys, vals)
+    held("partition_multi", f"radix_sort, negative keys, n={BIG}", got,
+         radix.radix_sort(keys, vals), ref.radix_sort(keys, vals))
+    print(f"radix_sort negative keys n={BIG}: unsigned order ok", flush=True)
+    for kind in cases.PART_PROBE_KINDS:
+        for bits, n in ((1, PART_N), (4, PART_N), (8, PART_N), (4, 37)):
+            args = cases.tensors(cases.part_probe_case(3200 + bits, n, bits,
+                                                       kind), dev)
+            before = pprobe.LAUNCHES
+            got = pprobe.part_probe(*args)
+            if pprobe.LAUNCHES != before + 1:
+                raise AssertionError(f"part_probe {kind}: the kernel did "
+                                     "not launch")
+            label = f"{kind}, P={1 << bits}, n={n}"
+            held("part_probe", label, got, pprobe.part_probe(*args),
+                 ref.part_probe(*args))
+            print(f"part_probe {label}: count={int(got[2])} ok", flush=True)
     print(f"phase3_s {time.perf_counter() - t:.3f}", flush=True)
 
     t = phase(f"4 main path: 13 SSB queries, fused, SF {SF}")
@@ -627,13 +810,7 @@ def main() -> int:
 
     def fused_row(name, plan, database, launched, result):
         """One query's fused times, on this database, beside its bound."""
-        q = compile_plan(plan, "fused")
-        times = []
-        for _ in range(QUERY_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q.execute(database, cache=cache)
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = query_ms(compile_plan(plan, "fused"), database, cache)
         a, k = fused_inputs(plan, database, cache, dev)
         kernel_ms = event_ms(functools.partial(ssb_fused.spja, *a, **k),
                              KERNEL_REPS)
@@ -737,15 +914,10 @@ def main() -> int:
         flush=True)
 
     fused_ms = {r["query"]: r["query_ms"] for r in rows}
-    opat_rows = []
+    opat_ms, opat_rows = {}, []
     for name, plan in queries.items():
-        q = compile_plan(plan, "opat")
-        times = []
-        for _ in range(QUERY_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q.execute(db, cache=cache)
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = query_ms(compile_plan(plan, "opat"), db, cache)
+        opat_ms[name] = statistics.median(times)
         row = {"query": name, "launches": per_query[name],
                "opat_query_ms": statistics.median(times),
                "opat_query_ms_max": max(times),
@@ -893,13 +1065,7 @@ def main() -> int:
     prows = []
     for (name, plan), plain_row in zip(queries.items(), rows):
         row = fused_row(name, plan, pdb, plaunched[name], pfirst[name])
-        q = compile_plan(plan, "opat")
-        times = []
-        for _ in range(QUERY_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            q.execute(pdb, cache=cache)
-            times.append((time.perf_counter() - t0) * 1e3)
+        times = query_ms(compile_plan(plan, "opat"), pdb, cache)
         row.update({"opat_launches": pper[name],
                     "opat_query_ms": statistics.median(times),
                     "plain_kernel_ms": plain_row["kernel_ms"],
@@ -962,6 +1128,241 @@ def main() -> int:
     kernels.append(kernel_entry(ufn, usrc, ureplaces, unpack_launches,
                                 opat_err[ufn], calls))
     print(f"phase6_s {time.perf_counter() - t:.3f}")
+
+    t = phase(f"7 partitioned join: 13 SSB queries, part and part_loop, "
+              f"SF {SF}; the Fig. 8 analogue")
+    hj = mods["hash_join"]
+
+    def counts7():
+        return [radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES, pprobe.LAUNCHES,
+                hj.LAUNCHES]
+
+    def reset7():
+        radix.HIST_LAUNCHES = radix.SCATTER_LAUNCHES = pprobe.LAUNCHES = \
+            hj.LAUNCHES = 0
+
+    def run_part(strategy, mode="auto", database=db, seen=None):
+        """The 13 queries through one partitioned strategy -> (results,
+        launches per query, non-empty partitions per query)."""
+        out, per, probes = {}, {}, {}
+        for name, plan in queries.items():
+            before, k = counts7(), len(seen) if seen is not None else 0
+            out[name] = compile_plan(plan, strategy).execute(
+                database, mode=mode, cache=cache)
+            per[name] = [a - b for a, b in zip(counts7(), before)]
+            probes[name] = sum(seen[k:]) if seen is not None else None
+        return out, per, probes
+
+    part_launches, part_per = {}, {}
+    hits, misses = cache.hits, cache.misses
+    for label, database in (("plain", db), ("packed", pdb)):
+        for strategy in ("part", "part_loop"):
+            reset7()
+            with nonempty_partitions(radix) as seen:
+                res, per, probes = run_part(strategy, database=database,
+                                            seen=seen)
+            launched = counts7()
+            reset7()
+            second, _, _ = run_part(strategy, database=database)
+            if counts7() != launched:
+                raise AssertionError(f"{label} {strategy}: second pass "
+                                     f"launched {counts7()}, the first "
+                                     f"{launched}")
+            plain_res, pp, _ = run_part(strategy, mode="ref",
+                                        database=database)
+            if any(any(v) for v in pp.values()):
+                raise AssertionError("mode='ref' launched a kernel")
+            for name, plan in queries.items():
+                j = len(plan.joins)
+                shape = [j, j, j, 0] if strategy == "part" else \
+                    [j, j, 0, probes[name]]
+                if per[name] != shape:
+                    if res[name].any() or any(
+                            a > b for a, b in zip(per[name], shape)):
+                        raise AssertionError(
+                            f"{name} {label} {strategy}: launches "
+                            f"{per[name]}, the plan's {shape}")
+                    print(f"{name} {label} {strategy}: rows ran out, "
+                          f"launches {per[name]} of {shape}")
+                for other, what in ((oracle[name], "numpy oracle"),
+                                    (second[name], "second pass"),
+                                    (plain_res[name],
+                                     "plain versions on the card")):
+                    if not same_bits(res[name], other):
+                        diff = np.abs(res[name].astype(np.float64)
+                                      - other).max()
+                        raise AssertionError(
+                            f"{name} {label} {strategy}: differs from the "
+                            f"{what} (max |diff| {diff})")
+            part_launches[label, strategy] = launched
+            part_per[label, strategy] = per
+            print(f"{label} {strategy}: launches histogram={launched[0]} "
+                  f"partition_multi={launched[1]} part_probe={launched[2]} "
+                  f"probe_join={launched[3]} bit-identical: oracle, second "
+                  "pass, plain on card", flush=True)
+    print(f"cache hits {cache.hits - hits} misses {cache.misses - misses}",
+          flush=True)
+
+    part_rows = []
+    for name, plan in queries.items():
+        bits = [M.part_bits(cache.get_build_count(db, j))
+                for j in plan.joins]
+        row = {"query": name, "part_bits": bits,
+               "probe_whole": [mean_probe(cache.get_or_build(db, j, dev)[0])
+                               for j in plan.joins],
+               "probe_part": [mean_probe(cache.get_or_build_parts(
+                   db, j, b, packed=True, device=dev).htk)
+                   for j, b in zip(plan.joins, bits)],
+               "fused_query_ms": fused_ms[name],
+               "opat_query_ms": opat_ms[name]}
+        for label, database in (("plain", db), ("packed", pdb)):
+            for strategy in ("part", "part_loop"):
+                times = query_ms(compile_plan(plan, strategy), database,
+                                 cache)
+                key = strategy if label == "plain" else f"{strategy}_packed"
+                row[f"{key}_query_ms"] = statistics.median(times)
+                row[f"{key}_launches"] = part_per[label, strategy][name]
+        part_rows.append(row)
+        print(json.dumps(row), flush=True)
+    print("totals " + json.dumps({k: sum(r[k] for r in part_rows) for k in (
+        "fused_query_ms", "opat_query_ms", "part_query_ms",
+        "part_loop_query_ms", "part_packed_query_ms",
+        "part_loop_packed_query_ms")}), flush=True)
+
+    plains = {"histogram": ref.histogram,
+              "partition_multi": lambda keys, vals, start_bit, r, hist=None:
+              ref.partition_multi(keys, vals, start_bit, r),
+              "part_probe": ref.part_probe}
+    with contextlib.ExitStack() as stack:
+        timers = {fn: stack.enter_context(Timed(mods[m], fn, plains[fn]))
+                  for m, fn, *_ in PARTITIONED}
+        timed, _, _ = run_part("part")
+    for name in queries:
+        if not same_bits(timed[name], oracle[name]):
+            raise AssertionError(f"{name}: the timed part pass differs")
+    loop_launches = part_launches["plain", "part_loop"]
+    for i, (m, fn, _, src, replaces) in enumerate(PARTITIONED):
+        kernels.append(dict(
+            kernel_entry(fn, src, replaces, part_launches["plain", "part"][i],
+                         max(part_err[fn], timers[fn].err), timers[fn].rows),
+            launches_part_loop=loop_launches[i] if i < 2 else 0))
+
+    fig8_plan = (engine.QueryBuilder("fig8").scan("lineorder")
+                 .hash_join("lo_partkey", "part", "p_partkey",
+                            payload=P.ColExpr("p_group"), mult=1)
+                 .measure("lo_revenue").group_by(64).build())
+    rng = np.random.default_rng(SEED)
+    revenue = rng.integers(1, 1000, FIG8_FACT, dtype=np.int32)
+    for n_dim in FIG8_DIMS:
+        t0 = time.perf_counter()
+        fdb = fig8_db(ssb, rng, n_dim, revenue).to(dev)
+        fcache = hashtable.HashTableCache()
+        want = engine.run_query_oracle(fdb, fig8_plan)
+        row = {"n_fact": FIG8_FACT, "n_dim": n_dim,
+               "table_MB": M.ht_bytes(n_dim) / 1e6,
+               "part_bits": M.part_bits(n_dim),
+               "setup_s": time.perf_counter() - t0}
+        for strategy in STRATEGIES:
+            q = compile_plan(fig8_plan, strategy)
+            t0 = time.perf_counter()
+            got = q.execute(fdb, cache=fcache)      # builds its tables
+            row[f"{strategy}_first_s"] = time.perf_counter() - t0
+            if not same_bits(got, want):
+                raise AssertionError(f"fig8 n_dim={n_dim} {strategy}: "
+                                     "differs from the numpy oracle")
+            before = counts7()
+            times = query_ms(q, fdb, fcache)
+            row[f"{strategy}_query_ms"] = statistics.median(times)
+            row[f"{strategy}_launches"] = [
+                (a - b) // QUERY_REPS for a, b in zip(counts7(), before)]
+        join = fig8_plan.joins[0]
+        row["probe_whole"] = mean_probe(fcache.get_or_build(fdb, join,
+                                                            dev)[0])
+        row["probe_part"] = mean_probe(fcache.get_or_build_parts(
+            fdb, join, row["part_bits"], packed=True, device=dev).htk)
+        print("fig8 " + json.dumps(row), flush=True)
+        del fdb, fcache
+        torch.cuda.empty_cache()
+    print(f"phase7_s {time.perf_counter() - t:.3f}", flush=True)
+
+    t = phase(f"8 ORDER BY: LSB radix sort, SF {SF}")
+    lo = db.lineorder
+    radix.HIST_LAUNCHES = radix.SCATTER_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ordered = engine.order_by(lo, "lo_orderdate")
+    order_by_s = time.perf_counter() - t0
+    ob_launches = [radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES]
+    passes = -(-32 // SORT_BITS)
+    if ob_launches != [passes, passes]:
+        raise AssertionError(f"order_by launched {ob_launches}, expected "
+                             f"{passes} histogram and scatter passes")
+    perm = np.argsort(lo["lo_orderdate"], kind="stable")
+    for c in lo.columns:
+        if not np.array_equal(ordered[c], lo[c][perm]):
+            raise AssertionError(f"order_by: column {c} is not in numpy's "
+                                 "stable argsort order")
+    print(f"order_by lineorder by lo_orderdate: {lo.n_rows} rows, "
+          f"launches histogram={ob_launches[0]} "
+          f"partition_multi={ob_launches[1]}, order_by_s {order_by_s:.3f}, "
+          "equal to numpy's stable argsort", flush=True)
+
+    row_plan = (engine.QueryBuilder("ordered").scan("lineorder")
+                .where_range("lo_discount", 1, 3)
+                .hash_join("lo_orderdate", "date", "d_datekey",
+                           dim_filter=P.EqPred("d_year", 1993))
+                .order_by("lo_revenue").build())
+    sel = mods["select_scan"]
+
+    def counts8():
+        return [sel.LAUNCHES, hj.LAUNCHES, radix.HIST_LAUNCHES,
+                radix.SCATTER_LAUNCHES]
+
+    before = counts8()
+    got = compile_plan(row_plan, "opat").execute(db, cache=cache)
+    row_launches = [a - b for a, b in zip(counts8(), before)]
+    if row_launches != [1, 1, passes, passes]:
+        raise AssertionError(f"row plan launched {row_launches}")
+    disc = lo["lo_discount"]
+    year = db.date["d_datekey"][db.date["d_year"] == 1993]
+    survivors = np.flatnonzero((disc >= 1) & (disc <= 3) &
+                               np.isin(lo["lo_orderdate"], year))
+    want = survivors[np.argsort(lo["lo_revenue"][survivors], kind="stable")]
+    for other, what in ((want, "numpy's stable argsort"),
+                        (compile_plan(row_plan, "opat").execute(
+                            db, cache=cache), "second pass"),
+                        (compile_plan(row_plan, "opat").execute(
+                            db, mode="ref", cache=cache),
+                         "plain versions on the card")):
+        if not np.array_equal(got, other):
+            raise AssertionError(f"row plan: differs from the {what}")
+    print(f"row plan filter + join + OrderBy(lo_revenue): {len(got)} rows, "
+          f"launches select_scan/probe_join/histogram/partition_multi "
+          f"{row_launches}, equal to numpy's stable argsort, a second pass "
+          "and the plain versions on the card", flush=True)
+
+    keys = lo.on_device("lo_orderdate", dev)
+    vals = torch.arange(lo.n_rows, dtype=torch.int32, device=dev)
+    n = lo.n_rows
+    sort_bytes = 16 * n             # keys and row ids read and written once
+    sort_row = {"n": n, "passes": passes,
+                "ms": event_ms(lambda: radix.radix_sort(keys, vals),
+                               KERNEL_REPS),
+                "plain_ms": event_ms(lambda: ref.radix_sort(keys, vals), 1),
+                "library_ms": event_ms(
+                    lambda: torch.sort(keys, stable=True), KERNEL_REPS),
+                "bound_ms": sort_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+    hist = radix.histogram(keys, 0, SORT_BITS)
+    sort_row["pass_histogram_ms"] = event_ms(
+        lambda: radix.histogram(keys, 0, SORT_BITS), KERNEL_REPS)
+    sort_row["pass_scatter_ms"] = event_ms(
+        lambda: radix.partition_multi(keys, (vals,), 0, SORT_BITS,
+                                      hist=hist), KERNEL_REPS)
+    sort_row["bound_share"] = sort_row["bound_ms"] / sort_row["ms"]
+    print("radix_sort " + json.dumps(sort_row), flush=True)
+    for entry in kernels[-3:-1]:
+        entry["launches_order_by"] = ob_launches[0]
+    print(f"phase8_s {time.perf_counter() - t:.3f}")
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 

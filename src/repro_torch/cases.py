@@ -10,8 +10,13 @@ f32 predicate columns, int32 sums that overflow and f32 sums that are
 not integers; and, for the packed kernels, every packed width 1-16, row
 counts that are not a multiple of a word's values, frame-of-reference
 keys and measures (SSB data at SF 20 packs with reference 0 only), and
-words whose sign bit is set.  Every case is a tuple of host arrays and
-scalars; ``tensors`` moves its arrays to a device.
+words whose sign bit is set; for the radix passes, 1-8 bit buckets at
+any start bit (the last pass of r = 7 reaching past bit 31), every key
+in one bucket, heavy duplicates and negative keys, with 1 and 3 payload
+columns; for the partitioned probe, 2-256 partitions, one hot
+partition, empty partitions, duplicate build keys, dead rows and an
+all-EMPTY table.  Every case is a tuple of host arrays (or tuples of
+them) and scalars; ``tensors`` moves its arrays to a device.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import torch
 
 from repro_torch.kernels.common import PHYS_WIDTHS
 from repro_torch.sql import storage
-from repro_torch.sql.hashtable import next_pow2, np_build, np_hash
+from repro_torch.sql.hashtable import (next_pow2, np_build, np_hash,
+                                       pack_partitions)
 
 PACKED_WIDTHS = PHYS_WIDTHS[:-1]        # the widths that pack (below 32)
 
@@ -217,9 +223,12 @@ def select_packed_case(seed: int, n: int, phys: int,
 
 
 def tensors(case: tuple, device) -> tuple:
-    """The case with each numpy array as a tensor on ``device``."""
+    """The case with each numpy array (also inside a tuple) as a tensor on
+    ``device``."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 if isinstance(a, np.ndarray) else a for a in case)
+                 if isinstance(a, np.ndarray) else
+                 tensors(a, device) if isinstance(a, tuple) else a
+                 for a in case)
 
 
 def select_case(seed: int, n: int, selectivity: str = "mid",
@@ -295,3 +304,99 @@ def group_case(seed: int, n: int, n_groups: int,
     else:
         vals = rng.standard_normal(n).astype(np.float32) * 1000
     return ids, vals, n_groups
+
+
+RADIX_KINDS = ("uniform", "one_bucket", "duplicates", "negative")
+# (start_bit, r, kind, payload columns): the passes the radix kernels are
+# held to; r = 7 from bit 28 reads bits past 31 (zeros, as unsigned)
+RADIX_CASES = [
+    (0, 1, "uniform", 1), (0, 4, "duplicates", 3), (0, 8, "uniform", 1),
+    (8, 8, "negative", 3), (24, 8, "negative", 1), (28, 7, "negative", 1),
+    (0, 8, "one_bucket", 3), (8, 4, "one_bucket", 1),
+    (24, 1, "duplicates", 1), (0, 8, "duplicates", 1),
+]
+
+
+def radix_case(seed: int, n: int, start_bit: int, r: int,
+               kind: str = "uniform", n_vals: int = 1) -> tuple:
+    """(keys, (vals0, ...), start_bit, r) for one radix-partition pass:
+    "uniform" keys in [0, 2^31); "negative" over all of int32; "one_bucket"
+    random keys whose bits [start_bit, start_bit + r) all hold one value;
+    "duplicates" 20 distinct keys.  The first payload column is the row
+    number (a stable pass keeps it ascending within a bucket), the
+    others random int32."""
+    rng = np.random.default_rng(seed)
+    if kind == "negative":
+        keys = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    elif kind == "duplicates":
+        keys = rng.choice(rng.integers(-(1 << 31), 1 << 31, 20), n)
+    else:
+        keys = rng.integers(0, 1 << 31, n, dtype=np.int64)
+    if kind == "one_bucket":
+        field = (((1 << r) - 1) << start_bit) & 0xFFFFFFFF
+        value = (int(rng.integers(0, 1 << r)) << start_bit) & field
+        keys = (keys & ~field) | value
+    keys = keys.astype(np.uint32).view(np.int32)
+    vals = [np.arange(n, dtype=np.int32)] + [
+        rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+        for _ in range(n_vals - 1)]
+    return keys, tuple(vals), start_bit, r
+
+
+PART_PROBE_KINDS = ("uniform", "hot", "empty_parts", "duplicates", "dead",
+                    "empty_table")
+
+
+def part_probe_case(seed: int, n: int, bits: int, kind: str = "uniform",
+                    build_rows: int = 0) -> tuple:
+    """(keys, rowids, groups, offs, counts, htk, htv, mult) for
+    ``part_probe``: a probe side already partition-major (stably bucketed
+    by the key's low ``bits`` bits, as the join's partition pass leaves
+    it), each partition's run, and the packed (2^bits, S) tables of a
+    build side.  About 3 probe keys in 4 are in the build side.
+    "hot": 90 % of the probe rows in partition 0; "empty_parts": build
+    keys in partition 0 only, probe rows in every other partition but
+    partition 1; "duplicates": a quarter of the build keys repeated with
+    other payloads after their first row (the first wins); "dead": a
+    tenth of the rows carry rowid -1 and never match; "empty_table": no
+    build rows, an all-EMPTY table, every probe misses."""
+    rng = np.random.default_rng(seed)
+    n_parts = 1 << bits
+    build_rows = build_rows or max(64, 4 * n_parts)
+    span = 8 * build_rows
+    bkeys = rng.choice(np.arange(-span, span, dtype=np.int32), build_rows,
+                       replace=False)
+    if kind == "empty_parts":
+        bkeys = bkeys & ~np.int32(n_parts - 1)
+    bkeys = np.unique(bkeys)
+    bvals = rng.integers(0, 1000, len(bkeys), dtype=np.int32)
+    if kind == "duplicates":
+        d = max(len(bkeys) // 4, 1)
+        bkeys = np.concatenate([bkeys, bkeys[:d]])
+        bvals = np.concatenate([bvals, rng.integers(1000, 2000, d,
+                                                    dtype=np.int32)])
+    if kind == "empty_table":
+        bkeys, bvals = bkeys[:0], bvals[:0]
+    hits = rng.choice(bkeys, n) if len(bkeys) else np.zeros(n, np.int32)
+    misses = rng.integers(-2 * span, 2 * span, n, dtype=np.int32)
+    keys = np.where(rng.random(n) < 0.75, hits, misses).astype(np.int32)
+    if kind == "hot":
+        hot = rng.random(n) < 0.9
+        home = bkeys[(bkeys & (n_parts - 1)) == 0]
+        keys[hot] = np.where(rng.random(int(hot.sum())) < 0.75,
+                             rng.choice(home, int(hot.sum())),
+                             keys[hot] & ~np.int32(n_parts - 1))
+    if kind == "empty_parts" and n_parts > 1:
+        one = (keys & (n_parts - 1)) == 1
+        keys[one] ^= 3 if n_parts > 2 else 1
+    rowids = rng.permutation(n).astype(np.int32)
+    if kind == "dead":
+        rowids[rng.random(n) < 0.1] = -1
+    groups = rng.integers(0, 50, n, dtype=np.int32)
+    bucket = keys & (n_parts - 1)
+    order = np.argsort(bucket, kind="stable")
+    counts = np.bincount(bucket, minlength=n_parts).astype(np.int32)
+    offs = (np.cumsum(counts) - counts).astype(np.int32)
+    htk, htv = pack_partitions(bkeys, bvals, bits)
+    return (keys[order], rowids[order], groups[order], offs, counts, htk,
+            htv, 3)

@@ -64,8 +64,18 @@ def block_lookup(keys: torch.Tensor, ht_keys: torch.Tensor,
     loop; here each round probes only the lanes still walking, so a round
     costs its live lanes, not the whole tile.  A walk is capped at one
     lap of the table (a full table without the key is a miss, never a
-    hang)."""
-    n_slots = ht_keys.shape[0]
+    hang).
+
+    The tables are one ``(S,)`` table, or the partitioned join's packed
+    ``(P, S)`` layout (``hashtable.PackedParts``): a key then probes row
+    ``key & (P - 1)``, the partition its low bits name, and walks within
+    that row."""
+    if ht_keys.dim() == 2:
+        n_parts, n_slots = ht_keys.shape
+        base = (keys.to(torch.int64) & (n_parts - 1)) * n_slots
+        ht_keys, ht_vals = ht_keys.reshape(-1), ht_vals.reshape(-1)
+    else:
+        n_slots, base = ht_keys.shape[0], None
     mask = n_slots - 1
     payload = torch.zeros(keys.shape, dtype=ht_vals.dtype,
                           device=keys.device)
@@ -76,14 +86,17 @@ def block_lookup(keys: torch.Tensor, ht_keys: torch.Tensor,
     for _ in range(n_slots):
         if lanes.numel() == 0:
             break
-        k_at = ht_keys[slot]
+        at = slot if base is None else base + slot
+        k_at = ht_keys[at]
         hit = k_at == want
         hit_lanes = lanes[hit]
-        payload[hit_lanes] = ht_vals[slot[hit]]
+        payload[hit_lanes] = ht_vals[at[hit]]
         found[hit_lanes] = 1
         walking = ~(hit | (k_at == EMPTY))
         lanes, want = lanes[walking], want[walking]
         slot = (slot[walking] + 1) & mask
+        if base is not None:
+            base = base[walking]
     return payload, found
 
 

@@ -8,13 +8,18 @@ contract (``repro.kernels.ops``), decided by the device of the data:
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import agg as _agg
 from repro_torch.kernels import hash_join as _hj
+from repro_torch.kernels import part_probe as _pp
 from repro_torch.kernels import project as _proj
+from repro_torch.kernels import radix_part as _radix
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import select_scan as _sel
 from repro_torch.kernels import ssb_fused as _fused
 from repro_torch.kernels import unpack as _unp
+from repro_torch.kernels.common import gather_decode
 
 MODES = ("auto", "kernel", "ref")
 
@@ -99,3 +104,81 @@ def group_sum(group_ids, vals, n_groups: int, mode: str = "auto"):
     fn = _agg.group_sum if use_kernel(mode, vals.device) else \
         _ref.group_sum
     return fn(group_ids, vals, n_groups)
+
+
+def radix_histogram(keys, start_bit: int, r: int, mode: str = "auto"):
+    """Per-tile bucket counts of bits [start_bit, start_bit + r) of each
+    key (unsigned) -> (ceil(n / 2048), 2^r) int32."""
+    if use_kernel(mode, keys.device):
+        return _radix.histogram(keys, start_bit, r)
+    return _ref.histogram(keys, start_bit, r)
+
+
+def radix_partition_multi(keys, vals, start_bit: int, r: int,
+                          mode: str = "auto", hist=None):
+    """Stable partition pass with N payload columns riding the key ->
+    (keys', (vals0', ...)): the partitioned join's shuffle.  ``hist``:
+    the pass's ``radix_histogram`` when the caller has it (the kernel
+    then launches no histogram of its own; the plain pass needs none)."""
+    vals = tuple(vals)
+    if use_kernel(mode, keys.device):
+        return _radix.partition_multi(keys, vals, start_bit, r, hist=hist)
+    return _ref.partition_multi(keys, vals, start_bit, r)
+
+
+def radix_partition(keys, vals, start_bit: int, r: int, mode: str = "auto"):
+    """One stable partition pass with one payload -> (keys', vals')."""
+    fn = _radix.partition if use_kernel(mode, keys.device) else \
+        _ref.partition
+    return fn(keys, vals, start_bit, r)
+
+
+def radix_sort(keys, vals, mode: str = "auto", r: int = 8,
+               key_bits: int = 32):
+    """LSB radix sort by the keys as unsigned 32-bit words, stable ->
+    (keys', vals'): ceil(key_bits / r) partition passes."""
+    fn = _radix.radix_sort if use_kernel(mode, keys.device) else \
+        _ref.radix_sort
+    return fn(keys, vals, key_bits=key_bits, r=r)
+
+
+def part_probe(keys, rowids, groups, offs, counts, htk, htv, mult,
+               mode: str = "auto"):
+    """Single-launch partitioned probe of the flat partition-major probe
+    side against the packed ``(P, S)`` tables -> stable (rowids,
+    groups + payload·mult, count); rows with a negative rowid are dead
+    and never match."""
+    fn = _pp.part_probe if use_kernel(mode, keys.device) else \
+        _ref.part_probe
+    return fn(keys, rowids, groups, offs, counts, htk, htv, mult)
+
+
+def part_join(col, rowids, groups, htk, htv, mult, bits: int,
+              mode: str = "auto", width: int = 32, ref=0):
+    """Radix-partitioned join of the live rows (paper §4.4): gather their
+    FK keys from ``col`` (a plain int32 column, or a packed word stream
+    at ``width`` bits with frame of reference ``ref``), partition them by
+    the key's low ``bits`` bits in one pass (row ids and running group
+    ids ride along), then probe every partition against its row of the
+    packed ``(P, S)`` tables in one launch -> stable partition-major
+    (rowids, groups + payload·mult, count).
+
+    The partition boundaries are the column sums of the pass's own
+    histogram (``counts``) and their exclusive scan (``offs``), on the
+    device: no second pass over the shuffled keys and no host round
+    trip.  Dead rows (a negative rowid) never match; the reference pads
+    the probe side with them to a power of two for XLA's trace cache,
+    which the port does not need."""
+    n = rowids.shape[0]
+    if n == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=rowids.device)
+        return z, z, torch.zeros((), dtype=torch.int64, device=z.device)
+    keys = col[rowids] if width == 32 else gather_decode(col, rowids, width,
+                                                         ref)
+    hist = radix_histogram(keys, 0, bits, mode=mode)
+    outk, (orow, ogrp) = radix_partition_multi(keys, (rowids, groups), 0,
+                                               bits, mode=mode, hist=hist)
+    counts = hist.sum(0, dtype=torch.int32)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return part_probe(outk, orow, ogrp, offs, counts, htk, htv, mult,
+                      mode=mode)

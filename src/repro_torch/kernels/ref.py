@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as B
-from repro_torch.kernels.common import PHYS_WIDTHS, decode_words
+from repro_torch.kernels.common import DEFAULT_TILE, PHYS_WIDTHS, \
+    decode_words
 
 MEASURE_OPS = ("first", "mul", "sub")
 
@@ -202,3 +203,79 @@ def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
                       device=group_ids.device)
     return B.block_group_aggregate(group_ids, vals.to(acc), live,
                                    n_groups).to(vals.dtype)
+
+
+# ---------------------------------------------------------------------------
+# radix partitioning (paper §4.4) and the partitioned probe
+# ---------------------------------------------------------------------------
+
+
+def bucket_of(keys: torch.Tensor, start_bit: int, r: int) -> torch.Tensor:
+    """Each key's radix bucket: bits [start_bit, start_bit + r) of the key
+    as an unsigned 32-bit word, int64.  The shift is logical, as the
+    reference's ``shift_right_logical``: torch's int32 ``>>`` is
+    arithmetic, so it runs in int64 on the key's low 32 bits (a last pass
+    with start_bit + r > 32 then sees zeros above bit 31, not the sign)."""
+    return ((keys.to(torch.int64) & 0xFFFFFFFF) >> start_bit) & ((1 << r) - 1)
+
+
+def histogram(keys: torch.Tensor, start_bit: int, r: int,
+              tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """Per-tile bucket counts -> (ceil(n / tile), 2^r) int32: row t counts
+    the buckets of rows [t·tile, (t+1)·tile)."""
+    n, nb = keys.shape[0], 1 << r
+    n_tiles = -(-n // tile)
+    rows = torch.arange(n, dtype=torch.int64, device=keys.device)
+    idx = rows // tile * nb + bucket_of(keys, start_bit, r)
+    return torch.bincount(idx, minlength=n_tiles * nb).view(
+        n_tiles, nb).to(torch.int32)
+
+
+def partition_multi(keys: torch.Tensor, vals: Sequence[torch.Tensor],
+                    start_bit: int, r: int
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One stable radix-partition pass carrying N payload columns: one
+    stable argsort of the bucket ids, every column gathered through it
+    -> (keys', (vals0', ...))."""
+    order = torch.argsort(bucket_of(keys, start_bit, r), stable=True)
+    return keys[order], tuple(v[order] for v in vals)
+
+
+def partition(keys: torch.Tensor, vals: torch.Tensor, start_bit: int,
+              r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``partition_multi`` with one payload column -> (keys', vals')."""
+    out, (v,) = partition_multi(keys, (vals,), start_bit, r)
+    return out, v
+
+
+def radix_sort(keys: torch.Tensor, vals: torch.Tensor, key_bits: int = 32,
+               r: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSB radix sort: ceil(key_bits / r) stable ``partition`` passes of r
+    bits from bit 0 up.  Keys order as unsigned 32-bit words (a negative
+    key after every non-negative one), as the reference's kernel passes
+    do; the reference's own oracle ``ref.radix_sort`` orders them signed
+    (ROADMAP.md, queue 3)."""
+    for p in range(-(-key_bits // r)):
+        keys, vals = partition(keys, vals, p * r, r)
+    return keys, vals
+
+
+def part_probe(keys: torch.Tensor, rowids: torch.Tensor,
+               groups: torch.Tensor, offs: torch.Tensor,
+               counts: torch.Tensor, htk: torch.Tensor, htv: torch.Tensor,
+               mult) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partitioned probe over the flat partition-major probe side ->
+    (rowids (n,), groups + payload·mult (n,), count): each row probes the
+    table of its own partition, row ``key & (P - 1)`` of the packed
+    ``(P, S)`` tables; rows past the runs (``offs[-1] + counts[-1]``)
+    and dead rows (``rowid < 0``) never match; the matches compacted
+    stably, in flat order, then zeros."""
+    n = keys.shape[0]
+    payload, found = B.block_lookup(keys, htk, htv)
+    total = (offs[-1].to(torch.int64) + counts[-1]) if offs.numel() else 0
+    pos = torch.arange(n, dtype=torch.int64, device=keys.device)
+    bitmap = ((found > 0) & (pos < total) & (rowids >= 0)).to(torch.int32)
+    offsets, count = B.block_scan(bitmap)
+    grp = groups + payload * int(mult)
+    return (B.block_shuffle(rowids, bitmap, offsets),
+            B.block_shuffle(grp, bitmap, offsets), count)

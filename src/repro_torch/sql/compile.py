@@ -1,6 +1,6 @@
 """Plan compiler: lower a logical plan to a physical strategy.
 
-The port of ``repro.sql.compile``.  Two strategies lower so far:
+The port of ``repro.sql.compile``.  Four strategies lower so far:
 
 ``fused`` — collapse the whole SPJA subtree into one launch of the
             hand-written CUDA kernel ``kernels/csrc/ssb_fused.cu`` (the
@@ -19,12 +19,23 @@ The port of ``repro.sql.compile``.  Two strategies lower so far:
             materializing engine fig17 compares fused against.  It is
             also where a plan the fused kernel cannot express runs.  On a
             packed fact table the leading range filter selects straight
-            off the word stream (``select_scan_packed``).
+            off the word stream (``select_scan_packed``).  A row plan's
+            trailing ``OrderBy`` is an LSB radix sort of the survivors
+            by the key (``radix_sort``: four 8-bit histogram + scatter
+            passes).
+``part``  — opat with every join radix-partitioned (paper §4.4, Fig. 8):
+            the live rows' keys, row ids and group ids move in one
+            partition pass by the key's low ``part_bits`` bits
+            (``histogram`` + ``partition_multi``), then one
+            ``part_probe`` launch probes every partition against its own
+            table of the packed ``(P, S)`` layout.
+``part_loop`` — the same partition pass, then one ``probe_join`` per
+            non-empty partition from a host loop (the one-launch probe's
+            baseline).
 
 ``execute`` runs the whole table in one pass — the reference's path when
-the fact table is one morsel.  The other strategies, and a row plan that
-ends in ``OrderBy``, raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+the fact table is one morsel.  ``shared``, ``sharded`` and ``auto`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssb_fused
 from repro_torch.sql import hashtable as HT
+from repro_torch.sql import model as M
 from repro_torch.sql import plan as P
 from repro_torch.sql import ssb
 from repro_torch.sql import storage as ST
@@ -48,13 +60,13 @@ STRATEGIES = ("fused", "opat", "part", "part_loop", "shared", "sharded",
 # where each strategy the reference has lands in the port (ROADMAP.md,
 # "Open items", queue 1)
 _NOT_PORTED = {
-    "part": "queue 1, item 7 (partitioned join)",
-    "part_loop": "queue 1, item 7 (partitioned join)",
     "shared": "queue 1, item 8 (shared-scan waves)",
     "sharded": "queue 1, item 10 (sharding)",
     "auto": "queue 1, item 11 (cost model, calibration, tuner)",
 }
-_ORDER_BY = "queue 1, item 6 (radix slice: radix_sort, OrderBy)"
+# the radix width of ORDER BY's passes; the reference's tuner picks it
+# (``tune.tuned_r``, ROADMAP queue 1 item 11), whose default is 8
+SORT_BITS = 8
 
 
 def _not_ported(strategy: str) -> NotImplementedError:
@@ -113,6 +125,19 @@ def fusability(plan: P.Plan) -> Optional[str]:
         return (f"{n_preds} predicates and {n_joins} joins: the fused "
                 f"kernel takes at most {ssb_fused.MAX_PREDS} and "
                 f"{ssb_fused.MAX_JOINS}")
+    return None
+
+
+def partability(plan: P.Plan) -> Optional[str]:
+    """None if the plan takes the radix-partitioned join lowering
+    (``part`` and ``part_loop`` alike), else the reason it lowers
+    operator-at-a-time instead."""
+    kind = classify(plan)
+    if kind != "agg":
+        return ("row-returning plan: partition-at-a-time probes reorder "
+                "surviving rows, so row plans lower operator-at-a-time")
+    if not plan.joins:
+        return "no joins to partition; plan lowers operator-at-a-time"
     return None
 
 
@@ -209,12 +234,101 @@ def _probe_whole(node: P.HashJoin, fact, db: ssb.Database,
     return rowids[sel], group[sel] + payload[:cnt] * node.mult
 
 
+def _part_bits_of(node: P.HashJoin, db: ssb.Database,
+                  cache: Optional[HT.HashTableCache]
+                  ) -> Tuple[int, Optional[tuple]]:
+    """Radix bits of one join's partitioned lowering, and the filtered
+    build side when it had to be computed (no cache given)."""
+    if cache is not None:
+        return M.part_bits(cache.get_build_count(db, node)), None
+    side = HT.filtered_build_side(db, node)
+    return M.part_bits(len(side[0])), side
+
+
+def _probe_part_fused(node: P.HashJoin, fact, db: ssb.Database,
+                      rowids: torch.Tensor, group: torch.Tensor, mode: str,
+                      cache: Optional[HT.HashTableCache],
+                      device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """part join: one partition pass of the live rows' keys with their
+    row ids and group ids, then ONE probe launch over every partition
+    against the packed ``(P, S)`` tables (``ops.part_join``); surviving
+    rows come back partition-major.  One host sync: the match count."""
+    bits, side = _part_bits_of(node, db, cache)
+    packed = (cache.get_or_build_parts(db, node, bits, packed=True,
+                                       device=device)
+              if cache is not None else
+              HT.build_dim_partitions(db, node, bits, side=side, packed=True,
+                                      device=device))
+    col, width, colref = ST.column_stream(fact, node.fact_col, device)
+    outr, outg, cnt = ops.part_join(col, rowids, group, packed.htk,
+                                    packed.htv, node.mult, bits, mode=mode,
+                                    width=width, ref=colref)
+    cnt = int(cnt)
+    return outr[:cnt], outg[:cnt]
+
+
+def _probe_part_loop(node: P.HashJoin, fact, db: ssb.Database,
+                     rowids: torch.Tensor, group: torch.Tensor, mode: str,
+                     cache: Optional[HT.HashTableCache],
+                     device: torch.device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """part join, probed partition-at-a-time from the host (strategy
+    ``part_loop``, the one-launch probe's baseline): the same partition
+    pass as ``part``, then one ``probe_join`` per non-empty partition
+    against that partition's own table.  Partitions are probed at their
+    own length (the reference pads each to a power of two for XLA's
+    trace cache); surviving rows come back partition-major."""
+    bits, side = _part_bits_of(node, db, cache)
+    parts = (cache.get_or_build_parts(db, node, bits, device=device)
+             if cache is not None else
+             HT.build_dim_partitions(db, node, bits, side=side,
+                                     device=device))
+    keys = ST.take(fact, node.fact_col, rowids, device)
+    hist = ops.radix_histogram(keys, 0, bits, mode=mode)
+    outk, (orow, ogrp) = ops.radix_partition_multi(
+        keys, (rowids, group), 0, bits, mode=mode, hist=hist)
+    # partition boundaries: the column sums of the pass's histogram
+    counts = hist.sum(0).cpu().numpy()
+    ends = np.cumsum(counts)
+    out_rows, out_grps = [], []
+    for p in range(1 << bits):
+        s, e = int(ends[p] - counts[p]), int(ends[p])
+        if s == e:
+            continue
+        htk, htv = parts[p]
+        payload, sel, cnt = ops.probe_join(
+            outk[s:e], _positions(e - s, device), htk, htv, mode=mode)
+        cnt = int(cnt)
+        if cnt:
+            sel = sel[:cnt]
+            out_rows.append(orow[s:e][sel])
+            out_grps.append(ogrp[s:e][sel] + payload[:cnt] * node.mult)
+    if not out_rows:
+        z = torch.zeros((0,), dtype=torch.int32, device=device)
+        return z, z
+    return torch.cat(out_rows), torch.cat(out_grps)
+
+
+_JOIN_LOWERINGS = {
+    "opat": _probe_whole,
+    "part": _probe_part_fused,
+    "part_loop": _probe_part_loop,
+}
+
+
 def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                    cache: Optional[HT.HashTableCache],
-                   device: torch.device) -> np.ndarray:
+                   device: torch.device, join_mode: str = "opat"
+                   ) -> np.ndarray:
     """Walk the chain one operator at a time over the whole fact table ->
-    (n_groups,) f32 for an aggregate plan, the surviving row ids (int32,
-    in row order) for a row plan."""
+    (n_groups,) f32 for an aggregate plan, the surviving row ids (int32)
+    for a row plan: in row order, or in the key's order after a trailing
+    ``OrderBy``.  ``join_mode`` picks the HashJoin lowering: one probe of
+    the whole table (``opat``), the partitioned one-launch probe
+    (``part``) or the host partition loop (``part_loop``); every other
+    operator is the same."""
+    join_fn = _JOIN_LOWERINGS[join_mode]
     fact = getattr(db, plan.scan.table)
     n = fact.n_rows
     # live intermediate state, re-materialized by every operator:
@@ -260,8 +374,8 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
         elif isinstance(node, P.HashJoin):
             dense = False
             if not empty:
-                rowids, group = _probe_whole(node, fact, db, rowids, group,
-                                             mode, cache, device)
+                rowids, group = join_fn(node, fact, db, rowids, group, mode,
+                                        cache, device)
         elif isinstance(node, P.Project):
             m = ST.take(fact, node.m1, rowids, device).to(torch.float32)
             if node.op == "mul":
@@ -276,6 +390,11 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                 return np.zeros(node.n_groups, np.float32)
             return ops.group_sum(group, measure, node.n_groups,
                                  mode=mode).cpu().numpy()
+        elif isinstance(node, P.OrderBy):
+            if empty:
+                break
+            keys = ST.take(fact, node.key_col, rowids, device)
+            _, rowids = ops.radix_sort(keys, rowids, mode=mode, r=SORT_BITS)
         else:
             raise TypeError(f"{plan.name}: cannot lower node {node!r}")
     # only row plans (classify()-checked at compile time) fall through
@@ -293,7 +412,8 @@ class CompiledQuery:
 
     ``strategy`` is the strategy that runs; ``requested`` what the caller
     asked for.  When the caller asked for ``fused`` on a plan the fused
-    kernel cannot express, ``strategy == "opat"`` and ``fallback_reason``
+    kernel cannot express, or for ``part``/``part_loop`` on a plan with
+    nothing to partition, ``strategy == "opat"`` and ``fallback_reason``
     says why, as in the reference.  After ``execute``, ``decided`` holds
     the strategy that ran."""
     plan: P.Plan
@@ -312,7 +432,8 @@ class CompiledQuery:
         self.decided = self.strategy
         if self.strategy == "fused":
             return _execute_fused(self.plan, db, mode, cache, device)
-        return _execute_chain(self.plan, db, mode, cache, device)
+        return _execute_chain(self.plan, db, mode, cache, device,
+                              join_mode=self.strategy)
 
 
 def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
@@ -320,24 +441,23 @@ def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
 
     * ``fused`` — the single-kernel lowering; falls back to ``opat``
       (with ``fallback_reason`` set) when the plan is not fusable;
-    * ``opat``  — operator-at-a-time.
+    * ``opat``  — operator-at-a-time;
+    * ``part``  — radix-partitioned joins, one probe launch per join;
+      falls back to ``opat`` (reason set) when nothing is partitionable;
+    * ``part_loop`` — radix-partitioned joins probed partition at a time
+      from the host; the same fallback rule.
 
-    Any other known strategy, and a row plan ending in ``OrderBy``,
-    raises ``NotImplementedError`` naming the ROADMAP item that brings
-    it."""
+    ``shared``, ``sharded`` and ``auto`` raise ``NotImplementedError``
+    naming the ROADMAP item that brings them."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
     classify(plan)                      # raise on malformed chains
-    if strategy not in ("fused", "opat"):
+    if strategy in _NOT_PORTED:
         raise _not_ported(strategy)
-    if isinstance(plan.chain[-1], P.OrderBy):
-        raise NotImplementedError(
-            f"{plan.name}: OrderBy is not in repro_torch yet; it comes "
-            f"with ROADMAP.md {_ORDER_BY}")
     if strategy == "opat":
         return CompiledQuery(plan, "opat", "opat")
-    reason = fusability(plan)
+    reason = fusability(plan) if strategy == "fused" else partability(plan)
     if reason is None:
-        return CompiledQuery(plan, "fused", "fused")
-    return CompiledQuery(plan, "opat", "fused", fallback_reason=reason)
+        return CompiledQuery(plan, strategy, strategy)
+    return CompiledQuery(plan, "opat", strategy, fallback_reason=reason)

@@ -6,11 +6,14 @@ oracle, copied so the port answers to the same ground truth.
 
   ``ssb_queries()``       -> Dict[str, Plan]
   ``run_query(db, plan)``  -> fused (Crystal) lowering on the card, or
-                             ``strategy="opat"``
+                             another ``strategy`` (opat, part, part_loop)
+  ``order_by(table, col)`` -> the table's columns sorted by one column
+                             (the LSB radix sort, §4.4)
   ``run_query_oracle``    -> independent pure-numpy plan interpreter
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -27,7 +30,8 @@ from repro_torch.sql.ssb import Database, datekey
 
 __all__ = [
     "EMPTY", "np_hash", "np_build", "next_pow2", "HashTableCache",
-    "ssb_queries", "run_query", "run_query_oracle", "build_join_tables",
+    "ssb_queries", "run_query", "order_by", "run_query_oracle",
+    "build_join_tables",
     "Plan", "QueryBuilder",
 ]
 
@@ -192,6 +196,21 @@ def run_query(db: Database, plan: Plan, mode: str = "auto",
     the CPU) -> (n_groups,) f32."""
     return compile_plan(plan, strategy).execute(db, mode=mode, cache=cache,
                                                 device=device)
+
+
+def order_by(table, key_col: str, mode: str = "auto",
+             device=None) -> Dict[str, np.ndarray]:
+    """ORDER BY via the paper's §4.4 LSB radix sort (stable), on
+    ``device`` (the card unless the caller names the CPU): the table's
+    columns reordered on the host by ``key_col`` ascending, as the key's
+    unsigned 32-bit words.  Lowers a Scan -> OrderBy row plan
+    operator-at-a-time."""
+    plan = (QueryBuilder(f"orderby_{table.name}_{key_col}")
+            .scan(table.name).order_by(key_col).build())
+    shim = SimpleNamespace(**{table.name: table})
+    perm = compile_plan(plan, "opat").execute(shim, mode=mode,
+                                              device=device)
+    return {c: np.asarray(v)[perm] for c, v in table.columns.items()}
 
 
 def run_query_oracle(db: Database, plan: Plan) -> np.ndarray:

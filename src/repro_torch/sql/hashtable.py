@@ -12,8 +12,13 @@ build side — (dim table, key column, filter fingerprint, payload
 fingerprint) — plus the device, so a warm cache serves every query that
 shares a build side without a rebuild or an upload.
 
-Not here yet: the partitioned and replicated builds (ROADMAP queue 1,
-items 7 and 9).
+The partitioned build (``build_dim_partitions``) buckets the build side
+by the key's low bits and builds one table per partition with the same
+``np_build``, as the reference does: a list of tables sized each to its
+partition (``part_loop``), or the dense ``(P, S)`` layout of
+``PackedParts`` that the one-launch partitioned probe reads (``part``).
+
+Not here yet: the replicated build (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -98,6 +103,85 @@ def build_dim_table(db: ssb.Database, join: P.HashJoin, device=None
     n_slots = next_pow2(max(len(keys), 1))
     htk, htv = np_build(keys, vals, n_slots)
     return torch.from_numpy(htk).to(device), torch.from_numpy(htv).to(device)
+
+
+@dataclass(frozen=True)
+class PackedParts:
+    """Dense packed layout of 2^bits per-partition hash tables: one
+    ``(P, S)`` key tensor and one ``(P, S)`` value tensor on ``device``,
+    ``S`` one power-of-two slot count shared by every partition (sized off
+    the fullest partition, at most half full like the monolithic build).
+    Row ``p`` is partition p's table: the layout the one-launch
+    partitioned probe (``kernels/part_probe.py``) reads."""
+    htk: torch.Tensor                   # (P, S) int32, EMPTY-filled slots
+    htv: torch.Tensor                   # (P, S) int32
+    device: torch.device
+
+    @property
+    def n_parts(self) -> int:
+        return self.htk.shape[0]
+
+    @property
+    def n_slots(self) -> int:
+        return self.htk.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return (self.htk.numel() + self.htv.numel()) * 4
+
+
+def _bucket_runs(keys: np.ndarray, vals: np.ndarray, bits: int):
+    """Sort the build side into contiguous low-bit bucket runs; yields
+    (keys_run, vals_run) per partition, rows in build order within a
+    run (so the first duplicate still wins)."""
+    bucket = keys & ((1 << bits) - 1)
+    order = np.argsort(bucket, kind="stable")   # one pass, then slice
+    keys, vals = keys[order], vals[order]       # contiguous bucket runs
+    ends = np.cumsum(np.bincount(bucket, minlength=1 << bits))
+    start = 0
+    for p in range(1 << bits):
+        yield keys[start:ends[p]], vals[start:ends[p]]
+        start = int(ends[p])
+
+
+def pack_partitions(keys: np.ndarray, vals: np.ndarray, bits: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The packed ``(2^bits, S)`` host tables of a build side: row p is
+    ``np_build`` of partition p's rows at the slot count S of the fullest
+    partition."""
+    counts = np.bincount(keys & ((1 << bits) - 1), minlength=1 << bits)
+    n_slots = next_pow2(max(int(counts.max()) if len(keys) else 0, 1))
+    htk = np.full((1 << bits, n_slots), EMPTY, np.int32)
+    htv = np.zeros((1 << bits, n_slots), np.int32)
+    for p, (kp, vp) in enumerate(_bucket_runs(keys, vals, bits)):
+        htk[p], htv[p] = np_build(kp, vp, n_slots)
+    return htk, htv
+
+
+def build_dim_partitions(db: ssb.Database, join: P.HashJoin, bits: int,
+                         side: Optional[Tuple[np.ndarray, np.ndarray]]
+                         = None, packed: bool = False, device=None):
+    """Radix-partitioned build on the host: 2^bits per-partition hash
+    tables, bucketed by the key's low ``bits`` bits (the probe side
+    partitions by the same rule), uploaded once to ``device``.  ``side``
+    lets a caller that already filtered the build side pass it in.
+
+    ``packed=False`` returns the loop layout, a list of per-partition
+    (htk, htv) tensor pairs, each sized to its own partition (the
+    ``part_loop`` strategy); ``packed=True`` returns :class:`PackedParts`
+    (the ``part`` strategy)."""
+    device = resolve(device)
+    keys, vals = side if side is not None else filtered_build_side(db, join)
+    if not packed:
+        parts: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for kp, vp in _bucket_runs(keys, vals, bits):
+            htk, htv = np_build(kp, vp, next_pow2(max(len(kp), 1)))
+            parts.append((torch.from_numpy(htk).to(device),
+                          torch.from_numpy(htv).to(device)))
+        return parts
+    htk, htv = pack_partitions(keys, vals, bits)
+    return PackedParts(torch.from_numpy(htk).to(device),
+                       torch.from_numpy(htv).to(device), device)
 
 
 def join_cache_key(join: P.HashJoin) -> Tuple:
@@ -226,6 +310,48 @@ class HashTableCache:
             return hit
         self.misses += 1
         built = build_dim_table(db, join, device)
+        if _cacheable(key):
+            self.tables[key] = built
+            self._dims.add(join.dim)
+            self._touch(key)
+        return built
+
+    def get_build_count(self, db: ssb.Database, join: P.HashJoin) -> int:
+        """Filtered build-side row count, memoized under the join's
+        logical key (the partitioned lowering sizes ``part_bits`` from it
+        on every execute).  Not a build: it leaves the hit/miss stats
+        alone."""
+        self._bind(db)
+        key = ("n_build", join_cache_key(join))
+        hit = self.tables.get(key)
+        if hit is not None:
+            self._touch(key)
+            return hit
+        n = len(filtered_build_side(db, join)[0])
+        if _cacheable(key):
+            self.tables[key] = n
+            self._dims.add(join.dim)
+            self._touch(key)
+        return n
+
+    def get_or_build_parts(self, db: ssb.Database, join: P.HashJoin,
+                           bits: int, packed: bool = False, device=None):
+        """Partitioned analogue of ``get_or_build``: 2^bits
+        per-partition tables, cached under the build side's logical key,
+        ``bits``, the layout (the loop's list and :class:`PackedParts`
+        are distinct entries) and the device."""
+        device = resolve(device)
+        self._bind(db)
+        key = (join_cache_key(join), "part", bits,
+               "packed" if packed else "list", str(device))
+        hit = self.tables.get(key)
+        if hit is not None:
+            self.hits += 1
+            self._touch(key)
+            return hit
+        self.misses += 1
+        built = build_dim_partitions(db, join, bits, packed=packed,
+                                     device=device)
         if _cacheable(key):
             self.tables[key] = built
             self._dims.add(join.dim)

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from repro_torch import cases
-from repro_torch.kernels import (agg, hash_join, ops, project, ref,
-                                 select_scan, ssb_fused, unpack)
+from repro_torch.kernels import (agg, hash_join, ops, part_probe, project,
+                                 radix_part, ref, select_scan, ssb_fused,
+                                 unpack)
 from repro_torch.sql import engine, hashtable, ssb, storage
 
 pytestmark = pytest.mark.cuda
@@ -284,3 +285,118 @@ def test_packed_queries_on_card_match_oracle(cuda):
             got, engine.run_query(pdb, plan, mode="ref", cache=cache,
                                   strategy="opat"), err_msg=name)
     assert cache.misses == misses
+
+
+# ---------------------------------------------------------------------------
+# the radix slice: histogram, partition scatter, partitioned probe
+# ---------------------------------------------------------------------------
+
+
+def _flat(out):
+    return torch.utils._pytree.tree_leaves(out)
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b)))
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048, 100_003])
+@pytest.mark.parametrize("i", range(len(cases.RADIX_CASES)))
+def test_radix_kernels_bit_identical_to_plain(cuda, i, n):
+    """Each pass twice: block order cannot change a bit."""
+    start_bit, r, kind, n_vals = cases.RADIX_CASES[i]
+    keys, vals, _, _ = _on(cases.radix_case(i, n, start_bit, r, kind,
+                                            n_vals), cuda)
+    hist = _launched(radix_part, "histogram", keys, start_bit, r,
+                     counter="HIST_LAUNCHES")
+    assert torch.equal(hist, ref.histogram(keys, start_bit, r))
+    assert torch.equal(radix_part.histogram(keys, start_bit, r), hist)
+    got = _launched(radix_part, "partition_multi", keys, vals, start_bit, r,
+                    hist=hist, counter="SCATTER_LAUNCHES")
+    assert _equal(got, ref.partition_multi(keys, vals, start_bit, r))
+    assert _equal(radix_part.partition_multi(keys, vals, start_bit, r), got)
+
+
+@pytest.mark.parametrize("r", [4, 7, 8])
+@pytest.mark.parametrize("kind", ["negative", "duplicates"])
+def test_radix_sort_kernel_bit_identical_to_plain(cuda, kind, r):
+    keys, (vals,), _, _ = _on(cases.radix_case(r, 100_003, 0, 1, kind, 1),
+                              cuda)
+    before = radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES
+    got = radix_part.radix_sort(keys, vals, r=r)
+    passes = -(-32 // r)
+    assert (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES) == \
+        (before[0] + passes, before[1] + passes)
+    assert _equal(got, ref.radix_sort(keys, vals, r=r))
+    assert _equal(radix_part.radix_sort(keys, vals, r=r), got)
+    order = np.argsort(keys.cpu().numpy().view(np.uint32), kind="stable")
+    np.testing.assert_array_equal(got[1].cpu().numpy(), order)
+
+
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("kind", cases.PART_PROBE_KINDS)
+def test_part_probe_kernel_bit_identical_to_plain(cuda, kind, bits, n):
+    args = _on(cases.part_probe_case(bits + n, n, bits, kind), cuda)
+    got = _launched(part_probe, "part_probe", *args)
+    assert _equal(got, ref.part_probe(*args))
+    assert _equal(part_probe.part_probe(*args), got)
+
+
+def test_radix_wrappers_reject_bad_inputs(cuda):
+    keys, vals, _, _ = _on(cases.radix_case(1, 1000, 0, 8, "uniform", 3),
+                           cuda)
+    for start_bit, r in ((0, 9), (32, 4), (0, 0)):
+        with pytest.raises(ValueError, match="start_bit"):
+            radix_part.histogram(keys, start_bit, r)
+    with pytest.raises(ValueError, match="at most 3"):
+        radix_part.partition_multi(keys, vals + vals[:1], 0, 8)
+    with pytest.raises(ValueError, match="hist must be"):
+        radix_part.partition_multi(keys, vals, 0, 8,
+                                   hist=radix_part.histogram(keys, 0, 4))
+    args = list(_on(cases.part_probe_case(1, 1000, 4), cuda))
+    with pytest.raises(ValueError, match="powers of 2"):
+        part_probe.part_probe(*args[:5], args[5][:3], args[6][:3], 3)
+
+
+@pytest.mark.parametrize("strategy", ["part", "part_loop"])
+def test_part_queries_on_card_match_oracle(cuda, strategy):
+    """The 13 queries through the partitioned join, plain and packed: per
+    join one histogram and one scatter, then one ``part_probe`` (part)
+    or one ``probe_join`` per non-empty partition (part_loop)."""
+    db = ssb.generate(sf=0.05, seed=7)
+    pdb = storage.pack_database(db).to(cuda)
+    db.to(cuda)
+    cache = hashtable.HashTableCache()
+    for name, plan in engine.ssb_queries().items():
+        want = engine.run_query_oracle(db, plan)
+        for database in (db, pdb):
+            before = (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES,
+                      part_probe.LAUNCHES, hash_join.LAUNCHES)
+            got = engine.run_query(database, plan, cache=cache,
+                                   strategy=strategy)
+            hist, scatter, pp, pj = (
+                a - b for a, b in zip(
+                    (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES,
+                     part_probe.LAUNCHES, hash_join.LAUNCHES), before))
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            j = len(plan.joins)
+            if strategy == "part" and got.any():   # no join ran dry
+                assert (hist, scatter, pp, pj) == (j, j, j, 0), name
+            elif got.any():
+                assert (hist, scatter, pp) == (j, j, 0), name
+                assert j <= pj <= j << 8, name
+            np.testing.assert_array_equal(
+                got, engine.run_query(database, plan, mode="ref",
+                                      cache=cache, strategy=strategy),
+                err_msg=name)
+
+
+def test_order_by_on_card_matches_numpy(cuda):
+    db = ssb.generate(sf=0.05, seed=7)
+    before = radix_part.HIST_LAUNCHES
+    out = engine.order_by(db.lineorder, "lo_orderdate")
+    assert radix_part.HIST_LAUNCHES == before + 4
+    perm = np.argsort(db.lineorder["lo_orderdate"], kind="stable")
+    for c, v in db.lineorder.columns.items():
+        np.testing.assert_array_equal(out[c], v[perm])

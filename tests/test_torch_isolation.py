@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from repro_torch import cases
-from repro_torch.kernels import (agg, hash_join, ops, project, select_scan,
-                                 ssb_fused, unpack)
+from repro_torch.kernels import (agg, hash_join, ops, part_probe, project,
+                                 radix_part, select_scan, ssb_fused, unpack)
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
 from repro_torch.sql import hashtable as THT
@@ -71,11 +71,15 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
     plan = TE.ssb_queries()["q2.1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.run_query(db, plan)
-    for strategy in ("fused", "opat"):
+    for strategy in ("fused", "opat", "part", "part_loop"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TC.compile_plan(plan, strategy).execute(db)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         THT.build_dim_table(db, plan.joins[0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        THT.build_dim_partitions(db, plan.joins[0], 2, packed=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.order_by(db.lineorder, "lo_orderdate")
 
 
 @pytest.mark.parametrize("mode", ["kernel", "auto", "ref"])
@@ -108,6 +112,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         (hash_join, "probe_join", cases.probe_case(7, 256), ()),
         (project, "project", cases.project_case(7, 256), (1.0, -1.0)),
         (agg, "group_sum", cases.group_case(7, 256, 4), ()),
+        (part_probe, "part_probe", cases.part_probe_case(7, 256, 2), ()),
     ]
     for mod, fn, case, extra in calls:
         before = mod.LAUNCHES
@@ -115,21 +120,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             getattr(mod, fn)(*cases.tensors(case, "cpu"), *extra)
         assert mod.LAUNCHES == before, fn
     assert select_scan.PACKED_LAUNCHES == 0
+    keys, vals, start_bit, r = cases.tensors(
+        cases.radix_case(7, 256, 0, 8), "cpu")
+    for fn, args in (("histogram", (keys, start_bit, r)),
+                     ("partition_multi", (keys, vals, start_bit, r)),
+                     ("partition", (keys, vals[0], start_bit, r)),
+                     ("radix_sort", (keys, vals[0]))):
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            getattr(radix_part, fn)(*args)
+    assert radix_part.HIST_LAUNCHES == radix_part.SCATTER_LAUNCHES == 0
 
 
 def test_unported_strategies_raise_naming_the_roadmap():
     plan = TE.ssb_queries()["q1.1"]
-    for strategy in ("part", "part_loop", "shared", "sharded", "auto"):
+    for strategy in ("shared", "sharded", "auto"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.compile_plan(plan, strategy)
+    for strategy in ("part", "part_loop"):
+        q = TC.compile_plan(TE.ssb_queries()["q2.1"], strategy)
+        assert (q.strategy, q.requested, q.fallback_reason) == \
+            (strategy, strategy, None)
+
     def rows():
         return (TE.QueryBuilder("rows").scan("lineorder")
                 .where_range("lo_discount", 1, 3))
 
+    # a row plan ending in OrderBy lowers: fused falls back to opat
     ordered = rows().order_by("lo_orderdate").build()
-    for strategy in ("fused", "opat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*radix"):
-            TC.compile_plan(ordered, strategy)
+    q = TC.compile_plan(ordered, "fused")
+    assert (q.strategy, q.requested) == ("opat", "fused")
+    assert q.fallback_reason.startswith("row-returning plan")
+    q = TC.compile_plan(ordered, "opat")
+    assert (q.strategy, q.fallback_reason) == ("opat", None)
     q = TC.compile_plan(rows().build(), "fused")
     assert (q.strategy, q.requested) == ("opat", "fused")
     assert q.fallback_reason.startswith("row-returning plan")

@@ -4,7 +4,9 @@ row-by-row count in plain Python.  Tolerance: exact (integer counts)."""
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
+import torch
 
 from repro_torch import cases
 from repro_torch.kernels import ref
@@ -222,3 +224,94 @@ def test_opat_need_counts_packed_words_once(fn, case):
     assert (got["bytes"], got["ops"]) == want
     assert got["bytes_ms"] == want[0] / smoke.HBM_BYTES_PER_S * 1e3
     assert got["ops_ms"] == want[1] / smoke.INT32_OPS_PER_S * 1e3
+
+
+@pytest.mark.parametrize("fn,case", [
+    ("histogram", cases.radix_case(13, 5000, 8, 4, "negative", 1)),
+    ("histogram", cases.radix_case(14, 37, 0, 8, "one_bucket", 1)),
+    ("partition_multi", cases.radix_case(15, 4097, 0, 8, "uniform", 3)),
+    ("partition_multi", cases.radix_case(16, 100, 28, 7, "duplicates", 1)),
+])
+def test_radix_need_counts_each_column_once(fn, case):
+    """histogram: keys read once and the (tiles, 2^r) counts written;
+    partition_multi: the key and every payload read and written once and
+    the histogram read; 3 operations a row either way."""
+    keys, vals, start_bit, r = cases.tensors(case, "cpu")
+    n, counts = len(case[0]), 4 * -(-len(case[0]) // 2048) * (1 << r)
+    if fn == "histogram":
+        args = (keys, start_bit, r)
+        want = 4 * n + counts
+    else:
+        args = (keys, vals, start_bit, r)
+        want = (1 + len(vals)) * 8 * n + counts
+    got = smoke.opat_need(fn, args, getattr(ref, fn)(*args))
+    assert (got["bytes"], got["ops"]) == (want, 3 * n)
+    assert got["bytes_ms"] == want / smoke.HBM_BYTES_PER_S * 1e3
+    assert got["ops_ms"] == 3 * n / smoke.INT32_OPS_PER_S * 1e3
+
+
+@pytest.mark.parametrize("kind", ["hot", "dead", "duplicates",
+                                  "empty_table"])
+@pytest.mark.parametrize("bits", [1, 4])
+def test_part_probe_need_walks_each_partition_table(kind, bits):
+    """Every row before the runs' end reads its rowid, a live one its key
+    and group and walks the chain of its own partition's table: 4
+    operations a step, 2 a match, the 64-byte segments visited and hit,
+    the offs and counts read, 8 bytes written a match."""
+    case = cases.part_probe_case(17, 900, bits, kind)
+    args = cases.tensors(case, "cpu")
+    got = smoke.opat_need("part_probe", args, ref.part_probe(*args))
+    keys, rowids, _, offs, counts, htk, _, _ = case
+    n_parts, n_slots = htk.shape
+    seg = smoke.SEGMENT // 4
+    end = int(offs[-1]) + int(counts[-1])
+    moved, steps, found = 4 * end, 0, 0
+    visited, hits = set(), set()
+    for key, rowid in zip(keys[:end].tolist(), rowids[:end].tolist()):
+        if rowid < 0:
+            continue
+        moved += 8
+        p = key & (n_parts - 1)
+        slot = ((key & 0xFFFFFFFF) * 2654435761) & (n_slots - 1)
+        for _ in range(n_slots):
+            visited.add(p * n_slots + slot)
+            steps += 1
+            if htk[p, slot] == key:
+                found += 1
+                hits.add(p * n_slots + slot)
+                break
+            if htk[p, slot] == -2 ** 31:
+                break
+            slot = (slot + 1) & (n_slots - 1)
+    moved += smoke.SEGMENT * (len({s // seg for s in visited}) +
+                              len({s // seg for s in hits}))
+    moved += 8 * n_parts + 8 * found
+    assert (got["bytes"], got["ops"]) == (moved, 4 * steps + 2 * found)
+    assert got["ops_ms"] == (4 * steps + 2 * found) / \
+        smoke.INT32_OPS_PER_S * 1e3
+
+
+@pytest.mark.parametrize("bits", [0, 1, 4])
+def test_mean_probe_walks_each_key_from_its_home(bits):
+    """The mean walk of a hit: each build key's chain walked slot by slot
+    from its home slot in its own partition's table."""
+    from repro_torch.sql import hashtable
+    rng = np.random.default_rng(bits)
+    keys = np.unique(rng.integers(-3000, 3000, 700)).astype(np.int32)
+    keys = np.concatenate([keys, keys[:50]])       # duplicates: first wins
+    vals = np.arange(len(keys), dtype=np.int32)
+    htk = (hashtable.np_build(keys, vals, hashtable.next_pow2(len(keys)))[0]
+           if bits == 0 else hashtable.pack_partitions(keys, vals, bits)[0])
+    rows = htk.reshape(-1, htk.shape[-1])
+    n_slots, walks = rows.shape[1], []
+    for row in rows:
+        for s, key in enumerate(row.tolist()):
+            if key == hashtable.EMPTY:
+                continue
+            slot, steps = int(hashtable.np_hash(np.array([key]), n_slots)[0]), 1
+            while slot != s:
+                slot, steps = (slot + 1) % n_slots, steps + 1
+            walks.append(steps)
+    got = smoke.mean_probe(torch.from_numpy(htk))
+    assert got == pytest.approx(float(np.mean(walks)), rel=1e-12)
+    assert got >= 1.0
