@@ -57,7 +57,25 @@ exits non-zero without printing a result:
            8-bit radix passes) against numpy's stable argsort, and a
            filter + join + ``OrderBy`` row plan against numpy's stable
            argsort of its survivors; ``radix_sort`` timed beside its bound
-           and ``torch.sort(stable=True)``.
+           and ``torch.sort(stable=True)``;
+9. shared waves: the 13 queries as one wave through ``execute_shared(...,
+           pad_to=16)``, flight 2 alone and flights 2 + 4, on phase 4's
+           database and on phase 6's packed one with a fresh hash cache —
+           one ``multi_spja`` launch a wave, cache misses equal to the
+           distinct build sides (none new on the packed database), every
+           member bit-identical to phase 4's oracle and fused results, a
+           second pass and the plain version on the card; ``compile_plan(
+           plan, "shared")`` for one query; per wave ``query_ms`` beside
+           the members' solo fused ``query_ms``, the kernel's time beside
+           the bound of what the wave's data needs (``wave_need``) at
+           five shared-memory budgets for its sums, and a one-group member
+           that every row reaches at two budgets (phase 4 profiles the
+           13-query wave: the device busy share);
+10. join microbenchmark and streaming sum: ``probe_agg`` of 2^28 probe
+           rows against tables of 8 KB to 256 MB (across the 50 MB L2),
+           ``reduce_sum`` of a 2^28-row int32 column and its f32 copy, each
+           bit-identical to its plain version and to numpy, timed beside
+           its bound (and ``torch.sum``).
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -118,6 +136,13 @@ PARTITIONED = [
      "src/repro/kernels/radix_part.py:111"),
     ("part_probe", "part_probe", "LAUNCHES", "part_probe.cu",
      "src/repro/kernels/part_probe.py:94")]
+# the shared-scan and join-microbenchmark kernels, the same fields
+SHARED = [("multi_fused", "multi_spja", "LAUNCHES", "multi_fused.cu",
+           "src/repro/kernels/multi_fused.py:142")]
+JOIN_BENCH = [("hash_join", "probe_agg", "AGG_LAUNCHES", "hash_join.cu",
+               "src/repro/kernels/hash_join.py:136"),
+              ("agg", "reduce_sum", "SUM_LAUNCHES", "agg.cu",
+               "src/repro/kernels/agg.py:42")]
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
 # the Fig. 8 analogue (benchmarks/run.py::_fig8_db's shape): 2^27 fact
 # rows, FK uniform over a dim of 2^12 .. 2^24 rows (the last a 256 MB
@@ -125,6 +150,16 @@ PART_N = 2_000_003              # rows of the synthetic partitioned probes
 FIG8_FACT = 1 << 27
 FIG8_DIMS = (1 << 12, 1 << 16, 1 << 20, 1 << 24)
 STRATEGIES = ("fused", "opat", "part", "part_loop")
+# phase 9's waves (query names; all13 is padded to 16 members)
+WAVES = {"all13": None, "flight2": ("q2.1", "q2.2", "q2.3"),
+         "flights2_4": ("q2.1", "q2.2", "q2.3", "q4.1", "q4.2", "q4.3")}
+# phase 10: probe rows and the table sizes of the L2 step (8 bytes a slot,
+# half full: benchmarks/run.py::fig13_join's reckoning)
+JOIN_ROWS = 1 << 28
+JOIN_TABLE_KB = (8, 256, 4096, 32768, 65536, 262144)
+SUM_ROWS = 1 << 28
+# phase 9: shared-memory budgets of the wave kernel's member grids
+ACC_BUDGETS = (0, 512, 8 * 1024, 24 * 1024, 160 * 1024)
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
@@ -152,6 +187,43 @@ SYNTHETIC = [
           n_groups=243, duplicates=True, wrap=True)),
 ]
 BIG = 10_000_019                # a ragged n past every tile and grid size
+# (label, cases.multi_spja_case arguments): waves of 1, 13 and 16 members,
+# 1 / 7000 / 33,750 groups, padding members with random parameters, two
+# streams of one build side, an empty build side, packed predicates at
+# every width with frame-of-reference keys and measures
+MULTI_SYNTHETIC = [
+    ("Q 1, 3 preds, 1 group",
+     dict(n=BIG, n_members=1, n_preds=3, n_joins=0, n_groups=1)),
+    ("Q 13 + 3 padding, 7000 groups, duplicate + wrapping keys, one table "
+     "in two streams",
+     dict(n=4_000_037, n_members=13, pad=3, n_preds=3, n_joins=6,
+          n_groups=7000, duplicates=True, wrap=True, shared_table=True,
+          build_rows=20_000)),
+    ("Q 16, 33,750 groups",
+     dict(n=2_000_003, n_members=16, n_preds=4, n_joins=3, n_groups=33_750,
+          build_rows=5000)),
+    ("Q 8 + 8 padding, empty build side",
+     dict(n=1_000_003, n_members=8, pad=8, n_preds=2, n_joins=3,
+          n_groups=100, empty_join=True)),
+] + [
+    (f"Q 13 + 3 padding, packed preds at {phys} bits, FOR keys and "
+     "measures, 800 groups",
+     dict(n=BIG if phys == 1 else 2_000_003, n_members=13, pad=3, n_preds=3,
+          n_joins=4, n_groups=800, packed=True, pred_phys=phys,
+          duplicates=True))
+    for phys in (1, 2, 4, 8, 16)] + [
+    ("n = 37", dict(n=37, n_members=3, n_preds=2, n_joins=2, n_groups=4)),
+]
+# (fn, label, cases generator, its arguments): the microbenchmark kernels
+SUM_SYNTHETIC = [
+    ("probe_agg", f"{kind}, {vals} vals, n={n}", "probe_agg_case",
+     (n, n, kind, vals))
+    for n, kind in ((BIG, "duplicate_wrap"), (1_000_003, "empty"),
+                    (1_000_003, "misses"), (37, "duplicate_wrap"))
+    for vals in ("int32", "f32_integers", "f32_random")] + [
+    ("reduce_sum", f"{kind}, n={n}", "reduce_case", (n, n, kind))
+    for n in (BIG, 37) for kind in ("int32_overflow", "f32_integers",
+                                    "f32_random")]
 # (label, cases.packed_spja_case arguments): packed predicates at every
 # width, frame-of-reference keys and measures (SSB data packs with
 # reference 0 only), n not a multiple of a word's values
@@ -350,6 +422,114 @@ def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
             "ops_ms": ops / INT32_OPS_PER_S * 1e3}
 
 
+def wave_need(wave_args, n_groups: int, pred_widths=None, key_widths=None,
+              key_refs=None, m_widths=None, m_refs=None, n_rows=None,
+              member_groups=None) -> dict:
+    """What one ``multi_spja`` call needs on this data, for its bound.
+
+    Bytes: the kernel loads a row's predicate column while a live member
+    filters it, a join key while a live member uses the join or takes its
+    payload, and a measure while a live member sums it; each distinct
+    stream costs the 64-byte segments that hold a row it is loaded for (a
+    column named twice, as lo_orderdate is as predicate and key, once; a
+    column packed c values a word holds 16·c rows a segment), each
+    distinct table the segments its probes visit (keys) or hit
+    (payloads), and the output is (Q, n_groups) f32.  Operations: 2
+    compares per filtering live member and row, 4 per probe step, 2 per
+    join of a live member's group id, 2 per summed row (measure op and
+    add), 2 per value decoded from a packed stream.  ``steps``: the probe
+    steps (table slots read)."""
+    from repro_torch.kernels import ref
+    pred_cols, bounds, join_keys, tables, mults, use, valid, meas, sel = \
+        wave_args
+    c_n, j_n, m_n = len(pred_cols), len(join_keys), len(meas)
+    bounds, mults, use, valid, sel = ref.wave_params(
+        bounds, mults, use, valid, sel, c_n, j_n, m_n)
+    pred_widths = ref.stream_widths(pred_widths, c_n)
+    key_widths = ref.stream_widths(key_widths, j_n)
+    m_widths = ref.stream_widths(m_widths, m_n)
+    key_refs = ref.refs_list(key_refs, j_n)
+    m_refs = ref.refs_list(m_refs, m_n)
+    n = meas[0].shape[0] if n_rows is None else int(n_rows)
+    dev = meas[0].device
+    real = [q for q in range(valid.shape[0]) if valid[q]]
+    live = torch.zeros((valid.shape[0], n), dtype=torch.bool, device=dev)
+    live[real] = True
+    loaded, visited_by, hit_by, payloads = {}, {}, {}, {}
+    ops = steps_all = 0
+
+    def load(col, width, rows):
+        nonlocal ops
+        prev = loaded.get(col.data_ptr())
+        loaded[col.data_ptr()] = (rows if prev is None else prev[0] | rows,
+                                  width)
+        if width != 32:
+            ops += 2 * int(rows.sum())
+
+    every = (-(1 << 31), (1 << 31) - 1)
+    for c, (col, w) in enumerate(zip(pred_cols, pred_widths)):
+        filt = [q for q in real if tuple(bounds[q, c]) != every]
+        rows = live[filt].any(0) if filt else None
+        if rows is None or not bool(rows.any()):
+            continue
+        load(col, w, rows)
+        vals = ref.decode_stream(col, w, 0, n)
+        for q in filt:
+            ops += 2 * int(live[q].sum())
+            live[q] &= (vals >= int(bounds[q, c, 0])) & \
+                (vals <= int(bounds[q, c, 1]))
+    for j, (col, w) in enumerate(zip(join_keys, key_widths)):
+        need = [q for q in real if use[q, j] or mults[q, j]]
+        rows = live[need].any(0) if need else None
+        if rows is None or not bool(rows.any()):
+            continue
+        load(col, w, rows)
+        idx = rows.nonzero().squeeze(1)
+        htk, htv = tables[2 * j], tables[2 * j + 1]
+        slot, visited, steps = probe_walk(
+            ref.decode_stream(col, w, key_refs[j], n)[idx], htk)
+        hit = slot >= 0
+        hits = torch.zeros_like(visited)
+        hits[slot[hit]] = True
+        k = htk.data_ptr()
+        visited_by[k] = visited | visited_by.get(k, False)
+        hit_by[k] = hits | hit_by.get(k, False)
+        ops += 4 * steps
+        steps_all += steps
+        if any(mults[q, j] for q in need):
+            payload = torch.zeros(n, dtype=torch.int64, device=dev)
+            payload[idx[hit]] = htv[slot[hit]].to(torch.int64)
+            payloads[j] = payload
+        found = torch.zeros(n, dtype=torch.bool, device=dev)
+        found[idx[hit]] = True
+        for q in need:
+            if use[q, j]:
+                live[q] &= found
+    for m, (col, w) in enumerate(zip(meas, m_widths)):
+        users = [q for q in real
+                 if sel[q, 0] == m or (sel[q, 2] and sel[q, 1] == m)]
+        rows = live[users].any(0) if users else None
+        if rows is not None and bool(rows.any()):
+            load(col, w, rows)
+    for q in real:
+        own = [j for j in range(j_n) if mults[q, j]]
+        ops += 2 * len(own) * int(live[q].sum())
+        group = torch.zeros(n, dtype=torch.int64, device=dev)
+        for j in own:           # no payload: the member died before join j
+            if j in payloads:
+                group += payloads[j] * int(mults[q, j])
+        ops += 2 * int((live[q] & ((group & 0xFFFFFFFF) < n_groups)).sum())
+    fact = sum(segment_bytes(rows, 16 * (32 // w))
+               for rows, w in loaded.values())
+    table = sum(segment_bytes(v) for v in visited_by.values()) + \
+        sum(segment_bytes(h) for h in hit_by.values())
+    moved = fact + table + 4 * valid.shape[0] * n_groups
+    return {"fact_bytes": fact, "table_bytes": table, "bytes": moved,
+            "ops": ops, "steps": steps_all,
+            "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / INT32_OPS_PER_S * 1e3}
+
+
 def call_rows(fn: str, args: tuple) -> int:
     """The rows one call of a kernel other than ``spja`` works on."""
     if fn == "select_scan_packed":
@@ -495,7 +675,8 @@ DEVICE_KINDS = [("select_count", "select_scan"),
                 ("probe_count", "probe_join"), ("probe_scatter", "probe_join"),
                 ("scan_tiles", "select_scan/probe_join tile scan"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
-                ("project_kernel", "project"), ("spja_kernel", "spja"),
+                ("project_kernel", "project"),
+                ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
                 ("arange", "torch arange"), ("index", "torch gather"),
                 ("copy", "torch copy/cast"), ("Fill", "torch zeros"),
                 ("Memcpy", "copy to host")]
@@ -622,11 +803,12 @@ def main() -> int:
     from repro_torch import cases
     from repro_torch.kernels import build, ref, ssb_fused
     from repro_torch.sql import engine, hashtable, ssb, storage
+    from repro_torch.sql import compile as TC
     from repro_torch.sql import model as M
     from repro_torch.sql import plan as P
     from repro_torch.sql.compile import SORT_BITS, compile_plan, fused_inputs
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
-            for m, *_ in OPAT + PACKED + PARTITIONED}
+            for m, *_ in OPAT + PACKED + PARTITIONED + SHARED + JOIN_BENCH}
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -753,6 +935,55 @@ def main() -> int:
             held("part_probe", label, got, pprobe.part_probe(*args),
                  ref.part_probe(*args))
             print(f"part_probe {label}: count={int(got[2])} ok", flush=True)
+    mf, hj, ag = mods["multi_fused"], mods["hash_join"], mods["agg"]
+    new_err = {"multi_spja": 0.0, "probe_agg": 0.0, "reduce_sum": 0.0}
+    for i, (label, kw) in enumerate(MULTI_SYNTHETIC):
+        c = cases.multi_spja_case(5000 + i, **kw)
+        a, k = c.args(dev)
+        before = mf.LAUNCHES
+        got = mf.multi_spja(*a, **k, member_groups=c.member_groups)
+        if mf.LAUNCHES != before + 1:
+            raise AssertionError(f"multi_spja {label}: the kernel did not "
+                                 "launch")
+        # a second run with every sum through L2: the same bits
+        again = mf.multi_spja(*a, **k, acc_budget_bytes=0)
+        want = ref.multi_spja(*a, **k)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"multi_spja {label}: two runs differ")
+        new_err["multi_spja"] = max(new_err["multi_spja"], check_against_plain(
+            "multi_spja", label, got, want))
+        if got[torch.from_numpy(c.q_valid == 0)].any():
+            raise AssertionError(f"multi_spja {label}: padding added")
+        if not got.any():
+            raise AssertionError(f"multi_spja {label}: vacuous, all zero")
+        print(f"multi_spja {label}: n={c.n} Q={len(c.q_valid)} "
+              f"nonzero={(got != 0).sum(1).tolist()} ok", flush=True)
+    for fn, label, gen, gen_args in SUM_SYNTHETIC:
+        mod, counter = (hj, "AGG_LAUNCHES") if fn == "probe_agg" else \
+            (ag, "SUM_LAUNCHES")
+        args = cases.tensors(getattr(cases, gen)(*gen_args), dev)
+        if fn == "reduce_sum" and gen_args[0] == BIG:
+            args = (args[0][1:],)       # not 16-byte aligned
+        before = getattr(mod, counter)
+        got = getattr(mod, fn)(*args)
+        again = getattr(mod, fn)(*args)
+        if getattr(mod, counter) != before + 2:
+            raise AssertionError(f"{fn} {label}: the kernel did not launch")
+        want = getattr(ref, fn)(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"{fn} {label}: two runs differ")
+        err = float((got.double() - want.double()).abs())
+        if "f32_random" in label:       # another f64 order: within an ulp
+            if err > float((torch.nextafter(want, want + 1) - want).abs()):
+                raise AssertionError(f"{fn} {label}: more than 1 ulp from "
+                                     "plain")
+        elif not torch.equal(got, want):
+            raise AssertionError(f"{fn} {label}: kernel != plain, "
+                                 f"|err| {err}")
+        new_err[fn] = max(new_err[fn], err)
+        print(f"{fn} {label}: {got.item()} max_abs_err={err} ok", flush=True)
     print(f"phase3_s {time.perf_counter() - t:.3f}", flush=True)
 
     t = phase(f"4 main path: 13 SSB queries, fused, SF {SF}")
@@ -854,6 +1085,12 @@ def main() -> int:
     tot = {k: sum(r[k] for r in rows) for k in totals}
     print(f"totals {json.dumps(tot)}")
     print("profile fused " + json.dumps(profiled(run_pass)), flush=True)
+    # the 13-query wave (phase 9) profiled here, on the same database and
+    # cache: after phases 6-8 the profiler has seen no device time
+    plans13 = list(queries.values())
+    TC.execute_shared(plans13, db, cache=cache, pad_to=16)
+    print("profile wave " + json.dumps(profiled(lambda: TC.execute_shared(
+        plans13, db, cache=cache, pad_to=16))), flush=True)
     print(f"phase4_s {time.perf_counter() - t:.3f}", flush=True)
     kernels = [dict(
         KERNEL, launches=main_launches, max_abs_err=max_err,
@@ -1363,6 +1600,262 @@ def main() -> int:
     for entry in kernels[-3:-1]:
         entry["launches_order_by"] = ob_launches[0]
     print(f"phase8_s {time.perf_counter() - t:.3f}")
+
+    t = phase(f"9 shared waves: the 13 queries, flight 2, flights 2 + 4; "
+              f"plain and packed, SF {SF}")
+    waves = {w: [queries[q] for q in (names or queries)]
+             for w, names in WAVES.items()}
+    pads = {w: 16 if w == "all13" else None for w in waves}
+    solo = {"plain": first, "packed": pfirst}
+    solo_ms = {"plain": {r["query"]: r["query_ms"] for r in rows},
+               "packed": {r["query"]: r["query_ms"] for r in prows}}
+    wcache = hashtable.HashTableCache()
+    databases = (("plain", db), ("packed", pdb))
+
+    def run_waves(mode="auto"):
+        return {(label, w): TC.execute_shared(
+                    plans, database, mode=mode, cache=wcache, pad_to=pads[w])
+                for label, database in databases
+                for w, plans in waves.items()}
+
+    mf.LAUNCHES = 0
+    wave_out, per_wave = {}, {}
+    for label, database in databases:
+        for w, plans in waves.items():
+            before = mf.LAUNCHES
+            wave_out[label, w] = TC.execute_shared(
+                plans, database, cache=wcache, pad_to=pads[w])
+            per_wave[label, w] = mf.LAUNCHES - before
+        if label == "plain":
+            distinct = len({TC.shared_join_key(j) for p in queries.values()
+                            for j in p.joins})
+            if wcache.misses != distinct:
+                raise AssertionError(f"{wcache.misses} builds for "
+                                     f"{distinct} distinct build sides")
+    before = mf.LAUNCHES
+    single = compile_plan(queries["q2.1"], "shared").execute(db,
+                                                             cache=wcache)
+    single_launches = mf.LAUNCHES - before
+    shared_launches = mf.LAUNCHES
+    if set(per_wave.values()) != {1} or single_launches != 1:
+        raise AssertionError(f"expected one launch a wave: {per_wave}, "
+                             f"compile_plan {single_launches}")
+    if wcache.misses != distinct:
+        raise AssertionError(f"the packed waves built "
+                             f"{wcache.misses - distinct} tables")
+    mf.LAUNCHES = 0
+    wave_again = run_waves()
+    wave_plain = run_waves(mode="ref")
+    if mf.LAUNCHES != len(wave_out):
+        raise AssertionError(f"second pass launched {mf.LAUNCHES}")
+    for (label, w), outs in wave_out.items():
+        for plan, got, again, plain_got in zip(
+                waves[w], outs, wave_again[label, w], wave_plain[label, w]):
+            for other, what in ((oracle[plan.name], "numpy oracle"),
+                                (first[plan.name], "fused path"),
+                                (solo[label][plan.name], f"{label} fused"),
+                                (again, "second pass"),
+                                (plain_got, "plain version on the card")):
+                if not same_bits(got, other):
+                    raise AssertionError(f"{label} {w} {plan.name}: differs "
+                                         f"from the {what}")
+    if not same_bits(single, first["q2.1"]):
+        raise AssertionError("compile_plan(q2.1, 'shared') differs")
+    print(f"launches {shared_launches}: one a wave ({len(wave_out)}) and "
+          f"one for compile_plan(q2.1, 'shared'); cache misses "
+          f"{wcache.misses} = distinct build sides {distinct}, hits "
+          f"{wcache.hits}; bit-identical: oracle, fused, second pass, "
+          "plain on card", flush=True)
+
+    wave_rows, main_wave = [], None
+    for label, database in databases:
+        for w, plans in waves.items():
+            _, a, k, n_groups = TC.shared_params(
+                plans, database, cache=wcache, pad_to=pads[w])
+            call = functools.partial(mf.multi_spja, *a, n_groups=n_groups,
+                                     **k)
+            times = []
+            for _ in range(QUERY_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                TC.execute_shared(plans, database, cache=wcache,
+                                  pad_to=pads[w])
+                times.append((time.perf_counter() - t0) * 1e3)
+            need = wave_need(a, n_groups, **k)
+            bound_ms = max(need["bytes_ms"], need["ops_ms"])
+            row = {"wave": w, "database": label, "members": len(plans),
+                   "Q": len(a[6]), "columns": len({s.data_ptr() for s in (
+                       *a[0], *a[2], *a[7])}),
+                   "probe_streams": len(a[2]), "n_groups": n_groups,
+                   "launches": per_wave[label, w],
+                   "query_ms": statistics.median(times),
+                   "query_ms_max": max(times),
+                   "solo_fused_query_ms": sum(solo_ms[label][p.name]
+                                              for p in plans),
+                   "kernel_ms": event_ms(call, KERNEL_REPS),
+                   "need_fact_GB": need["fact_bytes"] / 1e9,
+                   "need_table_MB": need["table_bytes"] / 1e6,
+                   "need_Gops": need["ops"] / 1e9,
+                   "probe_Gsteps": need["steps"] / 1e9,
+                   "bytes_ms": need["bytes_ms"], "ops_ms": need["ops_ms"],
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if need["bytes_ms"] >= need["ops_ms"]
+                   else "operations"}
+            row["bound_share"] = bound_ms / row["kernel_ms"]
+            row["Gsteps_per_s"] = need["steps"] / row["kernel_ms"] / 1e6
+            row["solo_over_wave"] = row["solo_fused_query_ms"] / \
+                row["query_ms"]
+            # the kernel's share of the host's wall time (CUDA events
+            # over host clock)
+            row["kernel_share"] = row["kernel_ms"] / row["query_ms"]
+            if (label, w) == ("plain", "all13"):
+                row["plain_ms"] = event_ms(functools.partial(
+                    ref.multi_spja, *a, n_groups=n_groups,
+                    **{x: v for x, v in k.items() if x != "member_groups"}), 1)
+                words_smem = {}
+                for budget in ACC_BUDGETS:
+                    smem = mf.block_smem(*a, n_groups=n_groups, **k,
+                                         acc_budget_bytes=budget)
+                    words_smem[budget] = {
+                        "smem_bytes": smem,
+                        "blocks_per_sm": mf.blocks_per_sm(smem, dev),
+                        "kernel_ms": event_ms(functools.partial(
+                            call, acc_budget_bytes=budget), KERNEL_REPS)}
+                row["acc_budgets"] = words_smem
+                main_wave = row
+            wave_rows.append(row)
+            print("wave " + json.dumps(row), flush=True)
+    # one member every row reaches, all in one group: each budget's sums
+    # meet at one address (L2, or each block's shared memory)
+    hot = cases.multi_spja_case(SEED, BIG, 1, 0, 0, 1)
+    ha, hk = hot.args(dev)
+    hot_row = {"rows": hot.n, "budgets": {}}
+    hot_want = ref.multi_spja(*ha, **hk)
+    for budget in (0, mf.ACC_BUDGET_BYTES):
+        call = functools.partial(mf.multi_spja, *ha, **hk,
+                                 member_groups=hot.member_groups,
+                                 acc_budget_bytes=budget)
+        if not torch.equal(call(), hot_want):
+            raise AssertionError(f"hot member, budget {budget}: differs "
+                                 "from the plain version")
+        hot_row["budgets"][budget] = event_ms(call, KERNEL_REPS)
+    print("hot member " + json.dumps(hot_row), flush=True)
+    kernels.append({
+        "name": "multi_fused.multi_spja", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/multi_fused.cu",
+        "replaces": SHARED[0][4], "launches": shared_launches,
+        "max_abs_err": new_err["multi_spja"], "ms": main_wave["kernel_ms"],
+        "plain_ms": main_wave["plain_ms"], "bound_ms": main_wave["bound_ms"],
+        "bound_by": main_wave["bound_by"], "library_ms": None})
+    print(f"phase9_s {time.perf_counter() - t:.3f}", flush=True)
+
+    t = phase(f"10 join microbenchmark: probe_agg of {JOIN_ROWS} rows "
+              f"against 8 KB .. 256 MB tables; reduce_sum of {SUM_ROWS} "
+              "rows")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    base = torch.randint(0, 1 << 30, (JOIN_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    vals = torch.randint(0, 100, (JOIN_ROWS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals_sum = int(vals.cpu().numpy().astype(np.int64).sum())
+    hj.AGG_LAUNCHES = ag.SUM_LAUNCHES = 0
+
+    def wrap32(v: int) -> int:
+        return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    tables = [(kb, *cases.join_bench_table(SEED, kb * 1024))
+              for kb in JOIN_TABLE_KB]
+    sum_inputs = (vals, vals.to(torch.float32))
+    for kb, htk, htv, n_build in tables:     # the main run, checked
+        htk, htv = (torch.from_numpy(x).to(dev) for x in (htk, htv))
+        keys = torch.remainder(base, n_build)
+        got = hj.probe_agg(keys, vals, htk, htv)
+        want = ref.probe_agg(keys, vals, htk, htv)
+        # numpy: every key is in the table with payload = key
+        exact = wrap32(int(keys.cpu().numpy().astype(np.int64).sum())
+                       + vals_sum)
+        if not torch.equal(got, want) or int(got) != exact:
+            raise AssertionError(f"probe_agg {kb} KB: {int(got)}, plain "
+                                 f"{int(want)}, numpy {exact}")
+        del keys, want
+    for x in sum_inputs:
+        got = ag.reduce_sum(x)
+        want = ref.reduce_sum(x)
+        host = x.cpu().numpy()
+        exact = (np.float32(host.astype(np.float64).sum())
+                 if x.is_floating_point()
+                 else wrap32(int(host.astype(np.int64).sum())))
+        if not torch.equal(got, want) or got.item() != exact:
+            raise AssertionError(f"reduce_sum {x.dtype}: {got.item()}, "
+                                 f"plain {want.item()}, numpy {exact}")
+    bench_launches = {"probe_agg": hj.AGG_LAUNCHES,
+                      "reduce_sum": ag.SUM_LAUNCHES}
+    if bench_launches != {"probe_agg": len(tables),
+                          "reduce_sum": len(sum_inputs)}:
+        raise AssertionError(f"launches {bench_launches}")
+    print(f"launches probe_agg={hj.AGG_LAUNCHES} "
+          f"reduce_sum={ag.SUM_LAUNCHES}: each result bit-identical to its "
+          "plain version on the card and to numpy", flush=True)
+
+    join_calls = []
+    for kb, htk, htv, n_build in tables:
+        htk, htv = (torch.from_numpy(x).to(dev) for x in (htk, htv))
+        keys = torch.remainder(base, n_build)
+        slot, visited, steps = probe_walk(keys, htk)
+        hits = torch.zeros_like(visited)
+        hits[slot[slot >= 0]] = True
+        moved = 8 * JOIN_ROWS + segment_bytes(visited) + \
+            segment_bytes(hits) + 4
+        ops = 4 * steps + 2 * int((slot >= 0).sum())
+        del slot, visited, hits
+        row = {"table_KB": kb, "table_MB": (htk.numel() * 8) / 1e6,
+               "n_build": n_build, "rows": JOIN_ROWS,
+               "mean_probe": mean_probe(htk),
+               "ms": event_ms(lambda: hj.probe_agg(keys, vals, htk, htv),
+                              KERNEL_REPS),
+               "plain_ms": event_ms(lambda: ref.probe_agg(keys, vals, htk,
+                                                          htv), 1),
+               "bytes": moved, "ops": ops,
+               "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": ops / INT32_OPS_PER_S * 1e3, "library_ms": None}
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["Gprobes_per_s"] = JOIN_ROWS / row["ms"] / 1e6
+        join_calls.append(row)
+        print("probe_agg " + json.dumps(row), flush=True)
+        del keys, htk, htv
+    sum_calls = []
+    for x in sum_inputs:
+        moved = 4 * x.numel()
+        rate = F32_OPS_PER_S if x.is_floating_point() else INT32_OPS_PER_S
+        row = {"dtype": str(x.dtype).replace("torch.", ""),
+               "rows": x.numel(), "sum": ag.reduce_sum(x).item(),
+               "ms": event_ms(lambda: ag.reduce_sum(x), KERNEL_REPS),
+               "plain_ms": event_ms(lambda: ref.reduce_sum(x), 1),
+               "library_ms": event_ms(lambda: torch.sum(x), KERNEL_REPS),
+               "bytes": moved, "ops": x.numel(),
+               "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": x.numel() / rate * 1e3}
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["GBps"] = moved / row["ms"] / 1e6
+        sum_calls.append(row)
+        print("reduce_sum " + json.dumps(row), flush=True)
+    for (m, fn, _, src, replaces), calls in zip(
+            JOIN_BENCH, (join_calls, sum_calls)):
+        lib = [r["library_ms"] for r in calls if r["library_ms"] is not None]
+        tot = {x: sum(r[x] for r in calls)
+               for x in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")}
+        kernels.append({
+            "name": f"{m}.{fn}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": bench_launches[fn],
+            "max_abs_err": new_err[fn], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+            else "operations", "library_ms": sum(lib) if lib else None})
+    print(f"phase10_s {time.perf_counter() - t:.3f}")
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 

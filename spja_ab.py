@@ -1,19 +1,23 @@
-"""Time the fused SPJA kernel against another build of it, in turns, on
-one card.
+"""Time the fused SPJA kernel, or the shared-scan kernel, against another
+build of it, in turns, on one card.
 
     python3 spja_ab.py --other PATH/ssb_fused.cu [--packed] [--pairs 10]
                        [--sf 20] [--seed 20]
+    python3 spja_ab.py --kernel multi_spja --other PATH/multi_fused.cu ...
 
-Builds the checkout's ``src/repro_torch/kernels/csrc/ssb_fused.cu`` and
-the other source with the same ``nvcc`` flags (a header resolves in the
-other file's own directory first, then in the checkout's ``csrc``),
-generates the SSB database at ``--sf`` on the card and times the 13
-queries' kernel launches, the calls ``compile.fused_inputs`` gives and
-``chip_smoke.py`` phase 4 times.  A round is the sum of the 13 per-query
-means over ``chip_smoke.KERNEL_REPS`` launches with one library; pair i
-runs this build then the other for even i, the other first for odd i.
-With ``--packed`` the same pairs then run on ``storage.pack_database``
-of the database.
+Builds the checkout's ``src/repro_torch/kernels/csrc/ssb_fused.cu`` (or
+``multi_fused.cu``) and the other source with the same ``nvcc`` flags (a
+header resolves in the other file's own directory first, then in the
+checkout's ``csrc``), generates the SSB database at ``--sf`` on the card
+and times the kernel's launches: for ``spja`` the 13 queries', the calls
+``compile.fused_inputs`` gives and ``chip_smoke.py`` phase 4 times; for
+``multi_spja`` the waves of ``chip_smoke.WAVES`` (the 13 queries padded
+to 16 members, flight 2, flights 2 + 4), the calls
+``compile.shared_params`` gives and phase 9 times.  A round is the sum of
+the calls' means over ``chip_smoke.KERNEL_REPS`` launches with one
+library; pair i runs this build then the other for even i, the other
+first for odd i.  With ``--packed`` the same pairs then run on
+``storage.pack_database`` of the database.
 
 The other source must take the checkout's C interface or a prefix of it
 (a build from before packed streams reads only the plain fields, so it
@@ -71,8 +75,11 @@ def build_other(build, src: Path, signatures) -> tuple:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("spja", "multi_spja"),
+                    default="spja")
     ap.add_argument("--other", type=Path, required=True,
-                    help="the ssb_fused.cu to compare with")
+                    help="the ssb_fused.cu (or multi_fused.cu) to compare "
+                    "with")
     ap.add_argument("--packed", action="store_true",
                     help="also time the packed database")
     ap.add_argument("--pairs", type=int, default=10)
@@ -83,10 +90,10 @@ def main() -> int:
         print("spja_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from chip_smoke import KERNEL_REPS, event_ms
-    from repro_torch.kernels import build, ref, ssb_fused
+    from chip_smoke import KERNEL_REPS, WAVES, event_ms
+    from repro_torch.kernels import build, multi_fused, ref, ssb_fused
     from repro_torch.sql import engine, hashtable, ssb, storage
-    from repro_torch.sql.compile import fused_inputs
+    from repro_torch.sql.compile import fused_inputs, shared_params
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -94,20 +101,22 @@ def main() -> int:
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
-    this_log = build.build("ssb_fused") or "(built earlier)"
-    libs = {"this": ssb_fused.library()}
+    mod, lib_name = {"spja": (ssb_fused, "ssb_fused"),
+                     "multi_spja": (multi_fused, "multi_fused")}[args.kernel]
+    this_log = build.build(lib_name) or "(built earlier)"
+    libs = {"this": mod.library()}
     libs["other"], other_log = build_other(build, args.other.resolve(),
-                                           ssb_fused._SIGNATURES)
+                                           mod._SIGNATURES)
     print("this", registers(this_log))
     print("other", args.other, registers(other_log), flush=True)
 
     def with_lib(name, fn):
-        saved = ssb_fused.library
-        ssb_fused.library = lambda: libs[name]
+        saved = mod.library
+        mod.library = lambda: libs[name]
         try:
             return fn()
         finally:
-            ssb_fused.library = saved
+            mod.library = saved
 
     t0 = time.perf_counter()
     db = ssb.generate(sf=args.sf, seed=args.seed)
@@ -119,25 +128,49 @@ def main() -> int:
         databases["packed"] = storage.pack_database(db).to(dev)
     print(f"setup_s {time.perf_counter() - t0:.3f}", flush=True)
 
-    report = {"other": str(args.other), "pairs": args.pairs,
+    def spja_calls(database):
+        """(name, the kernel's call, its plain version's) per query."""
+        out = []
+        for name, plan in plans.items():
+            a, k = fused_inputs(plan, database, cache, dev)
+            out.append((name, functools.partial(ssb_fused.spja, *a, **k),
+                        functools.partial(ref.spja, *a, **k)))
+        return out
+
+    def wave_calls(database):
+        """(name, the kernel's call, its plain version's) per wave."""
+        out = []
+        for wave, names in WAVES.items():
+            members = [plans[q] for q in (names or plans)]
+            _, a, k, n_groups = shared_params(
+                members, database, cache=cache,
+                pad_to=16 if names is None else None)
+            plain_kw = {x: v for x, v in k.items() if x != "member_groups"}
+            out.append((wave, functools.partial(
+                multi_fused.multi_spja, *a, n_groups=n_groups, **k),
+                functools.partial(ref.multi_spja, *a, n_groups=n_groups,
+                                  **plain_kw)))
+        return out
+
+    report = {"kernel": args.kernel, "other": str(args.other),
+              "pairs": args.pairs,
               "kernel_reps": KERNEL_REPS,
               "this_registers": registers(this_log),
               "other_registers": registers(other_log)}
     for kind, database in databases.items():
-        calls = [fused_inputs(plan, database, cache, dev)
-                 for plan in plans.values()]
-        for name, (a, k) in zip(plans, calls):
-            want = ref.spja(*a, **k)
+        calls = (spja_calls if args.kernel == "spja" else
+                 wave_calls)(database)
+        for name, call, plain in calls:
+            want = plain()
             for lib in libs:
-                got = with_lib(lib, functools.partial(ssb_fused.spja, *a, **k))
+                got = with_lib(lib, call)
                 if not torch.equal(got, want):
                     raise AssertionError(f"{kind} {name}: the {lib} build "
                                          "differs from the plain version")
 
         def round_ms(lib):
             return with_lib(lib, lambda: sum(
-                event_ms(functools.partial(ssb_fused.spja, *a, **k),
-                         KERNEL_REPS) for a, k in calls))
+                event_ms(call, KERNEL_REPS) for _, call, _ in calls))
 
         rounds = {"this": [], "other": []}
         for i in range(args.pairs):

@@ -400,3 +400,205 @@ def part_probe_case(seed: int, n: int, bits: int, kind: str = "uniform",
     htk, htv = pack_partitions(bkeys, bvals, bits)
     return (keys[order], rowids[order], groups[order], offs, counts, htk,
             htv, 3)
+
+
+@dataclass
+class MultiCase:
+    """Host arrays for one ``multi_spja`` call (see ``ref.multi_spja``)."""
+    pred_cols: List[np.ndarray]
+    pred_bounds: np.ndarray                 # (Q, C, 2) int32
+    join_keys: List[np.ndarray]
+    join_tables: List[np.ndarray]           # htk0, htv0, htk1, htv1, ...
+    join_mults: np.ndarray                  # (Q, J) int32
+    join_use: np.ndarray                    # (Q, J) int32
+    q_valid: np.ndarray                     # (Q,) int32
+    measure_cols: List[np.ndarray]
+    measure_sel: np.ndarray                 # (Q, 3) int32
+    n_groups: int
+    member_groups: np.ndarray               # (Q,) reachable groups
+    # packed streams: pred_widths, key_widths, key_refs, m_widths, m_refs,
+    # n_rows (see ``multi_spja_case(packed=True)``)
+    packed: Optional[dict] = None
+
+    def args(self, device) -> tuple:
+        """(positional args, keyword args) with the streams and tables as
+        int32 tensors on ``device`` (a join that reuses another's column
+        or table gets the same tensor)."""
+        made = {}
+
+        def t(a):
+            if id(a) not in made:
+                made[id(a)] = torch.from_numpy(
+                    np.ascontiguousarray(a)).to(device)
+            return made[id(a)]
+        return ((
+            [t(c) for c in self.pred_cols], self.pred_bounds,
+            [t(k) for k in self.join_keys], [t(h) for h in self.join_tables],
+            self.join_mults, self.join_use, self.q_valid,
+            [t(m) for m in self.measure_cols], self.measure_sel),
+            dict(n_groups=self.n_groups, **(self.packed or {})))
+
+    @property
+    def n(self) -> int:
+        if self.packed:
+            return int(self.packed["n_rows"])
+        return int(self.measure_cols[0].shape[0])
+
+
+def multi_spja_case(seed: int, n: int, n_members: int, n_preds: int,
+                    n_joins: int, n_groups: int, *, n_meas: int = 3,
+                    pad: int = 0, build_rows: int = 500,
+                    empty_join: bool = False, duplicates: bool = False,
+                    wrap: bool = False, shared_table: bool = False,
+                    small: bool = False, packed: bool = False,
+                    pred_phys: int = 8,
+                    m_offset: int = 100_000) -> MultiCase:
+    """A random wave of ``n_members`` SPJA members over C predicate
+    columns, J probe streams and ``n_meas`` measure columns, then ``pad``
+    padding members (valid 0) whose other parameters are random, so a
+    wave that lets them add anything is caught.
+
+    Each member filters a column with probability 1/2 (else all-pass
+    bounds), uses each join but the last with probability 2/3 (the last
+    join, when J >= 2, is anchor-only: use = mult = 0 for every real
+    member), and groups by its used joins' payloads in mixed radix, the
+    last radix one past its table's payloads so a few ids fall past
+    n_groups (dropped); with n_groups == 1 every mult is 0.  Member 0,
+    when it has an unused join, still takes that join's payload into its
+    group id (mult without use: a miss adds 0 and filters nothing).
+    ``shared_table`` makes join 1 probe join 0's key column and table
+    (two streams, one build side).  ``empty_join`` empties join 0's
+    table; ``small`` keeps measures small (f32 sums of a few thousand
+    rows exact); ``packed`` packs every stream as ``packed_spja_case``
+    does."""
+    rng = np.random.default_rng(seed)
+    q = n_members + pad
+    domain = (1 << pred_phys) if packed else 100
+    pred_cols = [rng.integers(0, domain, n, dtype=np.int32)
+                 for _ in range(n_preds)]
+    bounds = np.empty((q, n_preds, 2), np.int64)
+    bounds[..., 0], bounds[..., 1] = -(1 << 31), (1 << 31) - 1
+    for qi in range(q):
+        for c in range(n_preds):
+            if qi >= n_members or rng.random() < 0.5:
+                lo = int(rng.integers(0, domain))
+                hi = min(domain - 1, lo + int(rng.integers(domain // 5,
+                                                          domain)))
+                bounds[qi, c] = (lo, hi)
+    per = max(2, int(round(n_groups ** (1.0 / max(min(n_joins, 3), 1)))))
+    cards = [int(rng.integers(max(2, per - 2), per + 3))
+             for _ in range(n_joins)]
+    join_keys, tables = [], []
+    for j in range(n_joins):
+        if shared_table and j == 1:
+            join_keys.append(join_keys[0])
+            tables.extend(tables[:2])
+            cards[1] = cards[0]
+            continue
+        rows = 0 if (empty_join and j == 0) else build_rows
+        dkeys, _, htk, htv = _dim_table(rng, rows, cards[j], duplicates,
+                                        wrap)
+        if len(dkeys):
+            hits = rng.choice(dkeys, n)
+            misses = rng.integers(-8 * build_rows, 8 * build_rows, n,
+                                  dtype=np.int32)
+            fk = np.where(rng.random(n) < 0.85, hits, misses)
+        else:
+            fk = rng.integers(-100, 100, n, dtype=np.int32)
+        join_keys.append(fk.astype(np.int32))
+        tables.extend([htk, htv])
+    use = (rng.random((q, n_joins)) < 2 / 3).astype(np.int32)
+    if n_joins >= 2:
+        use[:n_members, -1] = 0
+    mults = np.zeros((q, n_joins), np.int64)
+    member_groups = np.ones(q, np.int64)
+    for qi in range(q):
+        radix = 1
+        used = np.flatnonzero(use[qi])
+        for k, j in enumerate(used):
+            if n_groups == 1 and qi < n_members:
+                break
+            mults[qi, j] = radix
+            radix *= cards[j] + (1 if k == len(used) - 1 else 0)
+        member_groups[qi] = min(radix, n_groups)
+        if qi >= n_members:
+            mults[qi] = rng.integers(-5, 50, n_joins)
+    free = np.flatnonzero(use[0, :max(n_joins - 1, 0)] == 0)
+    if n_members and n_groups > 1 and len(free):
+        mults[0, free[0]] = 1
+    hi1, hi2 = (30, 5) if small else (1000, 500)
+    meas = [rng.integers(1 if k == 0 else 0, hi1 if k == 0 else hi2, n,
+                         dtype=np.int32) for k in range(n_meas)]
+    m1 = rng.integers(0, n_meas, q)       # m2 another column, if any
+    m2 = (m1 + 1 + rng.integers(0, max(n_meas - 1, 1), q)) % n_meas
+    sel = np.stack([m1, m2, rng.integers(0, 3, q)], axis=1)
+    valid = np.zeros(q, np.int32)
+    valid[:n_members] = 1
+    c = MultiCase(pred_cols, bounds.astype(np.int32), join_keys, tables,
+                  mults.astype(np.int32), use, valid, meas,
+                  sel.astype(np.int32), n_groups, member_groups)
+    if not packed:
+        return c
+
+    def pack(vals):         # a domain past 16 bits stays plain
+        col = storage.pack_column(vals)
+        return col.words, col.encoding
+
+    keys = {}
+    for k in join_keys:
+        if id(k) not in keys:
+            keys[id(k)] = pack(k)
+    ms = [pack((m + m_offset).astype(np.int32)) for m in meas]
+    c.pred_cols = [storage.pack_words(v, pred_phys) for v in pred_cols]
+    c.join_keys = [keys[id(k)][0] for k in join_keys]
+    c.measure_cols = [w for w, _ in ms]
+    c.packed = dict(
+        pred_widths=(pred_phys,) * n_preds,
+        key_widths=tuple(keys[id(k)][1].phys for k in join_keys),
+        key_refs=np.array([keys[id(k)][1].ref for k in join_keys], np.int32),
+        m_widths=tuple(e.phys for _, e in ms),
+        m_refs=np.array([e.ref for _, e in ms], np.int32), n_rows=n)
+    return c
+
+
+SUM_KINDS = ("int32_overflow", "f32_integers", "f32_random")
+
+
+def reduce_case(seed: int, n: int, kind: str = "int32_overflow") -> tuple:
+    """(x,) for ``reduce_sum``: "int32_overflow" int32 values whose sum
+    wraps; "f32_integers" integer-valued f32 in [0, 1000) (exact in f64);
+    "f32_random" non-integer f32."""
+    rng = np.random.default_rng(seed)
+    if kind == "int32_overflow":
+        x = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    elif kind == "f32_integers":
+        x = rng.integers(0, 1000, n).astype(np.float32)
+    else:
+        x = rng.standard_normal(n).astype(np.float32) * 1000
+    return (x,)
+
+
+def probe_agg_case(seed: int, n: int, kind: str = "duplicate_wrap",
+                   vals: str = "int32") -> tuple:
+    """(keys, vals, htk, htv) for ``probe_agg``: ``probe_case``'s keys and
+    table (its kinds) with vals int32 over all of int32 (the sums wrap),
+    integer-valued f32 in [0, 1000) ("f32_integers") or non-integer f32
+    ("f32_random")."""
+    keys, v, htk, htv = probe_case(seed, n, kind)
+    rng = np.random.default_rng(seed + 1)
+    if vals == "f32_integers":
+        v = rng.integers(0, 1000, n).astype(np.float32)
+    elif vals == "f32_random":
+        v = rng.standard_normal(n).astype(np.float32) * 1000
+    return keys, v, htk, htv
+
+
+def join_bench_table(seed: int, table_bytes: int):
+    """(htk, htv, n_build) for the join microbenchmark (Fig. 13's shape,
+    ``benchmarks/run.py::fig13_join``): build keys 0..n_build-1 in a
+    shuffled order with payload = key, n_build = table_bytes / 16, so a
+    table of 8-byte slots is ``table_bytes`` at 50 % fill."""
+    n_build = max(16, table_bytes // 16)
+    keys = np.random.default_rng(seed).permutation(n_build).astype(np.int32)
+    htk, htv = np_build(keys, keys, next_pow2(n_build))
+    return htk, htv, n_build

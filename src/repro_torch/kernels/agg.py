@@ -1,17 +1,25 @@
-"""Group-by sum on the card: SUM(vals) GROUP BY dense int32 ids (paper
-Table 1, BlockAggregate; every SSB flight's aggregate on the opat chain).
+"""Aggregation on the card (paper Table 1, BlockAggregate), two kernels of
+``csrc/agg.cu``:
 
-Wrapper of the hand-written CUDA kernel ``csrc/agg.cu``, the port of the
-Pallas TPU kernel ``repro/kernels/agg.py::group_sum``.  Same contract as
+``group_sum`` — SUM(vals) GROUP BY dense int32 ids (every SSB flight's
+aggregate on the opat chain); the port of the Pallas TPU kernel
+``repro/kernels/agg.py::group_sum``.  Same contract as
 ``ref.group_sum``: int32 values give wrapping int32 sums, bit for bit;
 f32 values are summed in f64 in a fixed order and rounded to f32 once —
 the same bits on every run, ``ref.group_sum``'s bits on integer-valued
 data and within an f32 ulp of them otherwise.  An id outside
 [0, n_groups) is dropped.
 
-The wrapper launches the kernel on CUDA tensors or raises; the choice of
-the plain version for a CPU tensor is ``ops.group_sum``'s alone.
-``LAUNCHES`` counts the kernel launches of this process.
+``reduce_sum`` — the global sum of an int32 or f32 column; the port of
+``repro/kernels/agg.py::reduce_sum``.  Same contract as
+``ref.reduce_sum``: an int32 sum wraps, bit for bit; an f32 sum is taken
+in f64 in a fixed order and rounded once, with the same bits rule as
+``group_sum``.
+
+The wrappers launch the kernels on CUDA tensors or raise; the choice of
+the plain version for a CPU tensor is ``ops``'s alone.  ``LAUNCHES``
+counts ``group_sum``'s launches of this process, ``SUM_LAUNCHES``
+``reduce_sum``'s.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = 0
+SUM_LAUNCHES = 0
+SUM_ROWS_PER_BLOCK = 4 * 256      # one 16-byte load a thread (kSumThreads)
 
 _VAL_TYPES = (torch.int32, torch.float32)
 _SIGNATURES = {
@@ -33,6 +43,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]),
+    "reduce_sum_shape": (ctypes.c_int, [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
+    "reduce_sum_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
 }
 
 
@@ -89,4 +104,31 @@ def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
             stream)
     build.check(lib, rc, "group_sum")
     LAUNCHES += 1
+    return out
+
+
+def reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """-> 0-d int32 (int32 x) or f32 (f32 x) on x's device.  x: (n,)."""
+    global SUM_LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"reduce_sum: no kernel for device {x.device}")
+    device, n = x.device, x.shape[0]
+    build.check_stream(x, "x", n, device, _VAL_TYPES)
+    is_float = x.dtype == torch.float32
+    out = torch.zeros((), dtype=x.dtype, device=device)
+    if n == 0:
+        return out
+    lib = library()
+    blocks = max(1, min(build.resident(lib, "reduce_sum_shape", device.index,
+                                       int(is_float)),
+                        -(-n // SUM_ROWS_PER_BLOCK)))
+    partials = torch.empty((blocks,), dtype=torch.float64 if is_float
+                           else torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.reduce_sum_launch(x.data_ptr(), n, int(is_float), blocks,
+                                   partials.data_ptr(), out.data_ptr(),
+                                   stream)
+    build.check(lib, rc, "reduce_sum")
+    SUM_LAUNCHES += 1
     return out

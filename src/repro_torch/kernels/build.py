@@ -20,6 +20,7 @@ its pointer.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -114,6 +115,17 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
                            f"({lib.kernel_error_string(rc).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def resident(lib: ctypes.CDLL, shape_fn: str, device: int, flag: int) -> int:
+    """Blocks of a kernel resident on card ``device``, as the library's
+    ``shape_fn(flag, &blocks)`` reports them (asked once)."""
+    blocks = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        check(lib, getattr(lib, shape_fn)(flag, ctypes.byref(blocks)),
+              shape_fn)
+    return blocks.value
 
 
 def check_stream(t: torch.Tensor, what: str, n: int, device: torch.device,

@@ -21,10 +21,25 @@
 // time: dependent 4-byte reads of L2 (PERF.md).
 //
 // The caller zeroes the outputs: entries past the count stay zero.
+//
+// probe_agg: SUM(payload + v) over the rows whose key is found (the
+// paper's join microbenchmark, SELECT SUM(A.v + B.v) FROM A, B WHERE
+// A.k = B.k).  Replaces src/repro/kernels/hash_join.py::probe_agg
+// (_probe_agg_kernel), which adds each tile into one scalar across a grid
+// that runs in order; here each block sums its rows and reduce.cuh's
+// finish_sum adds the blocks' partials in a fixed order.  int32 vals: each
+// payload + v and the sum wrap as the reference's int32 adds (summed in
+// 64 bits, cut once); f32 vals: payload + v rounded to f32 as the
+// reference's add, summed in f64, rounded once.  What bounds it: the keys
+// read once and vals read per hit (8 bytes a row when all hit) and the
+// table segments the probes visit; while the table fits the 50 MB L2 the
+// probes are L2 reads, past it each probe is a device-memory access of its
+// own.  Each thread walks four rows' probes at once.
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
 #include "hash.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -78,7 +93,100 @@ probe_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
   }
 }
 
+constexpr int kAggItems = 4;       // rows a thread probes at once
+
+__device__ __forceinline__ void add_hit(int payload, const int* vals,
+                                        long long r, unsigned long long* s) {
+  *s += static_cast<unsigned long long>(static_cast<long long>(payload) +
+                                        __ldg(vals + r));
+}
+
+__device__ __forceinline__ void add_hit(int payload, const float* vals,
+                                        long long r, double* s) {
+  *s += static_cast<double>(__fadd_rn(__int2float_rn(payload),
+                                      __ldg(vals + r)));
+}
+
+template <typename T, typename Acc>
+__global__ void __launch_bounds__(kSumThreads)
+probe_agg_partials(const int* __restrict__ keys, const T* __restrict__ vals,
+                   long long n, const int* __restrict__ htk,
+                   const int* __restrict__ htv, unsigned mask,
+                   Acc* __restrict__ partials) {
+  const long long tile = static_cast<long long>(kSumThreads) * kAggItems;
+  const long long stride = tile * gridDim.x;
+  Acc s = Acc(0);
+  for (long long base = tile * blockIdx.x; base < n; base += stride) {
+    int key[kAggItems];
+#pragma unroll
+    for (int i = 0; i < kAggItems; ++i) {
+      const long long r = base + static_cast<long long>(i) * kSumThreads +
+                          threadIdx.x;
+      key[i] = r < n ? __ldg(keys + r) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kAggItems; ++i) {
+      const long long r = base + static_cast<long long>(i) * kSumThreads +
+                          threadIdx.x;
+      int payload = 0;
+      if (r < n && probe(htk, htv, mask, key[i], &payload))
+        add_hit(payload, vals, r, &s);
+    }
+  }
+  s = block_total(s);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
 }  // namespace
+
+// Blocks of probe_agg's partial kernel resident on the card (its grid is
+// the rows over 1024, up to this).
+extern "C" int probe_agg_shape(int is_float, long long* resident) {
+  if (is_float)
+    return resident_blocks(probe_agg_partials<float, double>, resident);
+  return resident_blocks(probe_agg_partials<int, unsigned long long>,
+                         resident);
+}
+
+extern "C" long long probe_agg_tile_rows() {
+  return static_cast<long long>(kSumThreads) * kAggItems;
+}
+
+// keys: (n,) int32; vals: (n,) int32 (is_float 0) or f32; htk, htv:
+// (mask + 1,) int32, mask + 1 a power of two; partials: `blocks` 8-byte
+// scratch (int64 or f64); out: one int32 or f32.  Launches the partial
+// kernel and finish_sum on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int probe_agg_launch(const void* keys, const void* vals,
+                                long long n, int is_float, const void* htk,
+                                const void* htv, unsigned mask,
+                                long long blocks, void* partials, void* out,
+                                void* stream) {
+  if (n <= 0 || blocks < 1 || blocks > 2147483647LL ||
+      (mask & (mask + 1u)) != 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int* k = static_cast<const int*>(keys);
+  const int* tk = static_cast<const int*>(htk);
+  const int* tv = static_cast<const int*>(htv);
+  if (is_float) {
+    probe_agg_partials<float, double><<<grid, kSumThreads, 0, s>>>(
+        k, static_cast<const float*>(vals), n, tk, tv, mask,
+        static_cast<double*>(partials));
+    finish_sum<<<1, kFinishThreads, 0, s>>>(
+        static_cast<const double*>(partials), static_cast<int>(blocks),
+        static_cast<float*>(out));
+  } else {
+    probe_agg_partials<int, unsigned long long><<<grid, kSumThreads, 0, s>>>(
+        k, static_cast<const int*>(vals), n, tk, tv, mask,
+        static_cast<unsigned long long*>(partials));
+    finish_sum<<<1, kFinishThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(partials),
+        static_cast<int>(blocks), static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // keys, vals: (n,) int32; htk, htv: (mask + 1,) int32, mask + 1 a power of
 // two; counts, offsets: (ceil(n / 2048),) int32 scratch; out_payload,

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import agg as _agg
 from repro_torch.kernels import hash_join as _hj
+from repro_torch.kernels import multi_fused as _multi
 from repro_torch.kernels import part_probe as _pp
 from repro_torch.kernels import project as _proj
 from repro_torch.kernels import radix_part as _radix
@@ -56,6 +57,30 @@ def spja(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
               n_rows=n_rows)
 
 
+def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
+               join_use, q_valid, measure_cols, measure_sel,
+               n_groups: int = 1, mode: str = "auto", pred_widths=None,
+               key_widths=None, key_refs=None, m_widths=None, m_refs=None,
+               n_rows=None, member_groups=None):
+    """A whole wave of SPJA queries in one fact pass -> (Q, n_groups) f32
+    on the streams' device (arguments as ``ref.multi_spja``).  ``n_rows``
+    is required when the first measure stream is packed (its length is
+    then the word count).  ``member_groups`` (each member's reachable
+    groups) only tells the kernel where to take each sum."""
+    if use_kernel(mode, measure_cols[0].device):
+        return _multi.multi_spja(
+            pred_cols, pred_bounds, join_keys, join_tables, join_mults,
+            join_use, q_valid, measure_cols, measure_sel, n_groups=n_groups,
+            pred_widths=pred_widths, key_widths=key_widths,
+            key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
+            n_rows=n_rows, member_groups=member_groups)
+    return _ref.multi_spja(
+        pred_cols, pred_bounds, join_keys, join_tables, join_mults, join_use,
+        q_valid, measure_cols, measure_sel, n_groups=n_groups,
+        pred_widths=pred_widths, key_widths=key_widths, key_refs=key_refs,
+        m_widths=m_widths, m_refs=m_refs, n_rows=n_rows)
+
+
 def select_scan(x, y, lo, hi, mode: str = "auto"):
     """SELECT y WHERE lo <= x <= hi -> (out (n,), count): stable, zeros
     past the count.  x: int32 or f32; y: 4-byte."""
@@ -91,6 +116,19 @@ def probe_join(keys, vals, ht_keys, ht_vals, mode: str = "auto"):
     fn = _hj.probe_join if use_kernel(mode, keys.device) else \
         _ref.probe_join
     return fn(keys, vals, ht_keys, ht_vals)
+
+
+def probe_agg(keys, vals, ht_keys, ht_vals, mode: str = "auto"):
+    """SUM(payload + v) over the keys found in a linear-probe table -> a
+    0-d tensor of vals' dtype (the paper's join microbenchmark)."""
+    fn = _hj.probe_agg if use_kernel(mode, keys.device) else _ref.probe_agg
+    return fn(keys, vals, ht_keys, ht_vals)
+
+
+def reduce_sum(x, mode: str = "auto"):
+    """The global sum -> 0-d int32 (int32 input, wrapping) or f32."""
+    fn = _agg.reduce_sum if use_kernel(mode, x.device) else _ref.reduce_sum
+    return fn(x)
 
 
 def project(x1, x2, a, b, sigmoid: bool = False, mode: str = "auto"):

@@ -145,6 +145,128 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     return sums.to(torch.float32)
 
 
+def wave_params(pred_bounds, join_mults, join_use, q_valid, measure_sel,
+                n_preds: int, n_joins: int, n_meas: int):
+    """A wave's stacked member parameters as host int64 arrays, checked:
+    bounds (Q, C, 2), mults and use (Q, J), valid (Q,), selectors (Q, 3).
+    Every value must fit int32; use and valid are 0 or 1; each member's
+    selectors name measure columns and an op of ``MEASURE_OPS``."""
+    valid = _host_ints(q_valid).reshape(-1)
+    q = valid.size
+    bounds = _host_ints(pred_bounds).reshape(q, n_preds, 2)
+    mults = _host_ints(join_mults).reshape(q, n_joins)
+    use = _host_ints(join_use).reshape(q, n_joins)
+    sel = _host_ints(measure_sel).reshape(q, 3)
+    for name, a in (("pred_bounds", bounds), ("join_mults", mults)):
+        if a.size and (a.min() < -(1 << 31) or a.max() >= 1 << 31):
+            raise ValueError(f"{name} has a value outside int32")
+    for name, a in (("join_use", use), ("q_valid", valid)):
+        if a.size and not np.isin(a, (0, 1)).all():
+            raise ValueError(f"{name} must hold 0 or 1")
+    if q and ((sel[:, :2] < 0).any() or (sel[:, :2] >= n_meas).any()
+              or (sel[:, 2] < 0).any()
+              or (sel[:, 2] >= len(MEASURE_OPS)).any()):
+        raise ValueError(f"measure_sel {sel.tolist()}: each (m1, m2) must "
+                         f"index the {n_meas} measure columns and each op "
+                         f"be 0..{len(MEASURE_OPS) - 1}")
+    return bounds, mults, use, valid, sel
+
+
+def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
+               join_keys: Sequence[torch.Tensor],
+               join_tables: Sequence[torch.Tensor], join_mults, join_use,
+               q_valid, measure_cols: Sequence[torch.Tensor], measure_sel,
+               n_groups: int = 1, pred_widths=None, key_widths=None,
+               key_refs=None, m_widths=None, m_refs=None,
+               n_rows=None) -> torch.Tensor:
+    """A wave of Q SPJA queries in one pass -> (Q, n_groups) f32.
+
+    The streams are the union of the members' columns: each join's table
+    is probed once for every member, and only the predicates, group ids
+    and sums fan out by member.  Member q's row is live when
+    ``q_valid[q]``, every column c holds a value in
+    ``[pred_bounds[q, c, 0], pred_bounds[q, c, 1]]`` and every join j
+    with ``join_use[q, j]`` finds its key; its group id is
+    Σ_j payload_j · join_mults[q, j] in int32 (a miss's payload is 0);
+    its measure is ``measure_sel[q]`` = (m1, m2, op): column m1, m1·m2
+    (op 1) or m1 − m2 (op 2).  Sums are exact in int64, rounded to f32
+    once, as ``spja``'s; an id outside [0, n_groups) is dropped.  Streams
+    may be bit-packed as in ``spja`` (``*_widths``, ``key_refs``,
+    ``m_refs``; ``n_rows`` required when the first measure is packed)."""
+    n_preds, n_joins, n_meas = len(pred_cols), len(join_keys), \
+        len(measure_cols)
+    bounds, mults, use, valid, sel = wave_params(
+        pred_bounds, join_mults, join_use, q_valid, measure_sel, n_preds,
+        n_joins, n_meas)
+    pred_widths = stream_widths(pred_widths, n_preds)
+    key_widths = stream_widths(key_widths, n_joins)
+    m_widths = stream_widths(m_widths, n_meas)
+    krefs = refs_list(key_refs, n_joins)
+    mrefs = refs_list(m_refs, n_meas)
+    if n_rows is None:
+        if m_widths[0] != 32:
+            raise ValueError("n_rows is required when the measure stream "
+                             "is bit-packed")
+        n_rows = measure_cols[0].shape[0]
+    n = int(n_rows)
+    device = measure_cols[0].device
+    cols = [decode_stream(c, w, 0, n) for c, w in zip(pred_cols,
+                                                      pred_widths)]
+    probes = [B.block_lookup(decode_stream(k, w, krefs[j], n),
+                             join_tables[2 * j], join_tables[2 * j + 1])
+              for j, (k, w) in enumerate(zip(join_keys, key_widths))]
+    meas = [decode_stream(m, w, r, n)
+            for m, w, r in zip(measure_cols, m_widths, mrefs)]
+    rows = []
+    for q in range(bounds.shape[0]):
+        if not valid[q]:
+            rows.append(torch.zeros((n_groups,), dtype=torch.int64,
+                                    device=device))
+            continue
+        live = torch.ones((n,), dtype=torch.bool, device=device)
+        for c, col in enumerate(cols):
+            live &= B.block_pred_range(col, int(bounds[q, c, 0]),
+                                       int(bounds[q, c, 1])) > 0
+        group = torch.zeros((n,), dtype=torch.int32, device=device)
+        for j, (payload, found) in enumerate(probes):
+            if use[q, j]:
+                live &= found > 0
+            if mults[q, j]:
+                group += payload * int(mults[q, j])
+        op = MEASURE_OPS[sel[q, 2]]
+        m = measure(meas[sel[q, 0]], meas[sel[q, 1]], op)
+        rows.append(B.block_group_aggregate(group, m, live, n_groups))
+    if not rows:
+        return torch.zeros((0, n_groups), dtype=torch.float32, device=device)
+    return torch.stack(rows).to(torch.float32)
+
+
+def probe_agg(keys: torch.Tensor, vals: torch.Tensor, ht_keys: torch.Tensor,
+              ht_vals: torch.Tensor) -> torch.Tensor:
+    """SUM(payload + v) over the keys found in a linear-probe table -> a
+    0-d tensor of vals' dtype.  int32: each payload + v and the sum wrap
+    as the reference's int32 adds (summed in int64, cut to int32 once:
+    the same low 32 bits).  f32: each payload + v rounded to f32, then
+    summed in f64 and rounded once."""
+    payload, found = B.block_lookup(keys, ht_keys, ht_vals)
+    hit = found > 0
+    if vals.is_floating_point():
+        row = payload[hit].to(torch.float32) + vals[hit].to(torch.float32)
+        return row.double().sum().to(torch.float32)
+    row = payload[hit].to(torch.int64) + vals[hit].to(torch.int64)
+    return row.sum().to(torch.int32)
+
+
+def reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The global sum -> a 0-d tensor: int32 for integer input (wrapping,
+    as the reference's int32 accumulator: summed in int64, cut to int32
+    once), f32 for float input (summed in f64, rounded to f32 once; the
+    reference sums in f32)."""
+    if x.is_floating_point():
+        return x.double().sum().to(torch.float32)
+    return x.to(torch.int64).sum().to(torch.int32)
+
+
 def unpack(words: torch.Tensor, n: int, phys: int, ref=0) -> torch.Tensor:
     """The first ``n`` values of a packed word stream at ``phys`` bits
     per value, plus the frame of reference."""

@@ -1,6 +1,6 @@
 """Plan compiler: lower a logical plan to a physical strategy.
 
-The port of ``repro.sql.compile``.  Four strategies lower so far:
+The port of ``repro.sql.compile``.  Five strategies lower so far:
 
 ``fused`` — collapse the whole SPJA subtree into one launch of the
             hand-written CUDA kernel ``kernels/csrc/ssb_fused.cu`` (the
@@ -32,15 +32,22 @@ The port of ``repro.sql.compile``.  Four strategies lower so far:
 ``part_loop`` — the same partition pass, then one ``probe_join`` per
             non-empty partition from a host loop (the one-launch probe's
             baseline).
+``shared`` — a wave of aggregate plans over one fact table in ONE
+            launch of the hand-written CUDA kernel
+            ``kernels/csrc/multi_fused.cu``: the union of the members'
+            columns is read once, each distinct build side probed once,
+            and only the predicates, group ids and sums fan out by member
+            (``execute_shared``); ``compile_plan(plan, "shared")`` is a
+            one-member wave.
 
 ``execute`` runs the whole table in one pass — the reference's path when
-the fact table is one morsel.  ``shared``, ``sharded`` and ``auto`` raise
+the fact table is one morsel.  ``sharded`` and ``auto`` raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,13 +67,14 @@ STRATEGIES = ("fused", "opat", "part", "part_loop", "shared", "sharded",
 # where each strategy the reference has lands in the port (ROADMAP.md,
 # "Open items", queue 1)
 _NOT_PORTED = {
-    "shared": "queue 1, item 8 (shared-scan waves)",
     "sharded": "queue 1, item 10 (sharding)",
     "auto": "queue 1, item 11 (cost model, calibration, tuner)",
 }
 # the radix width of ORDER BY's passes; the reference's tuner picks it
 # (``tune.tuned_r``, ROADMAP queue 1 item 11), whose default is 8
 SORT_BITS = 8
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+_MEASURE_OP_CODE = {"first": 0, "mul": 1, "sub": 2}
 
 
 def _not_ported(strategy: str) -> NotImplementedError:
@@ -103,10 +111,10 @@ def classify(plan: P.Plan) -> str:
         "Project+GroupAgg (aggregate) or optional OrderBy (row plan)")
 
 
-def fusability(plan: P.Plan) -> Optional[str]:
-    """None if the plan can lower to the fused SPJA kernel, else the
-    human-readable reason it cannot.  Raises (via classify) on malformed
-    chains — an invalid plan is an error, not a fallback."""
+def _spja_reason(plan: P.Plan) -> Optional[str]:
+    """None if the plan is an SPJA aggregate chain with range-expressible
+    fact predicates and a measure op the kernels take (the reference's
+    ``fusability``), else the reason it is not."""
     kind = classify(plan)
     if kind != "agg":
         return ("row-returning plan (no Project+GroupAgg root): the fused "
@@ -118,6 +126,16 @@ def fusability(plan: P.Plan) -> Optional[str]:
                     "bounds only")
     if plan.project.op not in ("first", "mul", "sub"):
         return f"measure op {plan.project.op!r} not supported by the kernel"
+    return None
+
+
+def fusability(plan: P.Plan) -> Optional[str]:
+    """None if the plan can lower to the fused SPJA kernel, else the
+    human-readable reason it cannot.  Raises (via classify) on malformed
+    chains — an invalid plan is an error, not a fallback."""
+    reason = _spja_reason(plan)
+    if reason is not None:
+        return reason
     n_preds, n_joins = len(plan.filters), len(plan.joins)
     if n_preds > ssb_fused.MAX_PREDS or n_joins > ssb_fused.MAX_JOINS:
         # the port's one departure from the reference, whose kernel takes
@@ -126,6 +144,15 @@ def fusability(plan: P.Plan) -> Optional[str]:
                 f"kernel takes at most {ssb_fused.MAX_PREDS} and "
                 f"{ssb_fused.MAX_JOINS}")
     return None
+
+
+def shareability(plan: P.Plan) -> Optional[str]:
+    """None if the plan can join a shared-scan wave, else the reason.  A
+    shareable plan is an SPJA aggregate chain the fused kernel's rules
+    accept; the wave kernel reads its shapes at run time, so the solo
+    kernel's 8 + 8 slots do not apply.  Group-level compatibility (every
+    member scanning the same fact table) is ``validate_wave``'s."""
+    return _spja_reason(plan)
 
 
 def partability(plan: P.Plan) -> Optional[str]:
@@ -169,6 +196,13 @@ def _measure_streams(fact, proj: P.Project, device: torch.device):
             np.array([r for _, _, r in streams], np.int32))
 
 
+def _join_tables(db, join: P.HashJoin, cache: Optional[HT.HashTableCache],
+                 device: torch.device):
+    """A join's (htk, htv) on ``device``: from the cache, else built."""
+    return (cache.get_or_build(db, join, device) if cache is not None
+            else HT.build_dim_table(db, join, device))
+
+
 def fused_inputs(plan: P.Plan, db: ssb.Database,
                  cache: Optional[HT.HashTableCache], device: torch.device
                  ) -> Tuple[tuple, dict]:
@@ -184,9 +218,7 @@ def fused_inputs(plan: P.Plan, db: ssb.Database,
                    for j in joins]
     join_tables: List[torch.Tensor] = []
     for j in joins:
-        htk, htv = (cache.get_or_build(db, j, device) if cache is not None
-                    else HT.build_dim_table(db, j, device))
-        join_tables.extend([htk, htv])
+        join_tables.extend(_join_tables(db, j, cache, device))
     mults = np.array([j.mult for j in joins], np.int32)
     proj = plan.project
     m1, m2, m_widths, m_refs = _measure_streams(fact, proj, device)
@@ -209,6 +241,230 @@ def _execute_fused(plan: P.Plan, db: ssb.Database, mode: str,
 
 
 # ---------------------------------------------------------------------------
+# shared-scan group lowering (one fused pass per wave)
+# ---------------------------------------------------------------------------
+
+
+def shared_join_key(join: P.HashJoin) -> Tuple:
+    """Probe identity of a join inside a shared wave: the fact FK column
+    plus the logical build side.  Two members whose joins agree on both
+    share ONE probe stream (their ``mult``s may differ — the multiplier
+    is per-member data)."""
+    return (join.fact_col, HT.join_cache_key(join))
+
+
+def shared_member_key(plan: P.Plan) -> Tuple:
+    """Structural execution identity of a shareable member: two plans
+    with equal keys lower to equal rows of the stacked wave parameters
+    (predicates sorted — bound intersection is commutative; joins by
+    probe identity and mult, in chain order).  The plan must be
+    shareable (``plan.preds`` needs range-expressible predicates)."""
+    proj = plan.project
+    return (plan.scan.table,
+            tuple(sorted(plan.preds)),
+            tuple((shared_join_key(j), j.mult) for j in plan.joins),
+            (proj.m1, proj.m2, proj.op),
+            plan.n_groups)
+
+
+def shared_footprint(plans: List[P.Plan]):
+    """The union streams of a shared wave, as the kernel loads them:
+    predicate columns (deduplicated by name), joins (deduplicated by
+    :func:`shared_join_key`: two build sides on one fact FK are two probe
+    streams), measure columns (deduplicated by name; a column that is
+    both predicate and measure is two streams, as in the solo kernel).
+    Returns ``(col_ix, join_nodes, mcol_ix)``: ordered name -> index maps
+    for predicate and measure columns and the deduplicated joins."""
+    col_ix: Dict[str, int] = {}
+    join_ix: Dict[Tuple, int] = {}
+    join_nodes: List[P.HashJoin] = []
+    mcol_ix: Dict[str, int] = {}
+    for plan in plans:
+        for col, _, _ in plan.preds:
+            col_ix.setdefault(col, len(col_ix))
+        for j in plan.joins:
+            k = shared_join_key(j)
+            if k not in join_ix:
+                join_ix[k] = len(join_nodes)
+                join_nodes.append(j)
+        proj = plan.project
+        mcol_ix.setdefault(proj.m1, len(mcol_ix))
+        if proj.m2 is not None:
+            mcol_ix.setdefault(proj.m2, len(mcol_ix))
+    return col_ix, join_nodes, mcol_ix
+
+
+def validate_wave(plans: List[P.Plan]) -> None:
+    """Raise ``ValueError`` unless ``plans`` form a legal shared wave:
+    non-empty, all scanning the same fact table, every member
+    shareable."""
+    if not plans:
+        raise ValueError("shared wave must contain at least one plan")
+    table = plans[0].scan.table
+    for plan in plans:
+        if plan.scan.table != table:
+            raise ValueError(
+                f"shared wave is scan-incompatible: {plan.name} scans "
+                f"{plan.scan.table!r}, wave scans {table!r}")
+        reason = shareability(plan)
+        if reason is not None:
+            raise ValueError(f"{plan.name} cannot join a shared wave: "
+                             f"{reason}")
+
+
+def shared_params(plans: List[P.Plan], db: ssb.Database,
+                  cache: Optional[HT.HashTableCache] = None,
+                  pad_to: Optional[int] = None,
+                  prebuilt: Optional[Dict[Tuple, Tuple]] = None,
+                  fact=None, anchor: Optional[List[P.Plan]] = None,
+                  device=None):
+    """Lower a group of shareable plans over one fact table to the
+    arguments of ``ops.multi_spja`` -> ``(fact, args, kwargs, n_groups)``.
+
+    The stacked member parameters are host int32 arrays, equal to the
+    reference's: bounds (Q, C, 2) intersected in the original domain,
+    then shifted by each packed column's reference and clipped to int32;
+    mults and use (Q, J), a member's mults summed where it joins one
+    build side twice; valid (Q,); selectors (Q, 3).  The streams are the
+    resident fact columns on ``device`` (the card unless named), the
+    measures as their int32 columns or packed words (the kernel sums
+    exactly in int64, so no f32 copy is made), and the tables on
+    ``device``.  ``kwargs`` holds the stream encodings, ``n_rows`` and
+    ``member_groups`` (each member's ``n_groups``, 0 for padding: where
+    the kernel takes the sums, never their bits).
+
+    ``pad_to`` pads the member dimension with inert slots (valid 0).
+    ``anchor`` widens the footprint to a plan pool without adding
+    members: its columns get all-pass bounds and its joins use = mult = 0,
+    and the streams are sorted (joins by ``repr(shared_join_key)``) so any
+    member subset lowers to the same stream order.  ``prebuilt`` maps
+    :func:`shared_join_key` to an already built ``(htk, htv)`` pair,
+    which is not fetched again."""
+    validate_wave(plans)
+    device = resolve(device)
+    if fact is None:
+        fact = getattr(db, plans[0].scan.table)
+    q_n = len(plans)
+    q_pad = max(q_n, pad_to or q_n)
+    foot = list(plans) + list(anchor or [])
+    col_ix, join_nodes, mcol_ix = shared_footprint(foot)
+    if anchor:
+        col_ix = {c: i for i, c in enumerate(sorted(col_ix))}
+        join_nodes = sorted(join_nodes,
+                            key=lambda j: repr(shared_join_key(j)))
+        mcol_ix = {c: i for i, c in enumerate(sorted(mcol_ix))}
+    join_ix = {shared_join_key(j): ji for ji, j in enumerate(join_nodes)}
+
+    bounds = np.empty((q_pad, len(col_ix), 2), np.int64)
+    bounds[..., 0] = _INT32_MIN
+    bounds[..., 1] = _INT32_MAX
+    for qi, plan in enumerate(plans):
+        for col, lo, hi in plan.preds:
+            ci = col_ix[col]
+            bounds[qi, ci, 0] = max(bounds[qi, ci, 0], lo)
+            bounds[qi, ci, 1] = min(bounds[qi, ci, 1], hi)
+    for col, ci in col_ix.items():
+        enc = ST.encoding_of(fact, col)
+        if enc is not None and enc.kind != "plain":
+            bounds[:, ci, :] -= enc.ref
+    bounds = np.clip(bounds, _INT32_MIN, _INT32_MAX).astype(np.int32)
+
+    mults = np.zeros((q_pad, len(join_nodes)), np.int32)
+    use = np.zeros((q_pad, len(join_nodes)), np.int32)
+    for qi, plan in enumerate(plans):
+        for j in plan.joins:
+            ji = join_ix[shared_join_key(j)]
+            use[qi, ji] = 1
+            mults[qi, ji] += j.mult
+    key_streams = [ST.column_stream(fact, j.fact_col, device)
+                   for j in join_nodes]
+    join_tables: List[torch.Tensor] = []
+    for j in join_nodes:
+        k = shared_join_key(j)
+        if prebuilt is not None and k in prebuilt:
+            join_tables.extend(prebuilt[k])
+        else:
+            join_tables.extend(_join_tables(db, j, cache, device))
+
+    msel = np.zeros((q_pad, 3), np.int32)
+    for qi, plan in enumerate(plans):
+        proj = plan.project
+        msel[qi, 0] = mcol_ix[proj.m1]
+        if proj.m2 is not None:
+            msel[qi, 1] = mcol_ix[proj.m2]
+        msel[qi, 2] = _MEASURE_OP_CODE[proj.op]
+    m_streams = [ST.column_stream(fact, c, device) for c in mcol_ix]
+
+    q_valid = np.zeros(q_pad, np.int32)
+    q_valid[:q_n] = 1
+    member_groups = np.zeros(q_pad, np.int64)
+    member_groups[:q_n] = [plan.n_groups for plan in plans]
+    n_groups = max(plan.n_groups for plan in foot)
+    pred_streams = [ST.column_stream(fact, c, device) for c in col_ix]
+    args = ([s[0] for s in pred_streams], bounds, [s[0] for s in key_streams],
+            join_tables, mults, use, q_valid, [s[0] for s in m_streams],
+            msel)
+    kwargs = dict(pred_widths=tuple(s[1] for s in pred_streams),
+                  key_widths=tuple(s[1] for s in key_streams),
+                  key_refs=np.array([s[2] for s in key_streams], np.int32),
+                  m_widths=tuple(s[1] for s in m_streams),
+                  m_refs=np.array([s[2] for s in m_streams], np.int32),
+                  n_rows=fact.n_rows, member_groups=member_groups)
+    return fact, args, kwargs, n_groups
+
+
+def anchor_for(plans: List[P.Plan],
+               pool: Optional[List[P.Plan]]) -> Optional[List[P.Plan]]:
+    """The plans of a footprint-anchor pool that could share this wave's
+    scan (same fact table, shareable), or None when none does (the
+    unanchored path)."""
+    if not pool:
+        return None
+    table = plans[0].scan.table
+    kept = [p for p in pool
+            if p.scan.table == table and shareability(p) is None]
+    return kept or None
+
+
+def _shared_prebuilt(plans: List[P.Plan], db,
+                     cache: Optional[HT.HashTableCache],
+                     prebuilt: Optional[Dict[Tuple, Tuple]],
+                     device: torch.device) -> Dict[Tuple, Tuple]:
+    """A wave's join tables, one build (or cache fetch) per distinct probe
+    identity, keeping whatever the caller prebuilt."""
+    _, join_nodes, _ = shared_footprint(plans)
+    tables = dict(prebuilt) if prebuilt else {}
+    for j in join_nodes:
+        k = shared_join_key(j)
+        if k not in tables:
+            tables[k] = _join_tables(db, j, cache, device)
+    return tables
+
+
+def execute_shared(plans: List[P.Plan], db: ssb.Database,
+                   mode: str = "auto",
+                   cache: Optional[HT.HashTableCache] = None,
+                   pad_to: Optional[int] = None,
+                   prebuilt: Optional[Dict[Tuple, Tuple]] = None,
+                   device=None) -> List[np.ndarray]:
+    """Execute a scan-compatible group of aggregate plans as ONE
+    ``multi_spja`` launch over their whole resident fact table (the
+    reference's path when the table is one morsel) on ``device`` (the
+    card unless named) -> each member's ``(n_groups,)`` f32 result, in
+    submission order.  ``pad_to`` pads the member dimension with inert
+    slots; the tables are built (or fetched from ``cache``) once per
+    distinct build side."""
+    validate_wave(plans)
+    device = resolve(device)
+    tables = _shared_prebuilt(plans, db, cache, prebuilt, device)
+    _, args, kwargs, n_groups = shared_params(
+        plans, db, pad_to=pad_to, prebuilt=tables, device=device)
+    out = ops.multi_spja(*args, n_groups=n_groups, mode=mode,
+                         **kwargs).cpu().numpy()
+    return [out[qi, :plan.n_groups].copy() for qi, plan in enumerate(plans)]
+
+
+# ---------------------------------------------------------------------------
 # operator-at-a-time lowering (materializing engine model)
 # ---------------------------------------------------------------------------
 
@@ -224,8 +480,7 @@ def _probe_whole(node: P.HashJoin, fact, db: ssb.Database,
     """opat join: one probe of the whole dim table; matched positions come
     back as a selection vector and the live columns are gathered through
     it."""
-    htk, htv = (cache.get_or_build(db, node, device) if cache is not None
-                else HT.build_dim_table(db, node, device))
+    htk, htv = _join_tables(db, node, cache, device)
     keys = ST.take(fact, node.fact_col, rowids, device)
     payload, sel, cnt = ops.probe_join(
         keys, _positions(rowids.shape[0], device), htk, htv, mode=mode)
@@ -414,8 +669,9 @@ class CompiledQuery:
     asked for.  When the caller asked for ``fused`` on a plan the fused
     kernel cannot express, or for ``part``/``part_loop`` on a plan with
     nothing to partition, ``strategy == "opat"`` and ``fallback_reason``
-    says why, as in the reference.  After ``execute``, ``decided`` holds
-    the strategy that ran."""
+    says why, as in the reference (``shared`` on a plan no wave can take
+    falls back the same way).  After ``execute``, ``decided`` holds the
+    strategy that ran."""
     plan: P.Plan
     strategy: str
     requested: str
@@ -432,6 +688,9 @@ class CompiledQuery:
         self.decided = self.strategy
         if self.strategy == "fused":
             return _execute_fused(self.plan, db, mode, cache, device)
+        if self.strategy == "shared":       # a one-member wave
+            return execute_shared([self.plan], db, mode=mode, cache=cache,
+                                  device=device)[0]
         return _execute_chain(self.plan, db, mode, cache, device,
                               join_mode=self.strategy)
 
@@ -445,10 +704,12 @@ def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
     * ``part``  — radix-partitioned joins, one probe launch per join;
       falls back to ``opat`` (reason set) when nothing is partitionable;
     * ``part_loop`` — radix-partitioned joins probed partition at a time
-      from the host; the same fallback rule.
+      from the host; the same fallback rule;
+    * ``shared`` — a one-member shared-scan wave; falls back to ``opat``
+      (reason set) when the plan cannot join a wave.
 
-    ``shared``, ``sharded`` and ``auto`` raise ``NotImplementedError``
-    naming the ROADMAP item that brings them."""
+    ``sharded`` and ``auto`` raise ``NotImplementedError`` naming the
+    ROADMAP item that brings them."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
@@ -457,7 +718,8 @@ def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
         raise _not_ported(strategy)
     if strategy == "opat":
         return CompiledQuery(plan, "opat", "opat")
-    reason = fusability(plan) if strategy == "fused" else partability(plan)
+    reason = {"fused": fusability, "shared": shareability}.get(
+        strategy, partability)(plan)
     if reason is None:
         return CompiledQuery(plan, strategy, strategy)
     return CompiledQuery(plan, "opat", strategy, fallback_reason=reason)

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch import cases
-from repro_torch.kernels import (agg, hash_join, ops, part_probe, project,
-                                 radix_part, ref, select_scan, ssb_fused,
-                                 unpack)
-from repro_torch.sql import engine, hashtable, ssb, storage
+from repro_torch.kernels import (agg, hash_join, multi_fused, ops,
+                                 part_probe, project, radix_part, ref,
+                                 select_scan, ssb_fused, unpack)
+from repro_torch.sql import compile as compile_, engine, hashtable, ssb, \
+    storage
 
 pytestmark = pytest.mark.cuda
 
@@ -400,3 +401,119 @@ def test_order_by_on_card_matches_numpy(cuda):
     perm = np.argsort(db.lineorder["lo_orderdate"], kind="stable")
     for c, v in db.lineorder.columns.items():
         np.testing.assert_array_equal(out[c], v[perm])
+
+
+# (n, members, preds, joins, n_groups, padding, extra): waves of up to 16
+# members, 1 / 7000 / 33,750 groups, packed streams, padding members,
+# two streams of one build side, an empty build side, ragged n
+MULTI_CASES = [
+    (1, 1, 1, 1, 4, 0, {}),
+    (37, 3, 2, 2, 1, 1, {}),
+    (100_003, 1, 3, 0, 1, 0, {}),
+    (100_003, 13, 3, 5, 7000, 3, dict(duplicates=True, wrap=True,
+                                      shared_table=True)),
+    (65_537, 16, 4, 4, 33_750, 0, dict(duplicates=True)),
+    (50_001, 8, 2, 3, 100, 8, dict(empty_join=True)),
+    (80_000, 13, 3, 4, 800, 3, dict(packed=True, pred_phys=4,
+                                     duplicates=True, wrap=True)),
+    (20_011, 5, 1, 3, 7000, 0, dict(packed=True, pred_phys=16,
+                                    shared_table=True)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(MULTI_CASES)))
+def test_multi_spja_kernel_bit_identical_to_plain(cuda, i):
+    n, q, c, j, g, pad, extra = MULTI_CASES[i]
+    case = cases.multi_spja_case(4000 + i, n, q, c, j, g, pad=pad, **extra)
+    args, kw = case.args(cuda)
+    got = _launched(multi_fused, "multi_spja", *args, **kw,
+                    member_groups=case.member_groups)
+    want = ref.multi_spja(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (q + pad, g) and torch.equal(got, want)
+    assert not got[q:].any()                    # padding adds nothing
+    # where a sum is taken (shared grid or L2) never changes its bits
+    for budget in (0, 200 * 1024):
+        again = multi_fused.multi_spja(*args, **kw, acc_budget_bytes=budget)
+        assert torch.equal(again, got)
+
+
+def test_multi_spja_past_64_members_runs_64_a_launch(cuda):
+    case = cases.multi_spja_case(7, 30_000, 70, 2, 2, 50)
+    args, kw = case.args(cuda)
+    before = multi_fused.LAUNCHES
+    got = multi_fused.multi_spja(*args, **kw)
+    assert multi_fused.LAUNCHES == before + 2
+    assert torch.equal(got, ref.multi_spja(*args, **kw))
+
+
+def test_multi_spja_wrapper_rejects_bad_inputs(cuda):
+    case = cases.multi_spja_case(3, 1000, 2, 1, 1, 4)
+    args, kw = case.args(cuda)
+    bad = list(args)
+    bad[8] = np.array([[0, 0, 0], [5, 0, 0]], np.int32)
+    with pytest.raises(ValueError, match="measure_sel"):
+        multi_fused.multi_spja(*bad, **kw)
+    bad = list(args)
+    bad[7] = [args[7][0].to(torch.int64)] + list(args[7][1:])
+    with pytest.raises(ValueError, match="int32"):
+        multi_fused.multi_spja(*bad, **kw)
+    wide = cases.multi_spja_case(3, 1000, 1, 1, 230, 1)
+    wargs, wkw = wide.args(cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        multi_fused.multi_spja(*wargs, **wkw)
+
+
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+@pytest.mark.parametrize("kind", cases.PROBE_KINDS)
+@pytest.mark.parametrize("vals", ["int32", "f32_integers", "f32_random"])
+def test_probe_agg_kernel_matches_plain(cuda, n, kind, vals):
+    args = _on(cases.probe_agg_case(n, n, kind, vals), cuda)
+    got = _launched(hash_join, "probe_agg", *args, counter="AGG_LAUNCHES")
+    want = ref.probe_agg(*args)
+    assert got.dtype == want.dtype and got.shape == ()
+    assert torch.equal(hash_join.probe_agg(*args), got)     # two runs
+    if vals == "f32_random":        # another f64 order: within an ulp
+        ulp = abs(float(torch.nextafter(want, want + 1)) - float(want))
+        assert abs(float(got) - float(want)) <= ulp
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 100_003, 1 << 22])
+@pytest.mark.parametrize("kind", cases.SUM_KINDS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reduce_sum_kernel_matches_plain(cuda, n, kind, offset):
+    (x,) = _on(cases.reduce_case(n, n + offset, kind), cuda)
+    x = x[offset:]                  # offset 1: not 16-byte aligned
+    got = _launched(agg, "reduce_sum", x, counter="SUM_LAUNCHES")
+    want = ref.reduce_sum(x)
+    assert got.dtype == want.dtype and got.shape == ()
+    assert torch.equal(agg.reduce_sum(x), got)
+    if kind == "f32_random":
+        ulp = abs(float(torch.nextafter(want, want + 1)) - float(want))
+        assert abs(float(got) - float(want)) <= ulp
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_shared_wave_on_card_matches_oracle_and_fused(cuda, packed):
+    db = ssb.generate(sf=0.05, seed=7)
+    db = (storage.pack_database(db) if packed else db).to(cuda)
+    cache = hashtable.HashTableCache()
+    plans = list(engine.ssb_queries().values())
+    before = multi_fused.LAUNCHES
+    outs = compile_.execute_shared(plans, db, cache=cache, pad_to=16)
+    assert multi_fused.LAUNCHES == before + 1
+    assert cache.misses == len({compile_.shared_join_key(j)
+                                for p in plans for j in p.joins})
+    plain = compile_.execute_shared(plans, db, mode="ref", cache=cache)
+    for plan, got, want in zip(plans, outs, plain):
+        np.testing.assert_array_equal(got, want, err_msg=plan.name)
+        np.testing.assert_array_equal(
+            got, engine.run_query_oracle(db, plan), err_msg=plan.name)
+        np.testing.assert_array_equal(
+            got, engine.run_query(db, plan, cache=cache), err_msg=plan.name)
+    one = engine.run_query(db, plans[3], cache=cache, strategy="shared")
+    np.testing.assert_array_equal(one, outs[3])

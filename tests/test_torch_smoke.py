@@ -315,3 +315,111 @@ def test_mean_probe_walks_each_key_from_its_home(bits):
     got = smoke.mean_probe(torch.from_numpy(htk))
     assert got == pytest.approx(float(np.mean(walks)), rel=1e-12)
     assert got >= 1.0
+
+
+def _wave_brute(c) -> dict:
+    """Walk every row as the wave kernel does: a member set per row,
+    predicate columns while a live member filters them, join keys while a
+    live member uses the join or takes its payload, measures while a live
+    member sums them."""
+    packed = c.packed or {}
+    q_n, n = len(c.q_valid), c.n
+    every = (-(1 << 31), (1 << 31) - 1)
+
+    def values(arr, width, r=0):
+        if width == 32:
+            return arr.tolist()
+        return storage.unpack_words(arr, n, width, int(r)).tolist()
+
+    pw = packed.get("pred_widths", (32,) * len(c.pred_cols))
+    kw = packed.get("key_widths", (32,) * len(c.join_keys))
+    kr = packed.get("key_refs", [0] * len(c.join_keys))
+    mw = packed.get("m_widths", (32,) * len(c.measure_cols))
+    cols = [values(a, w) for a, w in zip(c.pred_cols, pw)]
+    keys = [values(a, w, r) for a, w, r in zip(c.join_keys, kw, kr)]
+    real = [q for q in range(q_n) if c.q_valid[q]]
+    filt = [{q for q in real if tuple(c.pred_bounds[q, ci]) != every}
+            for ci in range(len(cols))]
+    need = [{q for q in real if c.join_use[q, j] or c.join_mults[q, j]}
+            for j in range(len(keys))]
+    users = [{q for q in real if c.measure_sel[q, 0] == m or
+              (c.measure_sel[q, 2] and c.measure_sel[q, 1] == m)}
+             for m in range(len(c.measure_cols))]
+    touched, visited, hits, widths = {}, {}, {}, {}
+    ops = steps = 0
+
+    def load(arr, width, r):
+        nonlocal ops
+        touched.setdefault(id(arr), set()).add(r)
+        widths[id(arr)] = width
+        ops += 2 if width != 32 else 0
+
+    for r in range(n):
+        lv = set(real)
+        for ci, col in enumerate(cols):
+            if not lv & filt[ci]:
+                continue
+            load(c.pred_cols[ci], pw[ci], r)
+            for q in lv & filt[ci]:
+                ops += 2
+                lo, hi = c.pred_bounds[q, ci]
+                if not lo <= col[r] <= hi:
+                    lv.discard(q)
+        payload = {}
+        for j in range(len(keys)):
+            if not lv & need[j]:
+                continue
+            load(c.join_keys[j], kw[j], r)
+            htk, htv = c.join_tables[2 * j], c.join_tables[2 * j + 1]
+            mask, key = len(htk) - 1, keys[j][r]
+            slot = ((key & 0xFFFFFFFF) * 2654435761) & mask
+            payload[j], found = 0, False
+            for _ in range(len(htk)):
+                visited.setdefault(id(htk), set()).add(slot)
+                ops += 4
+                steps += 1
+                if htk[slot] == key:
+                    hits.setdefault(id(htk), set()).add(slot)
+                    payload[j], found = int(htv[slot]), True
+                    break
+                if htk[slot] == -2 ** 31:
+                    break
+                slot = (slot + 1) & mask
+            if not found:
+                lv -= {q for q in lv if c.join_use[q, j]}
+        for m in range(len(c.measure_cols)):
+            if lv & users[m]:
+                load(c.measure_cols[m], mw[m], r)
+        for q in lv:
+            own = [j for j in range(len(keys)) if c.join_mults[q, j]]
+            ops += 2 * len(own)
+            g = sum(payload.get(j, 0) * int(c.join_mults[q, j]) for j in own)
+            ops += 2 if (g & 0xFFFFFFFF) < c.n_groups else 0
+    seg = smoke.SEGMENT // 4
+    fact = sum(smoke.SEGMENT * len({r // (seg * (32 // widths[k]))
+                                    for r in rows})
+               for k, rows in touched.items())
+    table = smoke.SEGMENT * sum(len({s // seg for s in v})
+                                for v in (*visited.values(),
+                                          *hits.values()))
+    return {"fact_bytes": fact, "table_bytes": table,
+            "bytes": fact + table + 4 * q_n * c.n_groups, "ops": ops,
+            "steps": steps}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n=400, n_members=4, n_preds=2, n_joins=3, n_groups=40, pad=2,
+         duplicates=True, wrap=True, shared_table=True, build_rows=40),
+    dict(n=333, n_members=3, n_preds=3, n_joins=2, n_groups=1,
+         empty_join=True, build_rows=30),
+    dict(n=517, n_members=5, n_preds=2, n_joins=3, n_groups=30, pad=1,
+         packed=True, pred_phys=4, build_rows=50),
+])
+def test_wave_need_counts_what_the_wave_kernel_touches(kw):
+    c = cases.multi_spja_case(500, **kw)
+    args, akw = c.args("cpu")
+    got = smoke.wave_need(args, **akw)
+    want = _wave_brute(c)
+    assert {k: got[k] for k in want} == want
+    assert got["bytes_ms"] == want["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+    assert got["ops_ms"] == want["ops"] / smoke.INT32_OPS_PER_S * 1e3
