@@ -11,7 +11,8 @@ exits non-zero without printing a result:
            sources with nvcc, one process per source, all at once;
 3. kernel vs plain: each kernel against its plain version on the card on
            synthetic inputs from a seed — bit-identical, except the
-           sigmoid (rtol 1e-6) and non-integer f32 group sums (two runs
+           sigmoid (rtol 1e-6) and sums of non-integer f32 values
+           (``group_sum``, ``probe_agg``, ``reduce_sum``: two runs
            identical, within one f32 ulp of the plain version); the
            packed kernels at every packed width, with ragged n,
            frame-of-reference keys and measures and sign-bit words;
@@ -59,18 +60,17 @@ exits non-zero without printing a result:
            argsort of its survivors; ``radix_sort`` timed beside its bound
            and ``torch.sort(stable=True)``;
 9. shared waves: the 13 queries as one wave through ``execute_shared(...,
-           pad_to=16)``, flight 2 alone and flights 2 + 4, on phase 4's
+           pad_to=16)``, flight 1, flight 2 and flights 2 + 4, on phase 4's
            database and on phase 6's packed one with a fresh hash cache —
            one ``multi_spja`` launch a wave, cache misses equal to the
            distinct build sides (none new on the packed database), every
            member bit-identical to phase 4's oracle and fused results, a
            second pass and the plain version on the card; ``compile_plan(
-           plan, "shared")`` for one query; per wave ``query_ms`` beside
-           the members' solo fused ``query_ms``, the kernel's time beside
-           the bound of what the wave's data needs (``wave_need``) at
-           five shared-memory budgets for its sums, and a one-group member
-           that every row reaches at two budgets (phase 4 profiles the
-           13-query wave: the device busy share);
+           plan, "shared")`` for q1.1 and q2.1; per wave ``query_ms``
+           beside the members' solo fused ``query_ms``, the kernel's time
+           beside the bound of what the wave's data needs (``wave_need``),
+           its shared memory a block and blocks an SM; the 13-query wave
+           profiled (the device busy share);
 10. join microbenchmark and streaming sum: ``probe_agg`` of 2^28 probe
            rows against tables of 8 KB to 256 MB (across the 50 MB L2),
            ``reduce_sum`` of a 2^28-row int32 column and its f32 copy, each
@@ -151,15 +151,20 @@ FIG8_FACT = 1 << 27
 FIG8_DIMS = (1 << 12, 1 << 16, 1 << 20, 1 << 24)
 STRATEGIES = ("fused", "opat", "part", "part_loop")
 # phase 9's waves (query names; all13 is padded to 16 members)
-WAVES = {"all13": None, "flight2": ("q2.1", "q2.2", "q2.3"),
+WAVES = {"all13": None, "flight1": ("q1.1", "q1.2", "q1.3"),
+         "flight2": ("q2.1", "q2.2", "q2.3"),
          "flights2_4": ("q2.1", "q2.2", "q2.3", "q4.1", "q4.2", "q4.3")}
+# spin kernels before a profiled run, for the profiler to lose in its
+# place (on an H100 it lost about one for every 15 s the process had
+# run: profiler_check.py)
+PROFILE_HEAD = 256
+# phase 9's one-member waves: compile_plan(q, "shared")
+SINGLES = ("q1.1", "q2.1")
 # phase 10: probe rows and the table sizes of the L2 step (8 bytes a slot,
 # half full: benchmarks/run.py::fig13_join's reckoning)
 JOIN_ROWS = 1 << 28
 JOIN_TABLE_KB = (8, 256, 4096, 32768, 65536, 262144)
 SUM_ROWS = 1 << 28
-# phase 9: shared-memory budgets of the wave kernel's member grids
-ACC_BUDGETS = (0, 512, 8 * 1024, 24 * 1024, 160 * 1024)
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
@@ -682,36 +687,65 @@ DEVICE_KINDS = [("select_count", "select_scan"),
                 ("Memcpy", "copy to host")]
 
 
-def profiled(run) -> dict:
+def profiled(run, expect=()) -> dict:
     """Device time by kind over one call of ``run`` under torch.profiler,
     the kernels behind each kind (name cut to 96 characters, launches,
     ms; the three longest), and the device's busy share of the wall time
-    (a lower bound: the profiler adds host time per operation)."""
+    (a lower bound: the profiler adds host time per operation).
+
+    The profiler can lose device records: on an H100 it dropped the
+    first device records of a profile, more of them the longer the
+    process had run, whatever they were (``profiler_check.py``).  So
+    ``PROFILE_HEAD`` tiny spin kernels run first inside the window, to be
+    lost in the run's place, and are left out of the result.  Raises
+    unless the profile holds a device kernel for every other kernel
+    launch the host recorded and every kind in ``expect``."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_HEAD):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds, names = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    events = list(prof.events())
+    launches = sum(e.device_type != cuda and "LaunchKernel" in e.name
+                   for e in events) - PROFILE_HEAD
+    kinds, names, kernels = {}, {}, 0
+    for e in events:
+        if e.device_type != cuda or "spin_kernel" in e.name:
             continue
+        kernels += not e.name.startswith(("Memcpy", "Memset"))
         kind = next((k for sub, k in DEVICE_KINDS if sub in e.name), "other")
         ms = e.device_time / 1e3
         kinds[kind] = kinds.get(kind, 0.0) + ms
         calls, total = names.setdefault(kind, {}).get(e.name[:96], (0, 0.0))
         names[kind][e.name[:96]] = (calls + 1, total + ms)
+    if not kernels or kernels < launches or not set(expect) <= set(kinds):
+        raise AssertionError(
+            f"the profile lost device records: {kernels} kernels for "
+            f"{launches} launches, kinds {sorted(kinds)}")
     busy = sum(kinds.values())
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
     return {"device_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
             "kernels": {kind: sorted(([name, *v] for name, v in by.items()),
                                      key=lambda r: -r[2])[:3]
                         for kind, by in names.items()},
-            "busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms}
+            "busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
+            "launches": launches}
+
+
+@contextlib.contextmanager
+def acc_budget(mf, budget: int):
+    """Within the block, the wave kernel's member grids get ``budget``
+    bytes (``multi_fused.ACC_BUDGET_BYTES``)."""
+    saved, mf.ACC_BUDGET_BYTES = mf.ACC_BUDGET_BYTES, budget
+    try:
+        yield
+    finally:
+        mf.ACC_BUDGET_BYTES = saved
 
 
 @contextlib.contextmanager
@@ -946,7 +980,8 @@ def main() -> int:
             raise AssertionError(f"multi_spja {label}: the kernel did not "
                                  "launch")
         # a second run with every sum through L2: the same bits
-        again = mf.multi_spja(*a, **k, acc_budget_bytes=0)
+        with acc_budget(mf, 0):
+            again = mf.multi_spja(*a, **k)
         want = ref.multi_spja(*a, **k)
         torch.cuda.synchronize()
         if not torch.equal(again, got):
@@ -1084,13 +1119,8 @@ def main() -> int:
               "bytes_ms", "ops_ms", "bound_ms")
     tot = {k: sum(r[k] for r in rows) for k in totals}
     print(f"totals {json.dumps(tot)}")
-    print("profile fused " + json.dumps(profiled(run_pass)), flush=True)
-    # the 13-query wave (phase 9) profiled here, on the same database and
-    # cache: after phases 6-8 the profiler has seen no device time
-    plans13 = list(queries.values())
-    TC.execute_shared(plans13, db, cache=cache, pad_to=16)
-    print("profile wave " + json.dumps(profiled(lambda: TC.execute_shared(
-        plans13, db, cache=cache, pad_to=16))), flush=True)
+    print("profile fused " + json.dumps(profiled(run_pass, ("spja",))),
+          flush=True)
     print(f"phase4_s {time.perf_counter() - t:.3f}", flush=True)
     kernels = [dict(
         KERNEL, launches=main_launches, max_abs_err=max_err,
@@ -1165,7 +1195,8 @@ def main() -> int:
     print("totals " + json.dumps({k: sum(r[k] for r in opat_rows) for k in (
         "opat_query_ms", "fused_query_ms")}), flush=True)
 
-    print("profile opat " + json.dumps(profiled(run_opat)), flush=True)
+    print("profile opat " + json.dumps(profiled(
+        run_opat, ("select_scan", "probe_join", "group_sum"))), flush=True)
     n = db.lineorder.n_rows     # the chain's first positions vector, alone
     arange_ms = event_ms(lambda: torch.arange(n, dtype=torch.int32,
                                               device=dev), KERNEL_REPS)
@@ -1601,7 +1632,8 @@ def main() -> int:
         entry["launches_order_by"] = ob_launches[0]
     print(f"phase8_s {time.perf_counter() - t:.3f}")
 
-    t = phase(f"9 shared waves: the 13 queries, flight 2, flights 2 + 4; "
+    t = phase(f"9 shared waves: the 13 queries, flight 1, flight 2, "
+              f"flights 2 + 4; "
               f"plain and packed, SF {SF}")
     waves = {w: [queries[q] for q in (names or queries)]
              for w, names in WAVES.items()}
@@ -1632,12 +1664,15 @@ def main() -> int:
             if wcache.misses != distinct:
                 raise AssertionError(f"{wcache.misses} builds for "
                                      f"{distinct} distinct build sides")
-    before = mf.LAUNCHES
-    single = compile_plan(queries["q2.1"], "shared").execute(db,
-                                                             cache=wcache)
-    single_launches = mf.LAUNCHES - before
+    single, single_launches = {}, {}
+    for name in SINGLES:
+        before = mf.LAUNCHES
+        single[name] = compile_plan(queries[name], "shared").execute(
+            db, cache=wcache)
+        single_launches[name] = mf.LAUNCHES - before
     shared_launches = mf.LAUNCHES
-    if set(per_wave.values()) != {1} or single_launches != 1:
+    if set(per_wave.values()) != {1} or \
+            set(single_launches.values()) != {1}:
         raise AssertionError(f"expected one launch a wave: {per_wave}, "
                              f"compile_plan {single_launches}")
     if wcache.misses != distinct:
@@ -1659,10 +1694,12 @@ def main() -> int:
                 if not same_bits(got, other):
                     raise AssertionError(f"{label} {w} {plan.name}: differs "
                                          f"from the {what}")
-    if not same_bits(single, first["q2.1"]):
-        raise AssertionError("compile_plan(q2.1, 'shared') differs")
+    for name, got in single.items():
+        if not same_bits(got, first[name]):
+            raise AssertionError(f"compile_plan({name}, 'shared') differs")
     print(f"launches {shared_launches}: one a wave ({len(wave_out)}) and "
-          f"one for compile_plan(q2.1, 'shared'); cache misses "
+          f"one for compile_plan(q, 'shared') of each of {SINGLES}; "
+          f"cache misses "
           f"{wcache.misses} = distinct build sides {distinct}, hits "
           f"{wcache.hits}; bit-identical: oracle, fused, second pass, "
           "plain on card", flush=True)
@@ -1708,38 +1745,18 @@ def main() -> int:
             # the kernel's share of the host's wall time (CUDA events
             # over host clock)
             row["kernel_share"] = row["kernel_ms"] / row["query_ms"]
+            row["smem_bytes"] = mf.block_smem(*a, n_groups=n_groups, **k)
+            row["blocks_per_sm"] = mf.blocks_per_sm(row["smem_bytes"], dev)
             if (label, w) == ("plain", "all13"):
                 row["plain_ms"] = event_ms(functools.partial(
                     ref.multi_spja, *a, n_groups=n_groups,
                     **{x: v for x, v in k.items() if x != "member_groups"}), 1)
-                words_smem = {}
-                for budget in ACC_BUDGETS:
-                    smem = mf.block_smem(*a, n_groups=n_groups, **k,
-                                         acc_budget_bytes=budget)
-                    words_smem[budget] = {
-                        "smem_bytes": smem,
-                        "blocks_per_sm": mf.blocks_per_sm(smem, dev),
-                        "kernel_ms": event_ms(functools.partial(
-                            call, acc_budget_bytes=budget), KERNEL_REPS)}
-                row["acc_budgets"] = words_smem
                 main_wave = row
             wave_rows.append(row)
             print("wave " + json.dumps(row), flush=True)
-    # one member every row reaches, all in one group: each budget's sums
-    # meet at one address (L2, or each block's shared memory)
-    hot = cases.multi_spja_case(SEED, BIG, 1, 0, 0, 1)
-    ha, hk = hot.args(dev)
-    hot_row = {"rows": hot.n, "budgets": {}}
-    hot_want = ref.multi_spja(*ha, **hk)
-    for budget in (0, mf.ACC_BUDGET_BYTES):
-        call = functools.partial(mf.multi_spja, *ha, **hk,
-                                 member_groups=hot.member_groups,
-                                 acc_budget_bytes=budget)
-        if not torch.equal(call(), hot_want):
-            raise AssertionError(f"hot member, budget {budget}: differs "
-                                 "from the plain version")
-        hot_row["budgets"][budget] = event_ms(call, KERNEL_REPS)
-    print("hot member " + json.dumps(hot_row), flush=True)
+    print("profile wave " + json.dumps(profiled(lambda: TC.execute_shared(
+        waves["all13"], db, cache=wcache, pad_to=pads["all13"]),
+        ("multi_spja",))), flush=True)
     kernels.append({
         "name": "multi_fused.multi_spja", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/multi_fused.cu",

@@ -4,6 +4,8 @@ build of it, in turns, on one card.
     python3 spja_ab.py --other PATH/ssb_fused.cu [--packed] [--pairs 10]
                        [--sf 20] [--seed 20]
     python3 spja_ab.py --kernel multi_spja --other PATH/multi_fused.cu ...
+    python3 spja_ab.py --kernel multi_spja --acc-budget 0 \
+                       [--wave q1.1 --wave q1.1,q1.2,q1.3 ...]
 
 Builds the checkout's ``src/repro_torch/kernels/csrc/ssb_fused.cu`` (or
 ``multi_fused.cu``) and the other source with the same ``nvcc`` flags (a
@@ -12,10 +14,14 @@ checkout's ``csrc``), generates the SSB database at ``--sf`` on the card
 and times the kernel's launches: for ``spja`` the 13 queries', the calls
 ``compile.fused_inputs`` gives and ``chip_smoke.py`` phase 4 times; for
 ``multi_spja`` the waves of ``chip_smoke.WAVES`` (the 13 queries padded
-to 16 members, flight 2, flights 2 + 4), the calls
-``compile.shared_params`` gives and phase 9 times.  A round is the sum of
-the calls' means over ``chip_smoke.KERNEL_REPS`` launches with one
-library; pair i runs this build then the other for even i, the other
+to 16 members, flight 1, flight 2, flights 2 + 4) or those ``--wave``
+names (one of those, or comma-separated queries), the calls
+``compile.shared_params`` gives and phase 9 times.  Without ``--other``
+the other build is the checkout's own source; ``--acc-budget`` runs the
+other side with ``multi_fused.ACC_BUDGET_BYTES`` set to that many bytes
+(the shared-memory grid of the wave kernel's smallest members).  A round
+is the sum of the calls' means over ``chip_smoke.KERNEL_REPS`` launches
+with one library; pair i runs this build then the other for even i, the other
 first for odd i.  With ``--packed`` the same pairs then run on
 ``storage.pack_database`` of the database.
 
@@ -27,8 +33,8 @@ plain version's bit for bit.
 
 Prints the card's name and power limit, both builds' ptxas register
 lines, every round, and as its last line one JSON object with the
-rounds, the medians and the pairs each build won.  Exits nonzero without
-CUDA.
+rounds, the medians and the pairs each build won, in all and per call.
+Exits nonzero without CUDA.
 """
 from __future__ import annotations
 
@@ -77,9 +83,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("spja", "multi_spja"),
                     default="spja")
-    ap.add_argument("--other", type=Path, required=True,
+    ap.add_argument("--other", type=Path,
                     help="the ssb_fused.cu (or multi_fused.cu) to compare "
-                    "with")
+                    "with (default: the checkout's)")
+    ap.add_argument("--acc-budget", type=int,
+                    help="multi_spja: the other side's ACC_BUDGET_BYTES")
+    ap.add_argument("--wave", action="append",
+                    help="multi_spja: a wave of chip_smoke.WAVES or of "
+                    "comma-separated query names (repeat; default: all of "
+                    "chip_smoke.WAVES)")
     ap.add_argument("--packed", action="store_true",
                     help="also time the packed database")
     ap.add_argument("--pairs", type=int, default=10)
@@ -103,20 +115,25 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip())
     mod, lib_name = {"spja": (ssb_fused, "ssb_fused"),
                      "multi_spja": (multi_fused, "multi_fused")}[args.kernel]
+    other = args.other or build.CSRC / f"{lib_name}.cu"
     this_log = build.build(lib_name) or "(built earlier)"
     libs = {"this": mod.library()}
-    libs["other"], other_log = build_other(build, args.other.resolve(),
+    libs["other"], other_log = build_other(build, other.resolve(),
                                            mod._SIGNATURES)
     print("this", registers(this_log))
-    print("other", args.other, registers(other_log), flush=True)
+    print("other", other, registers(other_log), flush=True)
+    budgets = {"this": multi_fused.ACC_BUDGET_BYTES,
+               "other": multi_fused.ACC_BUDGET_BYTES
+               if args.acc_budget is None else args.acc_budget}
 
     def with_lib(name, fn):
-        saved = mod.library
+        saved = mod.library, multi_fused.ACC_BUDGET_BYTES
         mod.library = lambda: libs[name]
+        multi_fused.ACC_BUDGET_BYTES = budgets[name]
         try:
             return fn()
         finally:
-            mod.library = saved
+            mod.library, multi_fused.ACC_BUDGET_BYTES = saved
 
     t0 = time.perf_counter()
     db = ssb.generate(sf=args.sf, seed=args.seed)
@@ -139,8 +156,11 @@ def main() -> int:
 
     def wave_calls(database):
         """(name, the kernel's call, its plain version's) per wave."""
+        waves = WAVES if not args.wave else {
+            w: WAVES[w] if w in WAVES else tuple(w.split(","))
+            for w in args.wave}
         out = []
-        for wave, names in WAVES.items():
+        for wave, names in waves.items():
             members = [plans[q] for q in (names or plans)]
             _, a, k, n_groups = shared_params(
                 members, database, cache=cache,
@@ -152,8 +172,8 @@ def main() -> int:
                                   **plain_kw)))
         return out
 
-    report = {"kernel": args.kernel, "other": str(args.other),
-              "pairs": args.pairs,
+    report = {"kernel": args.kernel, "other": str(other),
+              "acc_budget": budgets, "pairs": args.pairs,
               "kernel_reps": KERNEL_REPS,
               "this_registers": registers(this_log),
               "other_registers": registers(other_log)}
@@ -169,21 +189,29 @@ def main() -> int:
                                          "differs from the plain version")
 
         def round_ms(lib):
-            return with_lib(lib, lambda: sum(
-                event_ms(call, KERNEL_REPS) for _, call, _ in calls))
+            return with_lib(lib, lambda: [
+                event_ms(call, KERNEL_REPS) for _, call, _ in calls])
+
+        def summary(this_ms, other_ms):
+            return {"this_median": statistics.median(this_ms),
+                    "other_median": statistics.median(other_ms),
+                    "this_wins": sum(t < o for t, o in zip(this_ms,
+                                                            other_ms))}
 
         rounds = {"this": [], "other": []}
         for i in range(args.pairs):
             for lib in ("this", "other") if i % 2 == 0 else ("other", "this"):
                 rounds[lib].append(round_ms(lib))
-            print(f"{kind} pair {i}: this {rounds['this'][-1]} "
-                  f"other {rounds['other'][-1]}", flush=True)
+            print(f"{kind} pair {i}: this {sum(rounds['this'][-1])} "
+                  f"other {sum(rounds['other'][-1])}", flush=True)
+        this_ms = [sum(r) for r in rounds["this"]]
+        other_ms = [sum(r) for r in rounds["other"]]
         report[kind] = {
-            "this_ms": rounds["this"], "other_ms": rounds["other"],
-            "this_median": statistics.median(rounds["this"]),
-            "other_median": statistics.median(rounds["other"]),
-            "this_wins": sum(t < o for t, o in zip(rounds["this"],
-                                                    rounds["other"]))}
+            "this_ms": this_ms, "other_ms": other_ms,
+            **summary(this_ms, other_ms),
+            "calls": {name: summary([r[i] for r in rounds["this"]],
+                                    [r[i] for r in rounds["other"]])
+                      for i, (name, _, _) in enumerate(calls)}}
     print(json.dumps(report))
     return 0
 

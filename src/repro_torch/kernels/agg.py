@@ -14,7 +14,8 @@ data and within an f32 ulp of them otherwise.  An id outside
 ``repro/kernels/agg.py::reduce_sum``.  Same contract as
 ``ref.reduce_sum``: an int32 sum wraps, bit for bit; an f32 sum is taken
 in f64 in a fixed order and rounded once, with the same bits rule as
-``group_sum``.
+``group_sum`` (``ref.reduce_sum``'s bits when the f64 sum is exact,
+within one f32 ulp otherwise).
 
 The wrappers launch the kernels on CUDA tensors or raise; the choice of
 the plain version for a CPU tensor is ``ops``'s alone.  ``LAUNCHES``

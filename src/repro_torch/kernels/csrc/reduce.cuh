@@ -11,7 +11,10 @@
 // end: sums mod 2^32 do not depend on order, so the result is the
 // reference's wrapping int32 sum.  f32 data is summed in f64 and rounded
 // to f32 once; the order is fixed for a given grid, so two runs on one
-// card agree bit for bit.
+// card agree bit for bit.  That order is not the plain version's
+// (ref.reduce_sum, ref.probe_agg): the two agree bit for bit when the f64
+// sum is exact (integer-valued data under 2^53), and otherwise within one
+// f32 ulp of each other.
 #pragma once
 
 #include <cuda_runtime.h>

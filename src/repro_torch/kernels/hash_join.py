@@ -11,7 +11,8 @@ found rows in row order and zeros past the count, bit for bit.
 microbenchmark); the port of ``repro/kernels/hash_join.py::probe_agg``.
 Same contract as ``ref.probe_agg``: int32 sums wrap, bit for bit; f32
 values are summed in f64 in a fixed order and rounded once (the same
-bits on every run, ``ref.probe_agg``'s on integer-valued data).
+bits on every run, ``ref.probe_agg``'s when the f64 sum is exact, as on
+integer-valued data, and within one f32 ulp of them otherwise).
 
 The wrappers launch the kernels on CUDA tensors or raise; the choice of
 the plain version for a CPU tensor is ``ops``'s alone.  ``LAUNCHES``

@@ -172,7 +172,7 @@ def blocks_per_sm(smem: int, device=None) -> int:
 def _lower(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
            join_use, q_valid, measure_cols, measure_sel, n_groups,
            pred_widths, key_widths, key_refs, m_widths, m_refs, n_rows,
-           member_groups, acc_budget_bytes):
+           member_groups):
     """Check a call and lower it -> (device, n, Q, stream pointers,
     [(first member, words)] one entry a launch)."""
     if not measure_cols:
@@ -222,7 +222,7 @@ def _lower(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
                                    *join_tables[0::2], *join_tables[1::2],
                                    *measure_cols)]
     q = valid.shape[0]
-    span = spans(member_groups, valid, n_groups, acc_budget_bytes)
+    span = spans(member_groups, valid, n_groups, ACC_BUDGET_BYTES)
     chunks = []
     for lo in range(0, q, MAX_MEMBERS):
         hi = min(q, lo + MAX_MEMBERS)
@@ -244,15 +244,13 @@ def block_smem(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
                join_use, q_valid, measure_cols, measure_sel,
                n_groups: int = 1, pred_widths=None, key_widths=None,
                key_refs=None, m_widths=None, m_refs=None, n_rows=None,
-               member_groups=None,
-               acc_budget_bytes: int = ACC_BUDGET_BYTES) -> int:
+               member_groups=None) -> int:
     """Dynamic shared memory a block of this call's (largest) launch takes,
     for the record of its occupancy (``blocks_per_sm``)."""
     *_, chunks = _lower(pred_cols, pred_bounds, join_keys, join_tables,
                         join_mults, join_use, q_valid, measure_cols,
                         measure_sel, n_groups, pred_widths, key_widths,
-                        key_refs, m_widths, m_refs, n_rows, member_groups,
-                        acc_budget_bytes)
+                        key_refs, m_widths, m_refs, n_rows, member_groups)
     return max(smem_bytes(words) for _, words in chunks)
 
 
@@ -262,18 +260,16 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                q_valid, measure_cols: Sequence[torch.Tensor], measure_sel,
                n_groups: int = 1, pred_widths=None, key_widths=None,
                key_refs=None, m_widths=None, m_refs=None, n_rows=None,
-               member_groups=None,
-               acc_budget_bytes: int = ACC_BUDGET_BYTES) -> torch.Tensor:
+               member_groups=None) -> torch.Tensor:
     """Run a wave of Q SPJA queries in one kernel launch -> (Q, n_groups)
     f32 (arguments as ``ref.multi_spja``).  The stacked parameters are
-    host integers (numpy or tensors); ``member_groups`` (Q,) and
-    ``acc_budget_bytes`` only place the sums (see the module note)."""
+    host integers (numpy or tensors); ``member_groups`` (Q,) only places
+    the sums (see the module note)."""
     global LAUNCHES
     device, n, q, ptrs, chunks = _lower(
         pred_cols, pred_bounds, join_keys, join_tables, join_mults,
         join_use, q_valid, measure_cols, measure_sel, n_groups, pred_widths,
-        key_widths, key_refs, m_widths, m_refs, n_rows, member_groups,
-        acc_budget_bytes)
+        key_widths, key_refs, m_widths, m_refs, n_rows, member_groups)
     out = torch.zeros((q, n_groups), dtype=torch.int64, device=device)
     if n == 0 or q == 0:
         return out.to(torch.float32)

@@ -247,7 +247,9 @@ def probe_agg(keys: torch.Tensor, vals: torch.Tensor, ht_keys: torch.Tensor,
     0-d tensor of vals' dtype.  int32: each payload + v and the sum wrap
     as the reference's int32 adds (summed in int64, cut to int32 once:
     the same low 32 bits).  f32: each payload + v rounded to f32, then
-    summed in f64 and rounded once."""
+    summed in f64 and rounded once; the kernel's f64 order differs, so
+    it has these bits when the f64 sum is exact and is within one f32
+    ulp of them otherwise."""
     payload, found = B.block_lookup(keys, ht_keys, ht_vals)
     hit = found > 0
     if vals.is_floating_point():
@@ -261,7 +263,8 @@ def reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The global sum -> a 0-d tensor: int32 for integer input (wrapping,
     as the reference's int32 accumulator: summed in int64, cut to int32
     once), f32 for float input (summed in f64, rounded to f32 once; the
-    reference sums in f32)."""
+    reference sums in f32).  The kernel sums f64 in another order: these
+    bits when the f64 sum is exact, within one f32 ulp otherwise."""
     if x.is_floating_point():
         return x.double().sum().to(torch.float32)
     return x.to(torch.int64).sum().to(torch.int32)

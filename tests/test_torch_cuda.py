@@ -422,7 +422,7 @@ MULTI_CASES = [
 
 
 @pytest.mark.parametrize("i", range(len(MULTI_CASES)))
-def test_multi_spja_kernel_bit_identical_to_plain(cuda, i):
+def test_multi_spja_kernel_bit_identical_to_plain(cuda, i, monkeypatch):
     n, q, c, j, g, pad, extra = MULTI_CASES[i]
     case = cases.multi_spja_case(4000 + i, n, q, c, j, g, pad=pad, **extra)
     args, kw = case.args(cuda)
@@ -434,7 +434,8 @@ def test_multi_spja_kernel_bit_identical_to_plain(cuda, i):
     assert not got[q:].any()                    # padding adds nothing
     # where a sum is taken (shared grid or L2) never changes its bits
     for budget in (0, 200 * 1024):
-        again = multi_fused.multi_spja(*args, **kw, acc_budget_bytes=budget)
+        monkeypatch.setattr(multi_fused, "ACC_BUDGET_BYTES", budget)
+        again = multi_fused.multi_spja(*args, **kw)
         assert torch.equal(again, got)
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``spja_ab.py`` load neither jax nor the reference package, and the port
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``,
+``spja_ab.py`` and ``profiler_check.py`` load neither jax nor the
+reference package, and the port
 never quietly runs on the host when the caller did not ask for it."""
 import ast
 import os
@@ -22,8 +23,8 @@ from repro_torch.sql import ssb as TSSB
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "spja_ab.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "spja_ab.py", ROOT / "profiler_check.py"]
 MODULES = sorted(
     "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
     for p in PKG.rglob("*.py") if p.name != "__init__.py")
