@@ -15,7 +15,11 @@ exits non-zero without printing a result:
            (``group_sum``, ``probe_agg``, ``reduce_sum``: two runs
            identical, within one f32 ulp of the plain version); the
            packed kernels at every packed width, with ragged n,
-           frame-of-reference keys and measures and sign-bit words;
+           frame-of-reference keys and measures and sign-bit words; the
+           hash ``build`` (ragged n, duplicate keys, a full table, no
+           rows) and ``select_scan_sparse`` (selectivity 0, 1e-5 and 0.5,
+           x uniform and sorted, equal to ``select_scan``), each run
+           twice with the same bits;
 4. main path: ``ssb.generate(sf=20)`` (120 M lineorder rows), resident
            on the card, all 13 SSB queries through
            ``compile_plan(plan, "fused").execute(db, cache=...)``: 13
@@ -75,7 +79,24 @@ exits non-zero without printing a result:
            rows against tables of 8 KB to 256 MB (across the 50 MB L2),
            ``reduce_sum`` of a 2^28-row int32 column and its f32 copy, each
            bit-identical to its plain version and to numpy, timed beside
-           its bound (and ``torch.sum``).
+           its bound (and ``torch.sum``); the hash ``build`` of those
+           tables (50 % fill) from their keys, byte-identical to its plain
+           version, its tables probed to the sums of the host build's,
+           timed beside the host ``np_build``; ``select_scan_sparse`` of
+           2^28 rows at selectivities 1e-5 to 0.5, x uniform and sorted,
+           equal to ``select_scan`` and timed beside it, with the share of
+           32-row tiles that hold a match;
+11. morsels: phase 4's database no longer resident, the 13 queries
+           through ``fused``, ``opat`` and the 13-query wave (``shared``,
+           padded to 16), and ``fused`` on phase 6's packed database,
+           each a fold over 256 MiB morsels uploaded from page-locked host
+           memory on a side stream (at least 4 morsels a query) — every
+           result bit-identical to phase 4's oracle and to the resident
+           results; the device memory peak of each run beside the hash
+           tables plus two morsels; per query ``query_ms`` beside the
+           resident one, the upload's bound (scanned bytes over the
+           measured host-to-device rate, beside a pinned 1 GiB copy) and
+           the resident kernel time; one morsel query profiled.
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -143,6 +164,26 @@ JOIN_BENCH = [("hash_join", "probe_agg", "AGG_LAUNCHES", "hash_join.cu",
                "src/repro/kernels/hash_join.py:136"),
               ("agg", "reduce_sum", "SUM_LAUNCHES", "agg.cu",
                "src/repro/kernels/agg.py:42")]
+# the last two kernels, the same fields: each on an entry point of its own
+LAST = [("hash_join", "build", "BUILD_LAUNCHES", "hash_join.cu",
+         "src/repro/kernels/hash_join.py:85"),
+        ("select_scan", "select_scan_sparse", "SPARSE_LAUNCHES",
+         "select_scan.cu", "src/repro/kernels/select_scan.py:125")]
+# phase 3: (build_case kind, slots) and select_scan_sparse selectivities
+BUILD_SYNTHETIC = [("distinct", 1 << 20), ("duplicates", 1 << 16),
+                   ("full", 1 << 12), ("empty", 64), ("distinct", 1)]
+SPARSE_SYNTHETIC = (0.0, 1e-5, 0.5)
+# phase 10: select_scan_sparse's rows and selectivities
+SPARSE_ROWS = 1 << 28
+SPARSE_SELECTIVITY = (1e-5, 1e-4, 1e-3, 1e-2, 0.1, 0.5)
+# phase 11: the morsel budget, the morsels each query must make at least
+# (plain; packed columns take fewer bytes, q1.1's three morsels), and the
+# bytes of the host-to-device copies timed
+MORSEL_BYTES = 256 << 20
+MIN_MORSELS = 4
+MIN_PACKED_MORSELS = 2
+H2D_BYTES = 1 << 30
+MORSEL_REPS = 3
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
 # the Fig. 8 analogue (benchmarks/run.py::_fig8_db's shape): 2^27 fact
 # rows, FK uniform over a dim of 2^12 .. 2^24 rows (the last a 256 MB
@@ -168,7 +209,7 @@ SUM_ROWS = 1 << 28
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
-# past the grid, n_groups 1 and 7000, each measure op
+# past the grid, n_groups 1, 7000 and 33,750, each measure op
 SYNTHETIC = [
     ("ragged n, 3 preds, mul, 1 group",
      dict(n=10_000_019, n_preds=3, n_joins=0, measure_op="mul",
@@ -190,6 +231,9 @@ SYNTHETIC = [
     ("6 preds + 5 joins, past SSB, within the kernel's 8 + 8",
      dict(n=3_000_017, n_preds=6, n_joins=5, measure_op="mul",
           n_groups=243, duplicates=True, wrap=True)),
+    ("33,750 groups, past a block's shared memory",
+     dict(n=2_000_003, n_preds=1, n_joins=3, measure_op="first",
+          n_groups=33_750, build_rows=5000)),
 ]
 BIG = 10_000_019                # a ragged n past every tile and grid size
 # (label, cases.multi_spja_case arguments): waves of 1, 13 and 16 members,
@@ -682,8 +726,10 @@ DEVICE_KINDS = [("select_count", "select_scan"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
+                ("sparse_", "select_scan_sparse"), ("build_", "build"),
                 ("arange", "torch arange"), ("index", "torch gather"),
                 ("copy", "torch copy/cast"), ("Fill", "torch zeros"),
+                ("Memcpy HtoD", "copy to device"),
                 ("Memcpy", "copy to host")]
 
 
@@ -842,7 +888,8 @@ def main() -> int:
     from repro_torch.sql import plan as P
     from repro_torch.sql.compile import SORT_BITS, compile_plan, fused_inputs
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
-            for m, *_ in OPAT + PACKED + PARTITIONED + SHARED + JOIN_BENCH}
+            for m, *_ in OPAT + PACKED + PARTITIONED + SHARED + JOIN_BENCH +
+            LAST}
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1019,6 +1066,46 @@ def main() -> int:
                                  f"|err| {err}")
         new_err[fn] = max(new_err[fn], err)
         print(f"{fn} {label}: {got.item()} max_abs_err={err} ok", flush=True)
+    sel = mods["select_scan"]
+    new_err.update(build=0.0, select_scan_sparse=0.0)
+    for kind, n_slots in BUILD_SYNTHETIC:
+        keys, bvals, s = cases.tensors(cases.build_case(7000 + n_slots,
+                                                        n_slots, kind), dev)
+        before = hj.BUILD_LAUNCHES
+        got = hj.build(keys, bvals, s)
+        again = hj.build(keys, bvals, s)
+        if hj.BUILD_LAUNCHES != before + 2:
+            raise AssertionError(f"build {kind}: the kernel did not launch")
+        want = ref.build(keys, bvals, s)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) and torch.equal(g, w)
+                   for g, a, w in zip(got, again, want)):
+            raise AssertionError(f"build {kind} n={keys.numel()}: kernel "
+                                 "!= plain or two runs differ")
+        print(f"build {kind}, n={keys.numel()}, slots={s}: used "
+              f"{int((got[0] != -(1 << 31)).sum())} ok", flush=True)
+    for order in cases.SPARSE_ORDERS:
+        for selectivity in SPARSE_SYNTHETIC:
+            args = cases.tensors(cases.sparse_case(7100, BIG, selectivity,
+                                                   order), dev)
+            before = sel.SPARSE_LAUNCHES
+            got = sel.select_scan_sparse(*args)
+            again = sel.select_scan_sparse(*args)
+            if sel.SPARSE_LAUNCHES != before + 2:
+                raise AssertionError("select_scan_sparse: the kernel did "
+                                     "not launch")
+            want = ref.select_scan_sparse(*args)
+            dense = sel.select_scan(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) and torch.equal(g, w) and
+                       torch.equal(g, d) for g, a, w, d in
+                       zip(got, again, want, dense)):
+                raise AssertionError(f"select_scan_sparse {order} "
+                                     f"{selectivity}: differs from plain, "
+                                     "select_scan or its second run")
+            print(f"select_scan_sparse {order}, selectivity {selectivity}, "
+                  f"n={BIG}: count={int(got[1])} = select_scan ok",
+                  flush=True)
     print(f"phase3_s {time.perf_counter() - t:.3f}", flush=True)
 
     t = phase(f"4 main path: 13 SSB queries, fused, SF {SF}")
@@ -1781,8 +1868,13 @@ def main() -> int:
     def wrap32(v: int) -> int:
         return (v + (1 << 31)) % (1 << 32) - (1 << 31)
 
-    tables = [(kb, *cases.join_bench_table(SEED, kb * 1024))
-              for kb in JOIN_TABLE_KB]
+    tables, np_build_ms = [], {}
+    for kb in JOIN_TABLE_KB:            # cases.join_bench_table, timed
+        bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
+        t0 = time.perf_counter()
+        htk, htv = hashtable.np_build(bkeys, bkeys, n_slots)
+        np_build_ms[kb] = (time.perf_counter() - t0) * 1e3
+        tables.append((kb, htk, htv, len(bkeys)))
     sum_inputs = (vals, vals.to(torch.float32))
     for kb, htk, htv, n_build in tables:     # the main run, checked
         htk, htv = (torch.from_numpy(x).to(dev) for x in (htk, htv))
@@ -1872,7 +1964,291 @@ def main() -> int:
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
             else "operations", "library_ms": sum(lib) if lib else None})
+
+    # the hash build of the same tables, from their keys (the main run,
+    # checked, then timed)
+    hj.BUILD_LAUNCHES = 0
+    for kb, htk, htv, n_build in tables:
+        bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
+        bkeys = torch.from_numpy(bkeys).to(dev)
+        got = hj.build(bkeys, bkeys, n_slots)
+        want = ref.build(bkeys, bkeys, n_slots)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"build {kb} KB: kernel != plain")
+        keys = torch.remainder(base, n_build)
+        sums = [int(hj.probe_agg(keys, vals, *tab)) for tab in
+                (got, want, tuple(torch.from_numpy(x).to(dev)
+                                  for x in (htk, htv)))]
+        if len(set(sums)) != 1:
+            raise AssertionError(f"build {kb} KB: probe_agg sums {sums} "
+                                 "(kernel's, plain's, host build's table)")
+        del keys, got, want
+    last_launches = {"build": hj.BUILD_LAUNCHES}
+    if last_launches["build"] != len(tables):
+        raise AssertionError(f"build launches {last_launches}")
+    print(f"launches build={hj.BUILD_LAUNCHES}: each table byte-identical "
+          "to its plain version, probe_agg sums equal to the host build's",
+          flush=True)
+    build_calls = []
+    for kb, _, _, n_build in tables:
+        bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
+        bkeys = torch.from_numpy(bkeys).to(dev)
+        moved = 8 * n_build + 8 * n_slots
+        row = {"table_KB": kb, "n_build": n_build, "n_slots": n_slots,
+               "ms": event_ms(lambda: hj.build(bkeys, bkeys, n_slots),
+                              KERNEL_REPS),
+               "plain_ms": event_ms(lambda: ref.build(bkeys, bkeys, n_slots),
+                                    1),
+               "np_build_ms": np_build_ms[kb], "bytes": moved, "ops": 0,
+               "bytes_ms": moved / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
+               "library_ms": None}
+        row["bound_ms"] = row["bytes_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        build_calls.append(row)
+        print("build " + json.dumps(row), flush=True)
+
+    # the selective load: x read alone, y only in tiles holding a match
+    x_uniform = torch.randint(0, 1 << 30, (SPARSE_ROWS,), generator=gen,
+                              device=dev, dtype=torch.int32)
+    xs = {"uniform": x_uniform, "sorted": torch.sort(x_uniform).values}
+    y = base[:SPARSE_ROWS]
+    sel.SPARSE_LAUNCHES = 0
+    for order, x in xs.items():
+        for selectivity in SPARSE_SELECTIVITY:
+            hi = int(selectivity * (1 << 30)) - 1
+            got = sel.select_scan_sparse(x, y, 0, hi)
+            dense = sel.select_scan(x, y, 0, hi)
+            want = ref.select_scan_sparse(x, y, 0, hi)
+            if not all(torch.equal(g, d) and torch.equal(g, w)
+                       for g, d, w in zip(got, dense, want)):
+                raise AssertionError(f"select_scan_sparse {order} "
+                                     f"{selectivity}: != select_scan/plain")
+            del got, dense, want
+    last_launches["select_scan_sparse"] = sel.SPARSE_LAUNCHES
+    if sel.SPARSE_LAUNCHES != 2 * len(SPARSE_SELECTIVITY):
+        raise AssertionError(f"select_scan_sparse launches "
+                             f"{sel.SPARSE_LAUNCHES}")
+    print(f"launches select_scan_sparse={sel.SPARSE_LAUNCHES}: each equal "
+          "to select_scan and to its plain version", flush=True)
+    sparse_calls = []
+    for order, x in xs.items():
+        for selectivity in SPARSE_SELECTIVITY:
+            hi = int(selectivity * (1 << 30)) - 1
+            hit = (x >= 0) & (x <= hi)
+            count = int(hit.sum())
+            marked = int(hit.view(-1, ref.SKIP_ROWS).any(1).sum())
+            del hit
+            moved = 4 * SPARSE_ROWS + 4 * ref.SKIP_ROWS * marked + 4 * count
+            row = {"order": order, "selectivity": selectivity,
+                   "rows": SPARSE_ROWS, "count": count,
+                   "marked_share": marked * ref.SKIP_ROWS / SPARSE_ROWS,
+                   "ms": event_ms(lambda: sel.select_scan_sparse(x, y, 0, hi),
+                                  KERNEL_REPS),
+                   "select_scan_ms": event_ms(
+                       lambda: sel.select_scan(x, y, 0, hi), KERNEL_REPS),
+                   "plain_ms": event_ms(
+                       lambda: ref.select_scan_sparse(x, y, 0, hi), 1),
+                   "bytes": moved, "ops": 2 * SPARSE_ROWS,
+                   "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+                   "ops_ms": 2 * SPARSE_ROWS / INT32_OPS_PER_S * 1e3,
+                   "library_ms": None}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["sparse_over_dense"] = row["select_scan_ms"] / row["ms"]
+            sparse_calls.append(row)
+            print("select_scan_sparse " + json.dumps(row), flush=True)
+    del xs, x_uniform, y
+    for (m, fn, _, src, replaces), calls in zip(
+            LAST, (build_calls, sparse_calls)):
+        tot = {x: sum(r[x] for r in calls)
+               for x in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")}
+        kernels.append({
+            "name": f"{m}.{fn}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": last_launches[fn],
+            "max_abs_err": new_err[fn], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+            else "operations", "library_ms": None})
     print(f"phase10_s {time.perf_counter() - t:.3f}")
+    del base, vals, sum_inputs, tables
+
+    t = phase(f"11 morsels: 13 SSB queries fused, opat, shared and packed "
+              f"fused, {MORSEL_BYTES >> 20} MiB morsels, SF {SF}")
+    from repro_torch.sql import morsel as MS
+    h2d, host = {}, np.ones(H2D_BYTES, np.uint8)
+    dst = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
+    pinned = torch.ones(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
+
+    def copy_ms(src, reps=3):
+        """Host-clock ms of one host-to-device copy of ``src``."""
+        to = dst[:src.shape[0]]
+        to.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            to.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    h2d["pinned_tensor_ms"] = copy_ms(pinned)
+    h2d["pageable_numpy_ms"] = copy_ms(torch.from_numpy(host))
+    t0 = time.perf_counter()
+    start, end = MS.page_lock(host)
+    h2d["register_ms"] = (time.perf_counter() - t0) * 1e3
+    at = host.ctypes.data
+    h2d["registered_numpy_ms"] = copy_ms(torch.from_numpy(
+        host[start - at:end - at]))
+    for k in ("pinned_tensor", "pageable_numpy", "registered_numpy"):
+        n_bytes = end - start if k == "registered_numpy" else H2D_BYTES
+        h2d[f"{k}_GBps"] = n_bytes / h2d[f"{k}_ms"] / 1e6
+    print("h2d " + json.dumps(h2d), flush=True)
+    h2d_rate = h2d["registered_numpy_GBps"] * 1e9
+    del dst, pinned, host
+    # the fact tables leave the card: each query now streams its morsels
+    db.lineorder.release(device=True)
+    pdb.lineorder.release(device=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    def tensors_of(entry):
+        """The device tensors of a hash-cache entry: a table's (htk, htv),
+        part_loop's list of them, or PackedParts."""
+        if torch.is_tensor(entry):
+            return [entry]
+        if isinstance(entry, (tuple, list)):
+            return [t for e in entry for t in tensors_of(e)]
+        return [t for t in (getattr(entry, "htk", None),
+                            getattr(entry, "htv", None)) if torch.is_tensor(t)]
+
+    tables_bytes = sum(t.numel() * t.element_size()
+                       for entry in cache.tables.values()
+                       for t in tensors_of(entry))
+    print(f"resident fact bytes {db.lineorder.resident_bytes(dev)} plain, "
+          f"{pdb.lineorder.resident_bytes(dev)} packed; allocated "
+          f"{torch.cuda.memory_allocated() / 1e6:.1f} MB, of which the hash "
+          f"cache's tables {tables_bytes / 1e6:.1f} MB", flush=True)
+    all13 = waves["all13"]
+    opat_mods = [mods[m] for m, *_ in OPAT]
+    # strategy label -> (database, resident results, resident query_ms,
+    # resident kernel_ms); the wave is one "query"
+    runs = {
+        "fused": (db, first, {r["query"]: r["query_ms"] for r in rows},
+                  {r["query"]: r["kernel_ms"] for r in rows}),
+        "opat": (db, opat, opat_ms, {}),
+        "packed_fused": (pdb, pfirst,
+                         {r["query"]: r["query_ms"] for r in prows},
+                         {r["query"]: r["kernel_ms"] for r in prows}),
+        "shared": (db, {"all13": wave_out["plain", "all13"]},
+                   {"all13": main_wave["query_ms"]},
+                   {"all13": main_wave["kernel_ms"]}),
+    }
+
+    def run_morsels(label, database, name):
+        """One morsel run of a query (or the wave) -> (result, n_morsels,
+        double-buffer peak, scanned columns)."""
+        if label == "shared":
+            got, rep = TC.execute_shared_morsels(
+                all13, database, cache=cache, pad_to=pads["all13"],
+                morsel_bytes=MORSEL_BYTES)
+            col_ix, joins, mcol = TC.shared_footprint(all13)
+            cols = [*col_ix, *(j.fact_col for j in joins), *mcol]
+            return got, rep.n_morsels, rep.peak_resident_bytes, cols
+        plan = queries[name]
+        q = compile_plan(plan, "opat" if label == "opat" else "fused")
+        got = q.execute(database, cache=cache, morsel_bytes=MORSEL_BYTES)
+        cols = (TC._chain_scan_cols(plan) if label == "opat"
+                else TC._fused_scan_cols(plan))
+        return got, q.n_morsels, q.peak_resident_bytes, cols
+
+    def counted():
+        return {"spja": ssb_fused.LAUNCHES, "multi_spja": mf.LAUNCHES,
+                **{fn: mod.LAUNCHES for (_, fn, *_), mod in
+                   zip(OPAT, opat_mods)}}
+
+    ssb_fused.LAUNCHES = mf.LAUNCHES = 0
+    for mod in opat_mods:
+        mod.LAUNCHES = 0
+    morsel_rows, slack = [], 64 << 20
+    for label, (database, resident, res_ms, res_kernel_ms) in runs.items():
+        for name in resident:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before_alloc = torch.cuda.memory_allocated()
+            launched = counted()
+            got, n_morsels, peak_res, cols = run_morsels(label, database,
+                                                         name)
+            torch.cuda.synchronize()
+            peak_alloc = torch.cuda.max_memory_allocated()
+            launched = {k: v - launched[k] for k, v in counted().items()}
+            members = (list(zip(all13, got)) if label == "shared"
+                       else [(queries[name], got)])
+            want = (dict(zip((p.name for p in all13), resident["all13"]))
+                    if label == "shared" else {name: resident[name]})
+            for plan, g in members:
+                if not (same_bits(g, oracle[plan.name])
+                        and same_bits(g, want[plan.name])):
+                    raise AssertionError(f"morsels {label} {plan.name}: "
+                                         "differs from the oracle or the "
+                                         "resident result")
+            if n_morsels < (MIN_PACKED_MORSELS if database is pdb
+                            else MIN_MORSELS):
+                raise AssertionError(f"morsels {label} {name}: only "
+                                     f"{n_morsels} morsels")
+            kernel = {"fused": "spja", "packed_fused": "spja",
+                      "shared": "multi_spja"}.get(label)
+            if kernel and launched[kernel] != n_morsels:
+                raise AssertionError(f"morsels {label} {name}: {launched} "
+                                     f"launches for {n_morsels} morsels")
+            fact = getattr(database, all13[0].scan.table)
+            stream = MS.MorselStream(fact, MORSEL_BYTES, cols=cols)
+            scanned = sum(stream.morsel_nbytes(i)
+                          for i in range(stream.n_morsels))
+            # opat materializes its intermediates per morsel: up to 48
+            # bytes a row (row ids, group ids, gathered keys and values,
+            # selection vectors) beside the two buffers
+            work = 48 * stream.rows_per if label == "opat" else 0
+            bound = before_alloc + peak_res + work + slack
+            if peak_alloc > bound:
+                raise AssertionError(f"morsels {label} {name}: device peak "
+                                     f"{peak_alloc} B over {bound} B")
+            times = []
+            for _ in range(MORSEL_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_morsels(label, database, name)
+                times.append((time.perf_counter() - t0) * 1e3)
+            row = {"strategy": label, "query": name, "morsels": n_morsels,
+                   "launches": launched,
+                   "query_ms": statistics.median(times),
+                   "resident_query_ms": res_ms[name],
+                   "resident_kernel_ms": res_kernel_ms.get(name),
+                   "scanned_GB": scanned / 1e9,
+                   "upload_bound_ms": scanned / h2d_rate * 1e3,
+                   "peak_alloc_MB": peak_alloc / 1e6,
+                   "bound_MB": bound / 1e6,
+                   "allocated_before_MB": before_alloc / 1e6,
+                   "double_buffer_MB": peak_res / 1e6}
+            row["over_upload_bound"] = row["query_ms"] / \
+                row["upload_bound_ms"]
+            morsel_rows.append(row)
+            print("morsel " + json.dumps(row), flush=True)
+    morsel_launches = counted()
+    totals = {label: {k: sum(r[k] or 0.0 for r in morsel_rows
+                             if r["strategy"] == label)
+                      for k in ("query_ms", "resident_query_ms",
+                                "resident_kernel_ms", "upload_bound_ms",
+                                "scanned_GB")}
+              for label in runs}
+    print("morsel totals " + json.dumps(totals), flush=True)
+    print("profile morsel q2.1 fused " + json.dumps(profiled(
+        lambda: compile_plan(queries["q2.1"], "fused").execute(
+            db, cache=cache, morsel_bytes=MORSEL_BYTES),
+        ("spja", "copy to device"))), flush=True)
+    for entry in kernels:
+        fn = entry["name"].split(".")[-1]
+        if fn in morsel_launches:
+            entry["launches_morsels"] = morsel_launches[fn]
+    print(f"phase11_s {time.perf_counter() - t:.3f}")
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 

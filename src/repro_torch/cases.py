@@ -15,8 +15,11 @@ any start bit (the last pass of r = 7 reaching past bit 31), every key
 in one bucket, heavy duplicates and negative keys, with 1 and 3 payload
 columns; for the partitioned probe, 2-256 partitions, one hot
 partition, empty partitions, duplicate build keys, dead rows and an
-all-EMPTY table.  Every case is a tuple of host arrays (or tuples of
-them) and scalars; ``tensors`` moves its arrays to a device.
+all-EMPTY table; for the build, duplicate keys, negative keys, a full
+table and no rows; for the sparse scan, selectivities down to none with
+the matches spread or clustered.  Every case is a tuple of host arrays
+(or tuples of them) and scalars; ``tensors`` moves its arrays to a
+device.
 """
 from __future__ import annotations
 
@@ -593,12 +596,58 @@ def probe_agg_case(seed: int, n: int, kind: str = "duplicate_wrap",
     return keys, v, htk, htv
 
 
-def join_bench_table(seed: int, table_bytes: int):
-    """(htk, htv, n_build) for the join microbenchmark (Fig. 13's shape,
-    ``benchmarks/run.py::fig13_join``): build keys 0..n_build-1 in a
-    shuffled order with payload = key, n_build = table_bytes / 16, so a
-    table of 8-byte slots is ``table_bytes`` at 50 % fill."""
+def join_bench_keys(seed: int, table_bytes: int):
+    """(keys, n_slots) of the join microbenchmark's build side (Fig.
+    13's shape, ``benchmarks/run.py::fig13_join``): keys 0..n_build-1 in
+    a shuffled order, n_build = table_bytes / 16, so a table of 8-byte
+    slots is ``table_bytes`` at 50 % fill."""
     n_build = max(16, table_bytes // 16)
     keys = np.random.default_rng(seed).permutation(n_build).astype(np.int32)
-    htk, htv = np_build(keys, keys, next_pow2(n_build))
-    return htk, htv, n_build
+    return keys, next_pow2(n_build)
+
+
+def join_bench_table(seed: int, table_bytes: int):
+    """(htk, htv, n_build) for the join microbenchmark: the host build
+    (``np_build``) of ``join_bench_keys`` with payload = key."""
+    keys, n_slots = join_bench_keys(seed, table_bytes)
+    htk, htv = np_build(keys, keys, n_slots)
+    return htk, htv, len(keys)
+
+
+BUILD_KINDS = ("distinct", "duplicates", "full", "empty")
+
+
+def build_case(seed: int, n_slots: int, kind: str = "distinct",
+               n: Optional[int] = None) -> tuple:
+    """(keys, vals, n_slots) for ``build``: "distinct" n keys (default
+    a ragged n past half of the slots) spread over int32, negative keys
+    included; "duplicates" keys drawn from a tenth as many values, so
+    chains hold a key's rows in row order; "full" n = n_slots;
+    "empty" n = 0.  No key is EMPTY."""
+    rng = np.random.default_rng(seed)
+    if n is None:
+        n = {"full": n_slots, "empty": 0}.get(kind, n_slots // 2 + 3)
+    n = min(n, n_slots)
+    if kind == "duplicates":
+        keys = rng.integers(-50, max(1, n // 10), n, dtype=np.int32)
+    else:
+        keys = rng.integers(-(1 << 31) + 1, (1 << 31) - 1, n, dtype=np.int32)
+    vals = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    return keys, vals, n_slots
+
+
+SPARSE_ORDERS = ("uniform", "sorted")
+
+
+def sparse_case(seed: int, n: int, selectivity: float,
+                order: str = "uniform") -> tuple:
+    """(x, y, lo, hi) for ``select_scan_sparse``: x int32 in [0, 2^30),
+    uniform or sorted (the matches clustered in a few tiles), y int32 row
+    tags; [lo, hi] selects about ``selectivity`` of the rows (none at
+    0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 30, n, dtype=np.int32)
+    if order == "sorted":
+        x.sort()
+    y = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
+    return x, y, 0, int(selectivity * (1 << 30)) - 1

@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 
 LAUNCHES = 0
 SUM_LAUNCHES = 0
@@ -43,7 +44,7 @@ _SIGNATURES = {
     "group_sum_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
     "reduce_sum_shape": (ctypes.c_int, [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
     "reduce_sum_launch": (ctypes.c_int, [
@@ -71,9 +72,11 @@ def _shape(device: int, n_groups: int, is_float: bool
 
 
 def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
-              n_groups: int) -> torch.Tensor:
+              n_groups: int, acc=None) -> torch.Tensor:
     """(n_groups,) sums in vals' dtype on vals' device.  group_ids: (n,)
-    int32; vals: (n,) int32 or f32."""
+    int32; vals: (n,) int32 or f32.  ``acc``: the running grid of a
+    morsel fold, ``ref.group_acc_dtype``'s type (f64 for f32 vals, int32
+    for int32): the sums are added to it unrounded and it is returned."""
     global LAUNCHES
     if vals.device.type != "cuda":
         raise ValueError(f"group_sum: no kernel for device {vals.device}")
@@ -88,9 +91,12 @@ def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
     if n_groups > max_groups:
         raise ValueError(f"n_groups={n_groups}: one warp's f64 grid fits "
                          f"{max_groups} groups of shared memory")
-    out = torch.zeros((n_groups,), dtype=vals.dtype, device=device)
+    if acc is not None:
+        ref.check_acc(acc, (n_groups,), device, ref.group_acc_dtype(vals))
+    out = (acc if acc is not None and not is_float else
+           torch.zeros((n_groups,), dtype=vals.dtype, device=device))
     if n == 0:
-        return out
+        return out if acc is None else acc
     blocks = max(1, min(-(-n // step_rows), resident))
     partials = (torch.empty((blocks * block_rows, n_groups),
                             dtype=torch.float64, device=device)
@@ -102,10 +108,10 @@ def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
             group_ids.data_ptr(), vals.data_ptr(), n, n_groups,
             int(is_float), blocks, block_rows,
             0 if partials is None else partials.data_ptr(), out.data_ptr(),
-            stream)
+            acc.data_ptr() if acc is not None and is_float else 0, stream)
     build.check(lib, rc, "group_sum")
     LAUNCHES += 1
-    return out
+    return out if acc is None else acc
 
 
 def reduce_sum(x: torch.Tensor) -> torch.Tensor:

@@ -127,9 +127,11 @@ group_sum_f64_partials(const int* __restrict__ ids,
 
 // One block per 32 groups: warp s sums partial rows s, s + 32, ... of its
 // lane's group in order, then warp 0 sums the 32 slices in order.
+// With `acc` (a running f64 grid, a morsel fold's), each group's sum is
+// added to it unrounded and `out` is not written.
 __global__ void __launch_bounds__(kReduceSlices * 32)
 reduce_partials(const double* __restrict__ partials, int rows, int n_groups,
-                float* __restrict__ out) {
+                float* __restrict__ out, double* __restrict__ acc) {
   __shared__ double part[kReduceSlices][33];
   const int lane = threadIdx.x & 31;
   const int slice = threadIdx.x >> 5;
@@ -144,7 +146,11 @@ reduce_partials(const double* __restrict__ partials, int rows, int n_groups,
   if (slice == 0 && g < n_groups) {
     double t = 0.0;
     for (int k = 0; k < kReduceSlices; ++k) t += part[k][lane];
-    out[g] = __double2float_rn(t);
+    if (acc != nullptr) {
+      acc[g] += t;
+    } else {
+      out[g] = __double2float_rn(t);
+    }
   }
 }
 
@@ -208,14 +214,16 @@ extern "C" int group_sum_shape(int n_groups, int is_float, long long* shape) {
 }
 
 // ids: (n,) int32; vals: (n,) int32 (is_float 0) or f32 (is_float 1);
-// out: (n_groups,) int32, zeroed, or f32; blocks and warps (the f32 path's,
-// else 0) from group_sum_shape; partials: (blocks * warps, n_groups) f64
-// scratch (f32 only, else null).  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// out: (n_groups,) int32, zeroed or holding sums to add to, or f32; blocks
+// and warps (the f32 path's, else 0) from group_sum_shape; partials:
+// (blocks * warps, n_groups) f64 scratch (f32 only, else null); acc: null,
+// or (f32 only) an (n_groups,) f64 grid the unrounded sums are added to in
+// place of writing `out`.  Launches on `stream`, does not synchronise,
+// returns cudaGetLastError().
 extern "C" int group_sum_launch(const void* ids, const void* vals,
                                 long long n, int n_groups, int is_float,
                                 long long blocks, int warps, void* partials,
-                                void* out, void* stream) {
+                                void* out, void* acc, void* stream) {
   if (n <= 0 || n_groups < 1 || blocks < 1 || blocks > 2147483647LL ||
       (is_float && (warps < 1 || warps > kMaxWarps || partials == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -228,7 +236,8 @@ extern "C" int group_sum_launch(const void* ids, const void* vals,
                                   n_groups, static_cast<double*>(partials));
     reduce_partials<<<(n_groups + 31) / 32, kReduceSlices * 32, 0, s>>>(
         static_cast<const double*>(partials),
-        static_cast<int>(blocks * warps), n_groups, static_cast<float*>(out));
+        static_cast<int>(blocks * warps), n_groups, static_cast<float*>(out),
+        static_cast<double*>(acc));
   } else {
     group_sum_i32<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
         static_cast<const int*>(ids), static_cast<const int*>(vals), n,

@@ -35,6 +35,26 @@
 // table segments the probes visit; while the table fits the 50 MB L2 the
 // probes are L2 reads, past it each probe is a device-memory access of its
 // own.  Each thread walks four rows' probes at once.
+//
+// build: the open-addressing linear-probe table of (key, val) rows.
+// Replaces src/repro/kernels/hash_join.py::build (_build_kernel), which
+// inserts the rows one by one in row order across a grid that runs in
+// order: each row takes the first EMPTY slot from hash(key), so the first
+// row of a duplicate key is found first.  Hopper threads insert at once,
+// and a plain CAS of the key would place rows in whatever order the
+// threads win.  So the insert places ROW IDS by ordered linear probing:
+// an int32 slot array (kNoRow where free); a thread carries a row from
+// its home slot; at a free slot it CASes its row in, at a slot held by a
+// higher row it CASes its row in and carries the displaced row on from
+// the next slot, at a lower row it moves on.  The layout that results is
+// unique, whatever order the CASes win: each row sits past its home only
+// over lower rows, which is the row-order sequential table.  A second
+// pass writes htk[s] = keys[row[s]] and htv[s] = vals[row[s]] (EMPTY and
+// 0 where free).  What bounds it: device-memory bytes, the keys and vals
+// read once and the table written once (8n + 8S); the slot array (4S,
+// written and read) and the CASes, one per probe step, come on top, and
+// at half fill a row's walk is short.  The wrapper raises for n > S and
+// for a key equal to EMPTY, which no such table can hold.
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -148,6 +168,65 @@ extern "C" int probe_agg_shape(int is_float, long long* resident) {
                          resident);
 }
 
+namespace {
+
+constexpr int kNoRow = 2147483647;             // INT32_MAX: a free slot
+constexpr int kBuildThreads = 256;
+
+__global__ void __launch_bounds__(kBuildThreads)
+build_clear(int* __restrict__ rows, long long n_slots) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
+  for (long long s = static_cast<long long>(blockIdx.x) * kBuildThreads +
+                     threadIdx.x;
+       s < n_slots; s += stride)
+    rows[s] = kNoRow;
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+build_insert(const int* __restrict__ keys, long long n, unsigned mask,
+             int* __restrict__ rows) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kBuildThreads +
+                     threadIdx.x;
+       i < n; i += stride) {
+    int r = static_cast<int>(i);
+    unsigned s = (static_cast<unsigned>(__ldg(keys + i)) * kHashMul) & mask;
+    // A filled slot is never freed, only taken by a lower row, so each
+    // CAS either places r or names the row that holds the slot now.
+    int expect = kNoRow;               // first guess: the slot is free
+    while (true) {
+      const int held = atomicCAS(rows + s, expect, r);
+      if (held == expect) {            // r is in slot s
+        if (held == kNoRow) break;
+        r = held;                      // carry the displaced higher row on
+        s = (s + 1u) & mask;
+        expect = kNoRow;
+      } else if (held > r) {
+        expect = held;                 // displace it: CAS again at s
+      } else {
+        s = (s + 1u) & mask;           // a lower row holds s: move on
+        expect = kNoRow;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+build_emit(const int* __restrict__ rows, const int* __restrict__ keys,
+           const int* __restrict__ vals, long long n_slots,
+           int* __restrict__ htk, int* __restrict__ htv) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
+  for (long long s = static_cast<long long>(blockIdx.x) * kBuildThreads +
+                     threadIdx.x;
+       s < n_slots; s += stride) {
+    const int r = rows[s];
+    htk[s] = r == kNoRow ? kEmpty : __ldg(keys + r);
+    htv[s] = r == kNoRow ? 0 : __ldg(vals + r);
+  }
+}
+
+}  // namespace
+
 extern "C" long long probe_agg_tile_rows() {
   return static_cast<long long>(kSumThreads) * kAggItems;
 }
@@ -185,6 +264,33 @@ extern "C" int probe_agg_launch(const void* keys, const void* vals,
         static_cast<const unsigned long long*>(partials),
         static_cast<int>(blocks), static_cast<int*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys, vals: (n,) int32, no key EMPTY; rows: (mask + 1,) int32 scratch;
+// htk, htv: (mask + 1,) int32 outputs, mask + 1 a power of two >= n.
+// 0 <= n < 2^31.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int build_launch(const void* keys, const void* vals, long long n,
+                            unsigned mask, void* rows, void* htk, void* htv,
+                            void* stream) {
+  const long long n_slots = static_cast<long long>(mask) + 1;
+  if (n < 0 || n > n_slots || n > 2147483646LL ||
+      (mask & (mask + 1u)) != 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* r = static_cast<int*>(rows);
+  const int* k = static_cast<const int*>(keys);
+  auto blocks = [](long long items) {
+    const long long b = (items + kBuildThreads - 1) / kBuildThreads;
+    return static_cast<unsigned>(b < 65536 ? b : 65536);
+  };
+  build_clear<<<blocks(n_slots), kBuildThreads, 0, s>>>(r, n_slots);
+  if (n > 0)
+    build_insert<<<blocks(n), kBuildThreads, 0, s>>>(k, n, mask, r);
+  build_emit<<<blocks(n_slots), kBuildThreads, 0, s>>>(
+      r, k, static_cast<const int*>(vals), n_slots, static_cast<int*>(htk),
+      static_cast<int*>(htv));
   return static_cast<int>(cudaGetLastError());
 }
 

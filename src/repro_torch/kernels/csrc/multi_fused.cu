@@ -317,7 +317,8 @@ extern "C" int multi_spja_blocks_per_sm(long long smem, int* blocks) {
 // host_words: the parameter words in host memory (validated and read for
 // the layout); words, ptrs: the same words and the stream pointers
 // (uint64) in device memory; n: the fact rows (a packed stream holds
-// ceil(n / (32 / phys)) words); out: (Q, n_groups) int64, zeroed.
+// ceil(n / (32 / phys)) words); out: (Q, n_groups) int64, zeroed or holding
+// sums to add to (the kernel only adds).
 // Launches on `stream`, does not synchronise, returns cudaGetLastError()
 // (cudaErrorInvalidValue for malformed words).
 extern "C" int multi_spja_launch(const int* host_words, int n_words,

@@ -37,6 +37,17 @@
 //    has n_groups == 1: there every thread keeps its own sum in a
 //    register, and one warp-shuffle reduction per warp replaces a shared
 //    atomic per row.
+//  * Any group count runs.  Up to kMaxSpan groups (the whole 227 KB a
+//    block may have) the grid is wholly in shared memory, as every SSB
+//    query's.  Past it a block keeps groups [0, kSpillSpan) in shared
+//    memory and adds a row of a later group straight to the int64 output
+//    in device memory (an atomicAdd that stays in the 50 MB L2), as
+//    multi_fused.cu does; the spilling instance is a template of its own,
+//    so a grid that fits runs the code it ran before.  kSpillSpan keeps
+//    56 KB a block, flight 2's grid, so four blocks share an SM.  The sums
+//    stay exact int64 additions: the same bits in any order.
+//  * The output grid may hold a caller's running sums (the morsel fold
+//    passes one grid through every morsel): the kernel only adds to it.
 //  * Coalesced int32 loads: kItems rows per thread, rows of one item
 //    spaced kThreads apart, so a warp reads 128 contiguous bytes per
 //    column.  A grid-stride loop over a grid of as many blocks as fit on
@@ -80,6 +91,8 @@ constexpr int kNarrow = 4;
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSpan = 232448 / 8;           // 227 KB of int64 sums
+constexpr int kSpillSpan = 7168;               // 56 KB
 
 // How one stream is stored: plain (phys 32, lg 0, mask all ones, ref 0)
 // or packed; ref is added to a key's or a measure's decoded lane.
@@ -104,12 +117,13 @@ struct SpjaParams {
   StreamWidth pred_w[kMaxPreds];
   StreamWidth key_w[kMaxJoins];
   StreamWidth m_w[2];
-  unsigned long long* out;       // (n_groups,) int64 sums, zeroed
+  unsigned long long* out;       // (n_groups,) int64 sums, added to
   long long n;
   int n_preds;
   int n_joins;
   int measure_op;                // 0 first, 1 mul, 2 sub
   int n_groups;
+  int span;                      // groups [0, span) summed in shared memory
 };
 
 // Row r of a stream as an int32 value.
@@ -120,13 +134,13 @@ __device__ __forceinline__ int load(const int* col, long long r,
                                       r, w.lg, w.phys, w.mask) + w.ref);
 }
 
-template <int kPreds, int kJoins>
+template <int kPreds, int kJoins, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 spja_kernel(const SpjaParams p) {
   extern __shared__ unsigned long long acc[];
   const bool scalar = p.n_groups == 1;
   if (!scalar) {
-    for (int g = threadIdx.x; g < p.n_groups; g += kThreads) acc[g] = 0ull;
+    for (int g = threadIdx.x; g < p.span; g += kThreads) acc[g] = 0ull;
   }
   __syncthreads();
 
@@ -167,8 +181,10 @@ spja_kernel(const SpjaParams p) {
       }
       if (scalar) {
         own += m;
-      } else {
+      } else if (!kSpill || group < static_cast<unsigned>(p.span)) {
         atomicAdd(&acc[group], static_cast<unsigned long long>(m));
+      } else {
+        atomicAdd(p.out + group, static_cast<unsigned long long>(m));
       }
     }
   }
@@ -184,7 +200,7 @@ spja_kernel(const SpjaParams p) {
     return;
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < p.n_groups; g += kThreads) {
+  for (int g = threadIdx.x; g < p.span; g += kThreads) {
     const unsigned long long v = acc[g];
     if (v != 0ull) atomicAdd(p.out + g, v);
   }
@@ -192,11 +208,11 @@ spja_kernel(const SpjaParams p) {
 
 // One launch of the instance with kPreds + kJoins slots: as many blocks as
 // fit on the SMs at once, fewer for a small n.
-template <int kPreds, int kJoins>
+template <int kPreds, int kJoins, bool kSpill>
 int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
   cudaError_t err;
   if (smem > static_cast<size_t>(kDefaultSmem)) {
-    err = cudaFuncSetAttribute(spja_kernel<kPreds, kJoins>,
+    err = cudaFuncSetAttribute(spja_kernel<kPreds, kJoins, kSpill>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -207,7 +223,7 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, spja_kernel<kPreds, kJoins>, kThreads, smem);
+      &per_sm, spja_kernel<kPreds, kJoins, kSpill>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
 
@@ -215,7 +231,7 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
   long long grid = (p.n + tile - 1) / tile;
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (grid > resident) grid = resident;
-  spja_kernel<kPreds, kJoins>
+  spja_kernel<kPreds, kJoins, kSpill>
       <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -230,7 +246,8 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
 //   key_ref[kMaxJoins], m_ref[2] — phys 32 for a plain stream (its ref
 //   is ignored), else the packed width; unused slots phys 32.
 // n: the fact rows (a packed stream holds ceil(n / (32 / phys)) words).
-// out: (n_groups,) int64, zeroed by the caller.  Launches on `stream`,
+// out: (n_groups,) int64, zeroed by the caller or holding sums to add to;
+// any n_groups >= 1.  Launches on `stream`,
 // does not synchronise, returns cudaGetLastError().
 extern "C" int spja_launch(const void* const* ptrs, const int* ints,
                            long long n, void* out, void* stream) {
@@ -283,13 +300,16 @@ extern "C" int spja_launch(const void* const* ptrs, const int* ints,
       p.n_groups < 1 || n <= 0 || bad)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  const size_t smem = p.n_groups == 1
-                          ? 0
-                          : static_cast<size_t>(p.n_groups) * sizeof(long long);
+  const bool spill = p.n_groups > kMaxSpan;
+  p.span = p.n_groups == 1 ? 0 : spill ? kSpillSpan : p.n_groups;
+  const size_t smem = static_cast<size_t>(p.span) * sizeof(long long);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.n_preds <= kNarrow && p.n_joins <= kNarrow)
-    return launch<kNarrow, kNarrow>(p, smem, s);
-  return launch<kMaxPreds, kMaxJoins>(p, smem, s);
+  const bool narrow = p.n_preds <= kNarrow && p.n_joins <= kNarrow;
+  if (spill)
+    return narrow ? launch<kNarrow, kNarrow, true>(p, smem, s)
+                  : launch<kMaxPreds, kMaxJoins, true>(p, smem, s);
+  return narrow ? launch<kNarrow, kNarrow, false>(p, smem, s)
+                : launch<kMaxPreds, kMaxJoins, false>(p, smem, s);
 }
 
 extern "C" const char* kernel_error_string(int code) {

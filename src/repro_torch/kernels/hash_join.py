@@ -1,5 +1,13 @@
-"""Hash-join probes on the card (paper §4.3), two kernels of
+"""Hash joins on the card (paper §4.3), three kernels of
 ``csrc/hash_join.cu``:
+
+``build`` — the open-addressing linear-probe table of (key, val) rows;
+the port of the Pallas TPU kernel ``repro/kernels/hash_join.py::build``.
+Same contract as ``ref.build``: the table that inserting the rows one by
+one in row order gives, bit for bit (the reference's ``ref.build`` and
+its kernel's; not ``sql.hashtable.np_build``'s, which places rows in
+rounds and lays them out otherwise).  It raises for more rows than slots
+and for a key equal to EMPTY, which no such table can hold.
 
 ``probe_join`` — the rows whose key is found in a linear-probe table, as
 stable compacted (payload, val) pairs (the opat chain's join); the port
@@ -17,7 +25,7 @@ integer-valued data, and within one f32 ulp of them otherwise).
 The wrappers launch the kernels on CUDA tensors or raise; the choice of
 the plain version for a CPU tensor is ``ops``'s alone.  ``LAUNCHES``
 counts ``probe_join``'s launches of this process, ``AGG_LAUNCHES``
-``probe_agg``'s.
+``probe_agg``'s and ``BUILD_LAUNCHES`` ``build``'s.
 """
 from __future__ import annotations
 
@@ -26,10 +34,12 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ref
 
 LAUNCHES = 0
 AGG_LAUNCHES = 0
+BUILD_LAUNCHES = 0
 
 _SIGNATURES = {
     "probe_join_launch": (ctypes.c_int, [
@@ -44,20 +54,23 @@ _SIGNATURES = {
     "probe_agg_shape": (ctypes.c_int, [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
     "probe_agg_tile_rows": (ctypes.c_longlong, []),
+    "build_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
 }
 _VAL_TYPES = (torch.int32, torch.float32)
 
 
 def library() -> ctypes.CDLL:
-    return build.load("hash_join", _SIGNATURES)
+    return kbuild.load("hash_join", _SIGNATURES)
 
 
 def _check_table(ht_keys: torch.Tensor, ht_vals: torch.Tensor,
                  device: torch.device) -> int:
     """The table's slot count, checked: a power of two up to 2^32."""
     s = ht_keys.shape[0]
-    build.check_stream(ht_keys, "ht_keys", s, device)
-    build.check_stream(ht_vals, "ht_vals", s, device)
+    kbuild.check_stream(ht_keys, "ht_keys", s, device)
+    kbuild.check_stream(ht_vals, "ht_vals", s, device)
     if s < 1 or s & (s - 1) or s > 1 << 32:
         raise ValueError(f"slot count {s} is not a power of 2 up to 2^32")
     return s
@@ -72,15 +85,15 @@ def probe_agg(keys: torch.Tensor, vals: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"probe_agg: no kernel for device {keys.device}")
     device, n = keys.device, keys.shape[0]
-    build.check_stream(keys, "keys", n, device)
-    build.check_stream(vals, "vals", n, device, _VAL_TYPES)
+    kbuild.check_stream(keys, "keys", n, device)
+    kbuild.check_stream(vals, "vals", n, device, _VAL_TYPES)
     s = _check_table(ht_keys, ht_vals, device)
     is_float = vals.dtype == torch.float32
     out = torch.zeros((), dtype=vals.dtype, device=device)
     if n == 0:
         return out
     lib = library()
-    blocks = max(1, min(build.resident(lib, "probe_agg_shape", device.index,
+    blocks = max(1, min(kbuild.resident(lib, "probe_agg_shape", device.index,
                                        int(is_float)),
                         -(-n // lib.probe_agg_tile_rows())))
     partials = torch.empty((blocks,), dtype=torch.float64 if is_float
@@ -91,7 +104,7 @@ def probe_agg(keys: torch.Tensor, vals: torch.Tensor,
             keys.data_ptr(), vals.data_ptr(), n, int(is_float),
             ht_keys.data_ptr(), ht_vals.data_ptr(), s - 1, blocks,
             partials.data_ptr(), out.data_ptr(), stream)
-    build.check(lib, rc, "probe_agg")
+    kbuild.check(lib, rc, "probe_agg")
     AGG_LAUNCHES += 1
     return out
 
@@ -106,8 +119,8 @@ def probe_join(keys: torch.Tensor, vals: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"probe_join: no kernel for device {keys.device}")
     device, n = keys.device, keys.shape[0]
-    build.check_stream(keys, "keys", n, device)
-    build.check_stream(vals, "vals", n, device)
+    kbuild.check_stream(keys, "keys", n, device)
+    kbuild.check_stream(vals, "vals", n, device)
     s = _check_table(ht_keys, ht_vals, device)
     if n >= 1 << 31:
         raise ValueError(f"probe_join takes under 2^31 rows, got {n}")
@@ -125,6 +138,31 @@ def probe_join(keys: torch.Tensor, vals: torch.Tensor,
             ht_vals.data_ptr(), s - 1, scratch[0].data_ptr(),
             scratch[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             count.data_ptr(), stream)
-    build.check(lib, rc, "probe_join")
+    kbuild.check(lib, rc, "probe_join")
     LAUNCHES += 1
     return out[0], out[1], count
+
+
+def build(keys: torch.Tensor, vals: torch.Tensor, n_slots: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (htk, htv), each (n_slots,) int32 on the keys' device.  keys,
+    vals: (n,) int32, n <= n_slots, no key EMPTY; n_slots a power of two
+    up to 2^31."""
+    global BUILD_LAUNCHES
+    if keys.device.type != "cuda":
+        raise ValueError(f"build: no kernel for device {keys.device}")
+    device, n = keys.device, keys.shape[0]
+    kbuild.check_stream(keys, "keys", n, device)
+    kbuild.check_stream(vals, "vals", n, device)
+    ref.check_build(keys, vals, n_slots)
+    rows = torch.empty((n_slots,), dtype=torch.int32, device=device)
+    out = torch.empty((2, n_slots), dtype=torch.int32, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.build_launch(keys.data_ptr(), vals.data_ptr(), n,
+                              n_slots - 1, rows.data_ptr(),
+                              out[0].data_ptr(), out[1].data_ptr(), stream)
+    kbuild.check(lib, rc, "build")
+    BUILD_LAUNCHES += 1
+    return out[0], out[1]

@@ -260,19 +260,25 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                q_valid, measure_cols: Sequence[torch.Tensor], measure_sel,
                n_groups: int = 1, pred_widths=None, key_widths=None,
                key_refs=None, m_widths=None, m_refs=None, n_rows=None,
-               member_groups=None) -> torch.Tensor:
+               member_groups=None, acc=None) -> torch.Tensor:
     """Run a wave of Q SPJA queries in one kernel launch -> (Q, n_groups)
     f32 (arguments as ``ref.multi_spja``).  The stacked parameters are
     host integers (numpy or tensors); ``member_groups`` (Q,) only places
-    the sums (see the module note)."""
+    the sums (see the module note).  ``acc``: a (Q, n_groups) int64
+    tensor on the streams' device the sums are added to; it is returned,
+    not rounded (a morsel fold's running sums)."""
     global LAUNCHES
     device, n, q, ptrs, chunks = _lower(
         pred_cols, pred_bounds, join_keys, join_tables, join_mults,
         join_use, q_valid, measure_cols, measure_sel, n_groups, pred_widths,
         key_widths, key_refs, m_widths, m_refs, n_rows, member_groups)
-    out = torch.zeros((q, n_groups), dtype=torch.int64, device=device)
+    if acc is None:
+        out = torch.zeros((q, n_groups), dtype=torch.int64, device=device)
+    else:
+        ref.check_acc(acc, (q, n_groups), device)
+        out = acc
     if n == 0 or q == 0:
-        return out.to(torch.float32)
+        return out if acc is not None else out.to(torch.float32)
     dev_ptrs = torch.from_numpy(
         np.array(ptrs, np.uint64).view(np.int64)).to(device)
     lib = library()
@@ -285,4 +291,4 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                 dev_ptrs.data_ptr(), n, out[lo].data_ptr(), stream)
             build.check(lib, rc, "multi_spja")
             LAUNCHES += 1
-    return out.to(torch.float32)
+    return out if acc is not None else out.to(torch.float32)

@@ -41,12 +41,13 @@ def use_kernel(mode: str, device) -> bool:
 def spja(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
          m1, m2=None, measure_op: str = "first", n_groups: int = 1,
          mode: str = "auto", pred_widths=None, key_widths=None,
-         key_refs=None, m_widths=None, m_refs=None, n_rows=None):
+         key_refs=None, m_widths=None, m_refs=None, n_rows=None, acc=None):
     """Whole SPJA query over int32 fact streams, plain or bit-packed ->
-    (n_groups,) f32 on the streams' device.  Arguments as
-    ``ssb_fused.spja``; an m2 given with ``measure_op="first"`` is
-    ignored (never loaded).  ``n_rows`` is required when the measure
-    stream is packed (its length is then the word count)."""
+    (n_groups,) f32 on the streams' device, or ``acc`` (an int64 grid)
+    with the exact sums added.  Arguments as ``ssb_fused.spja``; an m2
+    given with ``measure_op="first"`` is ignored (never loaded).
+    ``n_rows`` is required when the measure stream is packed (its length
+    is then the word count)."""
     if measure_op not in ("mul", "sub"):
         m2 = None
     fn = _fused.spja if use_kernel(mode, m1.device) else _ref.spja
@@ -54,37 +55,46 @@ def spja(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
               m1, m2, measure_op=measure_op, n_groups=n_groups,
               pred_widths=pred_widths, key_widths=key_widths,
               key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
-              n_rows=n_rows)
+              n_rows=n_rows, acc=acc)
 
 
 def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
                join_use, q_valid, measure_cols, measure_sel,
                n_groups: int = 1, mode: str = "auto", pred_widths=None,
                key_widths=None, key_refs=None, m_widths=None, m_refs=None,
-               n_rows=None, member_groups=None):
+               n_rows=None, member_groups=None, acc=None):
     """A whole wave of SPJA queries in one fact pass -> (Q, n_groups) f32
-    on the streams' device (arguments as ``ref.multi_spja``).  ``n_rows``
-    is required when the first measure stream is packed (its length is
-    then the word count).  ``member_groups`` (each member's reachable
-    groups) only tells the kernel where to take each sum."""
+    on the streams' device, or ``acc`` (an int64 grid) with the exact sums
+    added (arguments as ``ref.multi_spja``).  ``n_rows`` is required when
+    the first measure stream is packed (its length is then the word
+    count).  ``member_groups`` (each member's reachable groups) only tells
+    the kernel where to take each sum."""
     if use_kernel(mode, measure_cols[0].device):
         return _multi.multi_spja(
             pred_cols, pred_bounds, join_keys, join_tables, join_mults,
             join_use, q_valid, measure_cols, measure_sel, n_groups=n_groups,
             pred_widths=pred_widths, key_widths=key_widths,
             key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
-            n_rows=n_rows, member_groups=member_groups)
+            n_rows=n_rows, member_groups=member_groups, acc=acc)
     return _ref.multi_spja(
         pred_cols, pred_bounds, join_keys, join_tables, join_mults, join_use,
         q_valid, measure_cols, measure_sel, n_groups=n_groups,
         pred_widths=pred_widths, key_widths=key_widths, key_refs=key_refs,
-        m_widths=m_widths, m_refs=m_refs, n_rows=n_rows)
+        m_widths=m_widths, m_refs=m_refs, n_rows=n_rows, acc=acc)
 
 
 def select_scan(x, y, lo, hi, mode: str = "auto"):
     """SELECT y WHERE lo <= x <= hi -> (out (n,), count): stable, zeros
     past the count.  x: int32 or f32; y: 4-byte."""
     fn = _sel.select_scan if use_kernel(mode, x.device) else _ref.select_scan
+    return fn(x, y, lo, hi)
+
+
+def select_scan_sparse(x, y, lo, hi, mode: str = "auto"):
+    """``select_scan``'s result, reading y only in the tiles that hold a
+    match (the paper's selective load, §5.3) -> (out (n,), count)."""
+    fn = _sel.select_scan_sparse if use_kernel(mode, x.device) else \
+        _ref.select_scan_sparse
     return fn(x, y, lo, hi)
 
 
@@ -108,6 +118,14 @@ def unpack(words, n: int, phys: int, ref=0, mode: str = "auto"):
         return words[:n] + int(ref)
     fn = _unp.unpack if use_kernel(mode, words.device) else _ref.unpack
     return fn(words, n, phys, ref)
+
+
+def build_hash_table(keys, vals, n_slots: int, mode: str = "auto"):
+    """The open-addressing linear-probe table of (key, val) rows ->
+    (htk, htv), each (n_slots,) int32: the table sequential insertion in
+    row order gives (the build half of the join microbenchmark)."""
+    fn = _hj.build if use_kernel(mode, keys.device) else _ref.build
+    return fn(keys, vals, n_slots)
 
 
 def probe_join(keys, vals, ht_keys, ht_vals, mode: str = "auto"):
@@ -137,11 +155,16 @@ def project(x1, x2, a, b, sigmoid: bool = False, mode: str = "auto"):
     return fn(x1, x2, a, b, sigmoid=sigmoid)
 
 
-def group_sum(group_ids, vals, n_groups: int, mode: str = "auto"):
-    """SUM(vals) GROUP BY dense int32 ids -> (n_groups,) in vals' dtype."""
+def group_sum(group_ids, vals, n_groups: int, mode: str = "auto",
+              acc=None):
+    """SUM(vals) GROUP BY dense int32 ids -> (n_groups,) in vals' dtype,
+    or ``acc`` (``ref.group_acc_dtype``'s running grid) with the sums
+    added unrounded."""
     fn = _agg.group_sum if use_kernel(mode, vals.device) else \
         _ref.group_sum
-    return fn(group_ids, vals, n_groups)
+    if acc is None:
+        return fn(group_ids, vals, n_groups)
+    return fn(group_ids, vals, n_groups, acc=acc)
 
 
 def radix_histogram(keys, start_bit: int, r: int, mode: str = "auto"):

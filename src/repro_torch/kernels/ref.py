@@ -19,6 +19,10 @@ from repro_torch.kernels.common import DEFAULT_TILE, PHYS_WIDTHS, \
     decode_words
 
 MEASURE_OPS = ("first", "mul", "sub")
+# select_scan_sparse's skip unit: 32 rows, one 128-byte line of int32
+# (kUnit in csrc/select_scan.cu; one warp's ballot)
+SKIP_ROWS = 32
+_INT32_MAX = (1 << 31) - 1
 
 
 def _host_ints(x) -> np.ndarray:
@@ -81,6 +85,33 @@ def stream_widths(widths, k: int) -> Tuple[int, ...]:
     return w
 
 
+def check_acc(acc: torch.Tensor, shape: Tuple[int, ...],
+              device: torch.device, dtype=torch.int64) -> None:
+    """Raise unless ``acc`` is a contiguous grid of ``shape`` and
+    ``dtype`` on ``device``: the running sums a morsel fold hands each
+    pass."""
+    if (acc.dtype != dtype or tuple(acc.shape) != tuple(shape)
+            or acc.device != device or not acc.is_contiguous()):
+        raise ValueError(f"acc must be a contiguous {dtype} "
+                         f"{tuple(shape)} tensor on {device}, got "
+                         f"{acc.dtype} {tuple(acc.shape)} on {acc.device}")
+
+
+def group_acc_dtype(vals: torch.Tensor) -> torch.dtype:
+    """The running grid ``group_sum(..., acc=)`` takes for these values:
+    f64 for f32 (their unrounded sums), int32 for int32 (wrapping)."""
+    return torch.float64 if vals.is_floating_point() else torch.int32
+
+
+def accumulate(sums: torch.Tensor, acc) -> torch.Tensor:
+    """Exact int64 ``sums`` rounded to f32, or added to ``acc`` (which is
+    returned, unrounded)."""
+    if acc is None:
+        return sums.to(torch.float32)
+    check_acc(acc, tuple(sums.shape), sums.device)
+    return acc.add_(sums)
+
+
 def decode_stream(arr: torch.Tensor, width: int, ref: int,
                   n: int) -> torch.Tensor:
     """A stream as its n int32 values: a plain column as it is, a packed
@@ -96,7 +127,7 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
          m1: torch.Tensor, m2=None, measure_op: str = "first",
          n_groups: int = 1, pred_widths=None, key_widths=None,
          key_refs=None, m_widths=None, m_refs=None,
-         n_rows=None) -> torch.Tensor:
+         n_rows=None, acc=None) -> torch.Tensor:
     """Fused select-project-join-aggregate -> (n_groups,) f32.
 
     Range predicates, then one linear-probe lookup per join (a miss
@@ -110,7 +141,10 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     word stream of ``repro_torch.sql.storage``, of ``n_rows`` values.
     Packed predicate columns compare their raw lanes (the bounds are in
     the encoded domain); packed keys and measures add their reference
-    (``key_refs``, ``m_refs``; ignored on plain streams)."""
+    (``key_refs``, ``m_refs``; ignored on plain streams).
+
+    ``acc``: an (n_groups,) int64 grid the exact sums are added to; it is
+    returned unrounded (a morsel fold's running sums)."""
     n_meas = 2 if measure_op in ("mul", "sub") else 1
     pred_widths = stream_widths(pred_widths, len(pred_cols))
     key_widths = stream_widths(key_widths, len(join_keys))
@@ -142,7 +176,7 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     sums = B.block_group_aggregate(
         group, measure(ms[0], ms[1] if n_meas == 2 else None, measure_op),
         live, n_groups)
-    return sums.to(torch.float32)
+    return accumulate(sums, acc)
 
 
 def wave_params(pred_bounds, join_mults, join_use, q_valid, measure_sel,
@@ -178,7 +212,7 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                q_valid, measure_cols: Sequence[torch.Tensor], measure_sel,
                n_groups: int = 1, pred_widths=None, key_widths=None,
                key_refs=None, m_widths=None, m_refs=None,
-               n_rows=None) -> torch.Tensor:
+               n_rows=None, acc=None) -> torch.Tensor:
     """A wave of Q SPJA queries in one pass -> (Q, n_groups) f32.
 
     The streams are the union of the members' columns: each join's table
@@ -192,7 +226,9 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     (op 1) or m1 − m2 (op 2).  Sums are exact in int64, rounded to f32
     once, as ``spja``'s; an id outside [0, n_groups) is dropped.  Streams
     may be bit-packed as in ``spja`` (``*_widths``, ``key_refs``,
-    ``m_refs``; ``n_rows`` required when the first measure is packed)."""
+    ``m_refs``; ``n_rows`` required when the first measure is packed).
+    ``acc``: a (Q, n_groups) int64 grid the sums are added to and which
+    is returned, as ``spja``'s."""
     n_preds, n_joins, n_meas = len(pred_cols), len(join_keys), \
         len(measure_cols)
     bounds, mults, use, valid, sel = wave_params(
@@ -237,8 +273,67 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
         m = measure(meas[sel[q, 0]], meas[sel[q, 1]], op)
         rows.append(B.block_group_aggregate(group, m, live, n_groups))
     if not rows:
-        return torch.zeros((0, n_groups), dtype=torch.float32, device=device)
-    return torch.stack(rows).to(torch.float32)
+        return accumulate(torch.zeros((0, n_groups), dtype=torch.int64,
+                                      device=device), acc)
+    return accumulate(torch.stack(rows), acc)
+
+
+def check_build(keys: torch.Tensor, vals: torch.Tensor,
+                n_slots: int) -> None:
+    """Raise unless (keys, vals) can be built into an ``n_slots`` table:
+    (n,) int32 each, n_slots a power of two up to 2^31 holding every row,
+    and no key equal to EMPTY (the reference's lookups stop at EMPTY and
+    its sequential insert overwrites such a key, so no table holds it)."""
+    n = keys.shape[0]
+    for what, t in (("keys", keys), ("vals", vals)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{what} must be a 1-D int32 tensor of "
+                             f"{n} rows, got {t.dtype} {tuple(t.shape)}")
+    if n_slots < 1 or n_slots & (n_slots - 1) or n_slots > 1 << 31:
+        raise ValueError(f"n_slots {n_slots} is not a power of 2 up to 2^31")
+    if n > n_slots:
+        raise ValueError(f"{n} keys do not fit a table of {n_slots} slots")
+    if n and bool((keys == B.EMPTY).any()):
+        raise ValueError(f"a key equals EMPTY ({B.EMPTY}), which no "
+                         "open-addressing table can hold")
+
+
+def build(keys: torch.Tensor, vals: torch.Tensor, n_slots: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Open-addressing linear-probe build -> (htk, htv), each (n_slots,)
+    int32, EMPTY keys and 0 payloads in free slots: the table that
+    inserting the rows one by one in row order gives (each at the first
+    EMPTY slot from ``hash_fn(key)``), so a duplicate key's first row is
+    found first.
+
+    Vectorised in rounds, the CUDA kernel's rule run in lock step: every
+    pending row and every placed row that a pending row contests is a
+    candidate at its slot; the lowest row takes the slot and every other
+    candidate moves on one slot.  A row then sits past its home only over
+    lower rows, which is the sequential layout.  The rounds are the
+    longest chain of displacements."""
+    check_build(keys, vals, n_slots)
+    device = keys.device
+    row = torch.full((n_slots,), _INT32_MAX, dtype=torch.int64,
+                     device=device)
+    pend = torch.arange(keys.shape[0], dtype=torch.int64, device=device)
+    slot = B.hash_fn(keys, n_slots)
+    while pend.numel():
+        at = torch.unique(slot)
+        held = row[at]
+        placed = held != _INT32_MAX
+        cand = torch.cat([pend, held[placed]])
+        where = torch.cat([slot, at[placed]])
+        best = row.new_full((n_slots,), _INT32_MAX).scatter_reduce_(
+            0, where, cand, "amin")
+        row[at] = best[at]
+        lose = cand != best[where]
+        pend, slot = cand[lose], (where[lose] + 1) & (n_slots - 1)
+    free = row == _INT32_MAX
+    src = torch.where(free, 0, row)
+    htk = torch.where(free, B.EMPTY, keys[src] if keys.numel() else 0)
+    htv = torch.where(free, 0, vals[src] if vals.numel() else 0)
+    return htk.to(torch.int32), htv.to(torch.int32)
 
 
 def probe_agg(keys: torch.Tensor, vals: torch.Tensor, ht_keys: torch.Tensor,
@@ -284,6 +379,28 @@ def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
     return select_scan(decode_words(words, phys)[:y.shape[0]], y, lo, hi)
 
 
+def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi,
+                       unit: int = SKIP_ROWS
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``select_scan`` in two phases (the paper's selective load, §5.3):
+    phase 1 reads x alone and marks the ``unit``-row tiles that hold a
+    match; phase 2 compacts only the marked tiles, reading y only there.
+    The result is ``select_scan``'s, bit for bit, whatever the unit."""
+    n = x.shape[0]
+    hit = B.block_pred_range(x, lo, hi) > 0
+    pad = (-n) % unit
+    tiles = torch.nn.functional.pad(hit, (0, pad)).view(-1, unit)
+    marked = tiles.any(1).nonzero().squeeze(1)
+    rows = (marked[:, None] * unit + torch.arange(
+        unit, device=x.device)).reshape(-1)
+    rows = rows[rows < n]
+    rows = rows[hit[rows]]
+    out = torch.zeros_like(y)
+    out[:rows.shape[0]] = y[rows]
+    return out, torch.tensor(rows.shape[0], dtype=torch.int64,
+                             device=x.device)
+
+
 def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SELECT y WHERE lo <= x <= hi -> (out (n,), count): the selected
@@ -317,17 +434,24 @@ def project(x1: torch.Tensor, x2: torch.Tensor, a, b,
 
 
 def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
-              n_groups: int) -> torch.Tensor:
+              n_groups: int, acc=None) -> torch.Tensor:
     """SUM(vals) GROUP BY group_ids -> (n_groups,) in vals' dtype (f32 or
     int32).  int32 sums wrap as the reference's int32 accumulator does
     (summed in int64, cut to int32); f32 sums are taken in f64 and
     rounded to f32 once, so integer-valued f32 sums are exact.  An id
-    outside [0, n_groups) is dropped."""
-    acc = torch.float64 if vals.is_floating_point() else torch.int64
+    outside [0, n_groups) is dropped.  ``acc``: a running grid of
+    ``group_acc_dtype`` the sums are added to unrounded (f64) or wrapping
+    (int32); it is returned."""
+    wide = torch.float64 if vals.is_floating_point() else torch.int64
     live = torch.ones(group_ids.shape, dtype=torch.int32,
                       device=group_ids.device)
-    return B.block_group_aggregate(group_ids, vals.to(acc), live,
-                                   n_groups).to(vals.dtype)
+    sums = B.block_group_aggregate(group_ids, vals.to(wide), live, n_groups)
+    if acc is None:
+        return sums.to(vals.dtype)
+    check_acc(acc, (n_groups,), vals.device, group_acc_dtype(vals))
+    if vals.is_floating_point():
+        return acc.add_(sums)
+    return acc.copy_((acc.to(torch.int64) + sums).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,11 @@ and its result is bit-identical to ``ref.spja`` and to the numpy oracle.
 The wrapper launches the kernel on CUDA tensors or raises; the choice of
 the plain version for a CPU tensor is ``ops.spja``'s alone.
 ``LAUNCHES`` counts the kernel launches of this process.
+
+Any group count runs: a grid past the shared memory a block has sums its
+later groups in device memory (see the source's note).  ``acc=`` hands
+the kernel an int64 grid to add into, the running sums of a morsel fold,
+which is rounded to f32 once at its end.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
          m1: torch.Tensor, m2=None, measure_op: str = "first",
          n_groups: int = 1, pred_widths=None, key_widths=None,
          key_refs=None, m_widths=None, m_refs=None,
-         n_rows=None) -> torch.Tensor:
+         n_rows=None, acc=None) -> torch.Tensor:
     """Run one SPJA query in one kernel launch -> (n_groups,) f32.
 
     ``pred_cols``/``join_keys``/``m1``/``m2``: int32 fact streams on one
@@ -70,7 +75,9 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     ``pred_bounds`` (P, 2, in each column's encoded domain),
     ``group_mults`` (J,), ``key_refs`` (J,) and ``m_refs``: host
     integers, taken by value.  ``n_rows`` is n (default: m1's length,
-    which a packed m1 does not give)."""
+    which a packed m1 does not give).  ``acc``: an (n_groups,) int64
+    tensor on the streams' device; the sums are added to it and it is
+    returned, not rounded."""
     global LAUNCHES
     if m1.device.type != "cuda":
         raise ValueError(f"spja: no kernel for device {m1.device}")
@@ -95,9 +102,8 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                          f"and {MAX_JOINS} joins, got {n_preds}, {n_joins}")
     if len(join_tables) != 2 * n_joins:
         raise ValueError(f"{len(join_tables)} join tables for {n_joins} joins")
-    if n_groups < 1 or n_groups * 8 > build.SMEM_LIMIT:
-        raise ValueError(f"n_groups={n_groups}: the per-block int64 grid "
-                         f"must fit {build.SMEM_LIMIT} bytes of shared memory")
+    if n_groups < 1 or n_groups >= 1 << 31:
+        raise ValueError(f"n_groups={n_groups}: at least one, under 2^31")
     two = measure_op != "first"
     if two and m2 is None:
         raise ValueError(f"measure_op {measure_op!r} needs m2")
@@ -124,9 +130,13 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                              "up to 2^32")
         masks.append(s - 1)
 
-    out = torch.zeros((n_groups,), dtype=torch.int64, device=device)
+    if acc is None:
+        out = torch.zeros((n_groups,), dtype=torch.int64, device=device)
+    else:
+        ref.check_acc(acc, (n_groups,), device)
+        out = acc
     if n == 0:
-        return out.to(torch.float32)
+        return out if acc is not None else out.to(torch.float32)
 
     def pad(xs, k, fill=0):
         return list(xs) + [fill] * (k - len(xs))
@@ -154,4 +164,4 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                              n, out.data_ptr(), stream)
     build.check(lib, rc, "spja")
     LAUNCHES += 1
-    return out.to(torch.float32)
+    return out if acc is not None else out.to(torch.float32)

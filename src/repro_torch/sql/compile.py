@@ -40,9 +40,18 @@ The port of ``repro.sql.compile``.  Five strategies lower so far:
             (``execute_shared``); ``compile_plan(plan, "shared")`` is a
             one-member wave.
 
-``execute`` runs the whole table in one pass — the reference's path when
-the fact table is one morsel.  ``sharded`` and ``auto`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Every strategy folds over the morsel stream (``repro_torch.sql.morsel``;
+``execute(..., morsel_bytes=)`` bounds a buffer): a fact table on the
+host is cut into morsels whose uploads overlap the previous morsel's
+kernels, and the per-morsel partials merge exactly — the fused and wave
+kernels add into one int64 grid passed through every morsel, opat's
+``group_sum`` into one f64 grid, and each is rounded to f32 once at the
+end; a row plan concatenates its survivors as global row ids and sorts
+them once.  So any cut is bit-identical to the whole-table pass.  A
+table of one morsel — every test database under the default budget, and
+a fact table made resident with ``Database.to`` — runs whole.
+``sharded`` and ``auto`` raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -55,8 +64,10 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssb_fused
+from repro_torch.sql import faults
 from repro_torch.sql import hashtable as HT
 from repro_torch.sql import model as M
+from repro_torch.sql import morsel as MS
 from repro_torch.sql import plan as P
 from repro_torch.sql import ssb
 from repro_torch.sql import storage as ST
@@ -204,21 +215,28 @@ def _join_tables(db, join: P.HashJoin, cache: Optional[HT.HashTableCache],
 
 
 def fused_inputs(plan: P.Plan, db: ssb.Database,
-                 cache: Optional[HT.HashTableCache], device: torch.device
+                 cache: Optional[HT.HashTableCache], device: torch.device,
+                 fact=None, prebuilt: Optional[List[torch.Tensor]] = None
                  ) -> Tuple[tuple, dict]:
-    """The ``spja`` call one fused pass over the plan's fact table makes:
-    (positional args, keyword args), with the resident fact columns and
-    the hash tables on ``device``.  ``chip_smoke.py`` times the kernel on
+    """The ``spja`` call one fused pass over ``fact`` (the plan's fact
+    table by default; the morsel fold passes each cut) makes: (positional
+    args, keyword args), with the fact columns and the hash tables on
+    ``device``.  ``prebuilt``: the flat ``[htk, htv, ...]`` tables when
+    the caller fetched them once.  ``chip_smoke.py`` times the kernel on
     exactly these."""
-    fact = getattr(db, plan.scan.table)
+    if fact is None:
+        fact = getattr(db, plan.scan.table)
     bounds = plan.preds           # fusability guarantees the range view
     pred_streams = [ST.column_stream(fact, c, device) for c, _, _ in bounds]
     joins = plan.joins
     key_streams = [ST.column_stream(fact, j.fact_col, device)
                    for j in joins]
     join_tables: List[torch.Tensor] = []
-    for j in joins:
-        join_tables.extend(_join_tables(db, j, cache, device))
+    if prebuilt is not None:
+        join_tables = list(prebuilt)
+    else:
+        for j in joins:
+            join_tables.extend(_join_tables(db, j, cache, device))
     mults = np.array([j.mult for j in joins], np.int32)
     proj = plan.project
     m1, m2, m_widths, m_refs = _measure_streams(fact, proj, device)
@@ -232,12 +250,56 @@ def fused_inputs(plan: P.Plan, db: ssb.Database,
 
 
 def _execute_fused(plan: P.Plan, db: ssb.Database, mode: str,
-                   cache: Optional[HT.HashTableCache],
-                   device: torch.device) -> np.ndarray:
-    """One fused SPJA pass over the plan's fact table -> (n_groups,) f32
-    on the host."""
-    args, kw = fused_inputs(plan, db, cache, device)
-    return ops.spja(*args, mode=mode, **kw).cpu().numpy()
+                   cache: Optional[HT.HashTableCache], device: torch.device,
+                   fact, prebuilt: List[torch.Tensor],
+                   acc: torch.Tensor) -> torch.Tensor:
+    """One fused SPJA pass over ``fact`` (a morsel), its exact sums
+    added to the int64 grid ``acc``."""
+    args, kw = fused_inputs(plan, db, cache, device, fact=fact,
+                            prebuilt=prebuilt)
+    faults.maybe_fault("kernel")
+    return ops.spja(*args, mode=mode, acc=acc, **kw)
+
+
+def _fused_scan_cols(plan: P.Plan) -> List[str]:
+    """The fact columns one fused pass streams (deduplicated in load
+    order) — the morsel budget is sized over exactly these."""
+    cols: List[str] = []
+    for c, _, _ in plan.preds:
+        if c not in cols:
+            cols.append(c)
+    for j in plan.joins:
+        if j.fact_col not in cols:
+            cols.append(j.fact_col)
+    proj = plan.project
+    for c in ([proj.m1] if proj.op not in ("mul", "sub")
+              else [proj.m1, proj.m2]):
+        if c not in cols:
+            cols.append(c)
+    return cols
+
+
+def _fused_morsels(plan: P.Plan, db: ssb.Database, mode: str,
+                   cache: Optional[HT.HashTableCache], morsel_bytes: int,
+                   device: torch.device
+                   ) -> Tuple[np.ndarray, MS.MorselReport]:
+    """The fused lowering as a fold over the morsel stream: the dim
+    tables are fetched once, each morsel runs the fused kernel adding
+    into one int64 grid, which is rounded to f32 once at the end — so
+    any cut is bit-identical to the whole-table pass."""
+    fact = getattr(db, plan.scan.table)
+    stream = MS.MorselStream(fact, morsel_bytes, cols=_fused_scan_cols(plan),
+                             device=device)
+    report = MS.MorselReport()
+    prebuilt: List[torch.Tensor] = []
+    for j in plan.joins:
+        prebuilt.extend(_join_tables(db, j, cache, device))
+    acc = torch.zeros((plan.n_groups,), dtype=torch.int64, device=device)
+    if stream.n_morsels == 0:       # empty fact table: zero groups
+        report.observe(0)
+    stream.fold(lambda m: _execute_fused(plan, db, mode, cache, device,
+                                         m.table, prebuilt, acc), report)
+    return acc.to(torch.float32).cpu().numpy(), report
 
 
 # ---------------------------------------------------------------------------
@@ -441,27 +503,70 @@ def _shared_prebuilt(plans: List[P.Plan], db,
     return tables
 
 
+def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
+                           mode: str = "auto",
+                           cache: Optional[HT.HashTableCache] = None,
+                           pad_to: Optional[int] = None,
+                           prebuilt: Optional[Dict[Tuple, Tuple]] = None,
+                           morsel_bytes: int = MS.DEFAULT_MORSEL_BYTES,
+                           anchor: Optional[List[P.Plan]] = None,
+                           device=None
+                           ) -> Tuple[List[np.ndarray], MS.MorselReport]:
+    """A shared wave as a fold over the morsel stream on ``device`` (the
+    card unless named): one ``multi_spja`` launch a morsel, each adding
+    into one (Q, n_groups) int64 grid rounded to f32 once at the end, the
+    tables built (or fetched from ``cache``) once per distinct build side.
+    Returns ``(results, report)``, each member's ``(n_groups,)`` f32
+    result in submission order.  ``pad_to`` and ``anchor`` as
+    :func:`shared_params`."""
+    validate_wave(plans)
+    device = resolve(device)
+    anchor = anchor_for(plans, anchor)
+    foot = list(plans) + list(anchor or [])
+    col_ix, join_nodes, mcol_ix = shared_footprint(foot)
+    tables = _shared_prebuilt(foot, db, cache, prebuilt, device)
+    # each fact column once, however many build sides probe it
+    cols = [*col_ix, *(j.fact_col for j in join_nodes), *mcol_ix]
+    stream = MS.MorselStream(getattr(db, plans[0].scan.table), morsel_bytes,
+                             cols=cols, device=device)
+    report = MS.MorselReport()
+    acc = torch.zeros((max(len(plans), pad_to or len(plans)),
+                       max(plan.n_groups for plan in foot)),
+                      dtype=torch.int64, device=device)
+    if stream.n_morsels == 0:           # empty fact: all-zero grids
+        report.observe(0)
+
+    def run(m):
+        _, args, kwargs, n_groups = shared_params(
+            plans, db, pad_to=pad_to, prebuilt=tables, fact=m.table,
+            anchor=anchor, device=device)
+        faults.maybe_fault("kernel")
+        return ops.multi_spja(*args, n_groups=n_groups, mode=mode, acc=acc,
+                              **kwargs)
+
+    stream.fold(run, report)
+    out = acc.to(torch.float32).cpu().numpy()
+    return [out[qi, :plan.n_groups].copy()
+            for qi, plan in enumerate(plans)], report
+
+
 def execute_shared(plans: List[P.Plan], db: ssb.Database,
                    mode: str = "auto",
                    cache: Optional[HT.HashTableCache] = None,
                    pad_to: Optional[int] = None,
                    prebuilt: Optional[Dict[Tuple, Tuple]] = None,
                    device=None) -> List[np.ndarray]:
-    """Execute a scan-compatible group of aggregate plans as ONE
-    ``multi_spja`` launch over their whole resident fact table (the
-    reference's path when the table is one morsel) on ``device`` (the
-    card unless named) -> each member's ``(n_groups,)`` f32 result, in
-    submission order.  ``pad_to`` pads the member dimension with inert
-    slots; the tables are built (or fetched from ``cache``) once per
-    distinct build side."""
-    validate_wave(plans)
-    device = resolve(device)
-    tables = _shared_prebuilt(plans, db, cache, prebuilt, device)
-    _, args, kwargs, n_groups = shared_params(
-        plans, db, pad_to=pad_to, prebuilt=tables, device=device)
-    out = ops.multi_spja(*args, n_groups=n_groups, mode=mode,
-                         **kwargs).cpu().numpy()
-    return [out[qi, :plan.n_groups].copy() for qi, plan in enumerate(plans)]
+    """Execute a scan-compatible group of aggregate plans as one shared
+    pass per morsel over their fact table on ``device`` (the card unless
+    named) -> each member's ``(n_groups,)`` f32 result, in submission
+    order.  A resident fact table, or one of a single morsel, is ONE
+    ``multi_spja`` launch.  ``pad_to`` pads the member dimension with
+    inert slots; the tables are built (or fetched from ``cache``) once
+    per distinct build side."""
+    results, _ = execute_shared_morsels(plans, db, mode=mode, cache=cache,
+                                        pad_to=pad_to, prebuilt=prebuilt,
+                                        device=device)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +587,7 @@ def _probe_whole(node: P.HashJoin, fact, db: ssb.Database,
     it."""
     htk, htv = _join_tables(db, node, cache, device)
     keys = ST.take(fact, node.fact_col, rowids, device)
+    faults.maybe_fault("kernel")
     payload, sel, cnt = ops.probe_join(
         keys, _positions(rowids.shape[0], device), htk, htv, mode=mode)
     cnt = int(cnt)
@@ -574,17 +680,23 @@ _JOIN_LOWERINGS = {
 
 def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                    cache: Optional[HT.HashTableCache],
-                   device: torch.device, join_mode: str = "opat"
-                   ) -> np.ndarray:
-    """Walk the chain one operator at a time over the whole fact table ->
-    (n_groups,) f32 for an aggregate plan, the surviving row ids (int32)
-    for a row plan: in row order, or in the key's order after a trailing
-    ``OrderBy``.  ``join_mode`` picks the HashJoin lowering: one probe of
-    the whole table (``opat``), the partitioned one-launch probe
-    (``part``) or the host partition loop (``part_loop``); every other
-    operator is the same."""
+                   device: torch.device, join_mode: str = "opat",
+                   fact=None, defer_order: bool = False,
+                   acc: Optional[torch.Tensor] = None):
+    """Walk the chain one operator at a time over ``fact`` (the plan's
+    fact table by default, a morsel in the fold) -> (n_groups,) f32 for
+    an aggregate plan, the surviving row ids (int32) for a row plan: in
+    row order, or in the key's order after a trailing ``OrderBy``.
+    ``join_mode`` picks the HashJoin lowering: one probe of the whole
+    table (``opat``), the partitioned one-launch probe (``part``) or the
+    host partition loop (``part_loop``); every other operator is the
+    same.  The morsel fold's hooks: ``acc`` (an f64 grid) takes an
+    aggregate's unrounded sums and is returned; ``defer_order`` skips a
+    trailing ``OrderBy`` (the fold sorts the survivors of every morsel
+    once)."""
     join_fn = _JOIN_LOWERINGS[join_mode]
-    fact = getattr(db, plan.scan.table)
+    if fact is None:
+        fact = getattr(db, plan.scan.table)
     n = fact.n_rows
     # live intermediate state, re-materialized by every operator:
     rowids = _positions(n, device)
@@ -641,12 +753,15 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                 m = m if empty else ops.project(m, m2, 1.0, -1.0, mode=mode)
             measure = m
         elif isinstance(node, P.GroupAgg):
+            if acc is not None:
+                return acc if empty else ops.group_sum(
+                    group, measure, node.n_groups, mode=mode, acc=acc)
             if empty:
                 return np.zeros(node.n_groups, np.float32)
             return ops.group_sum(group, measure, node.n_groups,
                                  mode=mode).cpu().numpy()
         elif isinstance(node, P.OrderBy):
-            if empty:
+            if empty or defer_order:
                 break
             keys = ST.take(fact, node.key_col, rowids, device)
             _, rowids = ops.radix_sort(keys, rowids, mode=mode, r=SORT_BITS)
@@ -654,6 +769,84 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
             raise TypeError(f"{plan.name}: cannot lower node {node!r}")
     # only row plans (classify()-checked at compile time) fall through
     return rowids.cpu().numpy()
+
+
+def _chain_scan_cols(plan: P.Plan) -> Optional[List[str]]:
+    """The fact columns a chain lowering touches, or None when a generic
+    predicate hides its column set (then the morsel budget is sized over
+    the whole row — conservative, never under-counts)."""
+    cols: List[str] = []
+
+    def add(c):
+        if c is not None and c not in cols:
+            cols.append(c)
+
+    for node in plan.chain[1:]:
+        if isinstance(node, P.Filter):
+            for pred in node.preds:
+                col = getattr(pred, "col", None)
+                if col is None:
+                    return None
+                add(col)
+        elif isinstance(node, P.HashJoin):
+            add(node.fact_col)
+        elif isinstance(node, P.Project):
+            add(node.m1)
+            add(node.m2)
+        elif isinstance(node, P.OrderBy):
+            add(node.key_col)
+    return cols
+
+
+def _chain_morsels(plan: P.Plan, db: ssb.Database, mode: str,
+                   cache: Optional[HT.HashTableCache], join_mode: str,
+                   morsel_bytes: int, device: torch.device
+                   ) -> Tuple[np.ndarray, MS.MorselReport]:
+    """The materializing lowerings (opat/part/part_loop) as a fold over
+    the morsel stream.  An aggregate plan adds each morsel's group sums,
+    unrounded, into one f64 grid rounded to f32 once; a row plan
+    concatenates each morsel's survivors as global row ids, and a
+    trailing ``OrderBy`` becomes ONE stable sort of them all (the chain
+    keeps row order, so this is the whole-table sort).  A one-morsel
+    stream takes the whole-table chain."""
+    fact = getattr(db, plan.scan.table)
+    stream = MS.MorselStream(fact, morsel_bytes,
+                             cols=_chain_scan_cols(plan), device=device)
+    report = MS.MorselReport()
+    if stream.n_morsels <= 1:
+        if stream.n_morsels == 0:
+            report.observe(0)
+            return _execute_chain(plan, db, mode, cache, device, join_mode,
+                                  fact=fact), report
+        return stream.fold(
+            lambda m: _execute_chain(plan, db, mode, cache, device,
+                                     join_mode, fact=m.table),
+            report)[0], report
+    if classify(plan) == "agg":
+        acc = torch.zeros((plan.n_groups,), dtype=torch.float64,
+                          device=device)
+        stream.fold(lambda m: _execute_chain(plan, db, mode, cache, device,
+                                             join_mode, fact=m.table,
+                                             acc=acc), report)
+        return acc.to(torch.float32).cpu().numpy(), report
+    order_node = next((nd for nd in plan.chain
+                       if isinstance(nd, P.OrderBy)), None)
+
+    def run(m):
+        rows = torch.from_numpy(_execute_chain(
+            plan, db, mode, cache, device, join_mode, fact=m.table,
+            defer_order=True)).to(device)
+        keys = (ST.take(m.table, order_node.key_col, rows, device)
+                if order_node is not None and rows.numel() else None)
+        return rows + m.offset, keys
+
+    pieces = stream.fold(run, report)
+    rowids = torch.cat([p[0] for p in pieces])
+    if order_node is None or rowids.numel() == 0:
+        return rowids.cpu().numpy(), report
+    keys = torch.cat([p[1] for p in pieces if p[1] is not None])
+    _, rowids = ops.radix_sort(keys, rowids, mode=mode, r=SORT_BITS)
+    return rowids.cpu().numpy(), report
 
 
 # ---------------------------------------------------------------------------
@@ -677,22 +870,35 @@ class CompiledQuery:
     requested: str
     fallback_reason: Optional[str] = None
     decided: Optional[str] = None
+    # the last execute's stream: its morsels and the double-buffer peak
+    # (the encoded bytes of two adjacent morsels' scanned columns)
+    n_morsels: Optional[int] = None
+    peak_resident_bytes: Optional[int] = None
 
     def execute(self, db: ssb.Database, mode: str = "auto",
                 cache: Optional[HT.HashTableCache] = None,
-                device=None) -> np.ndarray:
+                device=None,
+                morsel_bytes: int = MS.DEFAULT_MORSEL_BYTES) -> np.ndarray:
         """Run the plan on ``device`` (the current card when None; the
-        CPU only when named) -> (n_groups,) f32 numpy array, or the
+        CPU only when named), a morsel of at most ``morsel_bytes`` of
+        scanned columns at a time -> (n_groups,) f32 numpy array, or the
         surviving row ids of a row plan."""
         device = resolve(device)
         self.decided = self.strategy
         if self.strategy == "fused":
-            return _execute_fused(self.plan, db, mode, cache, device)
-        if self.strategy == "shared":       # a one-member wave
-            return execute_shared([self.plan], db, mode=mode, cache=cache,
-                                  device=device)[0]
-        return _execute_chain(self.plan, db, mode, cache, device,
-                              join_mode=self.strategy)
+            out, report = _fused_morsels(self.plan, db, mode, cache,
+                                         morsel_bytes, device)
+        elif self.strategy == "shared":     # a one-member wave
+            results, report = execute_shared_morsels(
+                [self.plan], db, mode=mode, cache=cache,
+                morsel_bytes=morsel_bytes, device=device)
+            out = results[0]
+        else:
+            out, report = _chain_morsels(self.plan, db, mode, cache,
+                                         self.strategy, morsel_bytes, device)
+        self.n_morsels = report.n_morsels
+        self.peak_resident_bytes = report.peak_resident_bytes
+        return out
 
 
 def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:

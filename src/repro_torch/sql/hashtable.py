@@ -98,6 +98,8 @@ def build_dim_table(db: ssb.Database, join: P.HashJoin, device=None
     """Build the (filtered) hash table for one join's dim side on the
     host, then upload it once as two int32 tensors on ``device``.
     Probe miss == row filtered (selective-join pipelining)."""
+    from repro_torch.sql import faults
+    faults.maybe_fault("build")
     device = resolve(device)
     keys, vals = filtered_build_side(db, join)
     n_slots = next_pow2(max(len(keys), 1))

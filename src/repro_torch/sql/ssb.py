@@ -25,7 +25,7 @@ cardinalities follow the SSB spec.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
-from typing import Dict, List, Tuple
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,9 @@ class Table:
     # (column, device) -> resident tensor; filled by ``on_device``
     _resident: Dict[Tuple[str, str], torch.Tensor] = field(
         default_factory=dict, repr=False, compare=False)
+    # devices the whole table was made resident on (``Database.to``)
+    _pinned: Set[str] = field(default_factory=set, repr=False,
+                              compare=False)
 
     def __getitem__(self, col: str) -> np.ndarray:
         return self.columns[col]
@@ -78,6 +81,22 @@ class Table:
         return sum(t.numel() * t.element_size()
                    for (_, d), t in self._resident.items() if d == dev)
 
+    def pin(self, device) -> None:
+        """Upload every column to ``device`` and keep the table there: a
+        query then reads it whole, never a morsel at a time."""
+        for col in self.columns:
+            self.on_device(col, device)
+        self._pinned.add(str(resolve(device)))
+
+    def is_pinned(self, device) -> bool:
+        return str(resolve(device)) in self._pinned
+
+    def release(self, device: bool = False) -> None:
+        """With ``device=True``, drop the device copies (and the pins)."""
+        if device:
+            self._resident.clear()
+            self._pinned.clear()
+
 
 @dataclass
 class Database:
@@ -89,12 +108,12 @@ class Database:
     sf: float
 
     def to(self, device) -> "Database":
-        """Pre-upload every fact column to ``device`` — a plain table's
+        """Make the fact table resident on ``device`` — a plain table's
         int32 columns, a ``storage.PackedTable``'s word streams (the dims
-        stay on the host: they only feed the host hash build).  Returns
-        ``self``."""
-        for col in self.lineorder.columns:
-            self.lineorder.on_device(col, device)
+        stay on the host: they only feed the host hash build).  A
+        resident fact table is read whole by every query, whatever the
+        morsel budget.  Returns ``self``."""
+        self.lineorder.pin(device)
         return self
 
 

@@ -30,15 +30,15 @@ column, and ``PackedTable`` answers ``on_device``/``resident_bytes``
 like ``ssb.Table``, so ``column_stream`` and ``Database.to`` treat both
 kinds alike.
 
-Not here yet: the append-only delta batches (``append_rows``,
-``delta_batches``, ``delta_rows``, ``flush_deltas``) come with the
-morsel spine (ROADMAP queue 1, item 9), whose iterator is their only
-reader.
+Append-only delta batches (``append_rows``) ride on a table without a
+repack of its base columns; the morsel stream (``repro_torch.sql.morsel``)
+splices them in after the base rows, so queries see ingested rows with
+no flush, and ``flush_deltas`` compacts them into one fresh table.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -243,6 +243,9 @@ class PackedTable:
     :func:`column_stream` / :func:`encoding_of` instead."""
     name: str
     columns: Dict[str, PackedColumn]
+    # devices the whole table was made resident on (``pin``)
+    _pinned: Set[str] = field(default_factory=set, repr=False,
+                              compare=False)
 
     def __getitem__(self, col: str) -> np.ndarray:
         return self.columns[col].decode()
@@ -273,11 +276,26 @@ class PackedTable:
                    for c in self.columns.values()
                    for d, t in c._resident.items() if d == dev)
 
+    def pin(self, device) -> None:
+        """Upload every word stream to ``device`` and keep the table
+        there (see ``ssb.Table.pin``)."""
+        for col in self.columns.values():
+            col.on_device(device)
+        self._pinned.add(str(resolve(device)))
+
+    def is_pinned(self, device) -> bool:
+        return str(resolve(device)) in self._pinned
+
     def release(self, device: bool = False) -> None:
         """Release every column's pinned decode (see
-        :meth:`PackedColumn.release`)."""
+        :meth:`PackedColumn.release`), and the delta batches' too; with
+        ``device=True`` the table is no longer resident."""
         for col in self.columns.values():
             col.release(device=device)
+        for batch in delta_batches(self):
+            batch.release(device=device)
+        if device:
+            self._pinned.clear()
 
 
 def pack_column(values: np.ndarray,
@@ -404,3 +422,86 @@ def sample_column(table, col: str, stride: int) -> np.ndarray:
                     & np.uint32((1 << e.phys) - 1)).astype(np.int64)
             return (vals + e.ref).astype(np.int32)
     return np.asarray(table[col])[::stride]
+
+
+# ---------------------------------------------------------------------------
+# append-only delta batches (ingest under load)
+# ---------------------------------------------------------------------------
+#
+# A table takes appended row batches without a repack of its base columns:
+# each batch is packed at once (under the parent encoding when its values
+# fit the parent's domain, so predicate rewrites stay valid, else from its
+# own statistics) and kept on the table.  The morsel stream appends the
+# batches after the base rows at scan time; ``flush_deltas`` is the
+# explicit compaction into one freshly encoded table.
+
+
+def append_rows(table, rows: Dict[str, np.ndarray]):
+    """Append one delta batch (every column, as a dict of arrays) to a
+    table; returns the batch table."""
+    if set(rows) != set(table.columns):
+        raise ValueError(
+            f"delta batch columns {sorted(rows)} != table columns "
+            f"{sorted(table.columns)}")
+    lens = {len(np.asarray(v)) for v in rows.values()}
+    if len(lens) != 1:
+        raise ValueError(f"ragged delta batch: column lengths {lens}")
+    n_new = lens.pop()
+    # stage, then publish: every column goes into ``batch`` before the one
+    # append below, so a failure in the loop (an injected ingest fault
+    # too) leaves the pending batches as they were
+    from repro_torch.sql import faults
+    if isinstance(table, PackedTable):
+        cols = {}
+        for name, col in table.columns.items():
+            faults.maybe_fault("ingest")
+            vals = np.asarray(rows[name], np.int32)
+            enc = replace(col.encoding, n_rows=n_new)
+            try:
+                cols[name] = pack_column(vals, enc)
+            except ValueError:
+                # outside the parent's domain: the batch's own encoding
+                cols[name] = pack_column(vals)
+        batch = PackedTable(table.name, cols)
+    else:
+        cols = {}
+        for name in table.columns:
+            faults.maybe_fault("ingest")
+            cols[name] = np.asarray(rows[name], np.int32)
+        batch = ssb.Table(table.name, cols)
+    pending = getattr(table, "_deltas", None)
+    if pending is None:
+        pending = []
+        table._deltas = pending
+    pending.append(batch)
+    return batch
+
+
+def delta_batches(table) -> list:
+    """The pending delta batches of a table (empty if none)."""
+    return list(getattr(table, "_deltas", ()))
+
+
+def delta_rows(table) -> int:
+    """Appended rows not yet flushed."""
+    return sum(b.n_rows for b in delta_batches(table))
+
+
+def flush_deltas(table):
+    """Base rows and delta batches compacted into one fresh table,
+    encoded from the merged statistics; ``table`` itself when nothing is
+    pending.  The source is never mutated, so a failed flush (an injected
+    ingest fault too) can simply be retried."""
+    pending = delta_batches(table)
+    if not pending:
+        return table
+    from repro_torch.sql import faults
+    merged = {}
+    for c in table.columns:
+        faults.maybe_fault("ingest")
+        merged[c] = np.concatenate(
+            [np.asarray(table[c])] + [np.asarray(b[c]) for b in pending])
+    if isinstance(table, PackedTable):
+        return PackedTable(table.name,
+                           {c: pack_column(v) for c, v in merged.items()})
+    return ssb.Table(table.name, merged)

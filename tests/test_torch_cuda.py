@@ -64,15 +64,65 @@ def test_spja_kernel_bit_identical_to_plain(cuda, i):
 
 
 def test_spja_wrapper_rejects_bad_inputs(cuda):
-    c = cases.spja_case(1, 1000, 1, 1, "first", 30_000)   # 240 KB grid
-    args, kw = c.args(cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssb_fused.spja(*args, **kw)
+    # grids past a block's shared memory (30,000 groups: 240 KB) sum their
+    # later groups in device memory: the plain version's bits
+    for n_groups in (30_000, 33_750):
+        c = cases.spja_case(1, 200_003, 1, 2, "first", n_groups,
+                            build_rows=5000)
+        args, kw = c.args(cuda)
+        got = _launched(ssb_fused, "spja", *args, **kw)
+        want = ref.spja(*args, **kw)
+        assert torch.equal(got, want) and bool((got != 0).any()), n_groups
+        assert torch.equal(ssb_fused.spja(*args, **kw), got)
     kw["n_groups"] = 4
     bad = list(args)
     bad[5] = bad[5].to(torch.int64)
     with pytest.raises(ValueError, match="int32"):
         ssb_fused.spja(*bad, **kw)
+
+
+@pytest.mark.parametrize("n_groups", [1, 800, 33_750])
+def test_spja_adds_into_a_running_grid(cuda, n_groups):
+    c = cases.spja_case(7, 100_003, 2, 2, "sub", n_groups, build_rows=5000)
+    args, kw = c.args(cuda)
+    acc = torch.zeros((n_groups,), dtype=torch.int64, device=cuda)
+    assert ssb_fused.spja(*args, **kw, acc=acc) is acc
+    ssb_fused.spja(*args, **kw, acc=acc)
+    want = ref.spja(*args, **kw, acc=torch.zeros_like(acc))
+    assert torch.equal(acc, 2 * want)
+    assert torch.equal(want.to(torch.float32), ref.spja(*args, **kw))
+
+
+def _wide_plan():
+    """A plan the reference fuses: three joins into 54 * 25 * 25 = 33,750
+    groups (the reference's random wave plans reach it)."""
+    from repro_torch.sql.plan import ColExpr, QueryBuilder, RangePred
+    return (QueryBuilder("wide")
+            .scan("lineorder")
+            .hash_join("lo_orderdate", "date", "d_datekey",
+                       payload=ColExpr("d_weeknuminyear"), mult=1)
+            .hash_join("lo_suppkey", "supplier", "s_suppkey",
+                       dim_filter=RangePred("s_region", 0, 4),
+                       payload=ColExpr("s_nation"), mult=54)
+            .hash_join("lo_partkey", "part", "p_partkey",
+                       dim_filter=RangePred("p_mfgr", 0, 4),
+                       payload=ColExpr("p_category"), mult=54 * 25)
+            .measure("lo_revenue")
+            .group_by(54 * 25 * 25)
+            .build())
+
+
+def test_fused_plan_past_shared_memory_runs_fused(cuda):
+    db = ssb.generate(sf=0.05, seed=3).to(cuda)
+    plan = _wide_plan()
+    q = compile_.compile_plan(plan, "fused")
+    assert q.strategy == "fused" and plan.n_groups == 33_750
+    before = ssb_fused.LAUNCHES
+    got = q.execute(db)
+    assert ssb_fused.LAUNCHES == before + 1
+    np.testing.assert_array_equal(got, engine.run_query_oracle(db, plan))
+    np.testing.assert_array_equal(got, q.execute(db, mode="ref"))
+    assert np.count_nonzero(got) > 1000
 
 
 def test_queries_on_card_match_oracle(cuda):
@@ -518,3 +568,134 @@ def test_shared_wave_on_card_matches_oracle_and_fused(cuda, packed):
             got, engine.run_query(db, plan, cache=cache), err_msg=plan.name)
     one = engine.run_query(db, plans[3], cache=cache, strategy="shared")
     np.testing.assert_array_equal(one, outs[3])
+
+
+@pytest.mark.parametrize("n_slots", [1, 16, 1 << 12, 1 << 20])
+@pytest.mark.parametrize("kind", cases.BUILD_KINDS)
+def test_build_kernel_bit_identical_to_plain(cuda, kind, n_slots):
+    keys, vals, s = _on(cases.build_case(11, n_slots, kind), cuda)
+    got = _launched(hash_join, "build", keys, vals, s,
+                    counter="BUILD_LAUNCHES")
+    want = ref.build(keys, vals, s)
+    again = hash_join.build(keys, vals, s)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.int32 and g.shape == (s,)
+        assert torch.equal(g, w) and torch.equal(a, g)
+    assert torch.equal(ops.build_hash_table(keys, vals, s)[0], want[0])
+
+
+def test_build_kernel_table_probes_as_the_host_build(cuda):
+    keys, n_slots = cases.join_bench_keys(5, 1 << 20)
+    t = torch.from_numpy(keys).to(cuda)
+    htk, htv = hash_join.build(t, t, n_slots)
+    hk, hv = (torch.from_numpy(a).to(cuda)
+              for a in hashtable.np_build(keys, keys, n_slots))
+    probe = torch.remainder(torch.arange(1 << 20, device=cuda,
+                                         dtype=torch.int32) * 7, len(keys))
+    assert torch.equal(hash_join.probe_agg(probe, probe, htk, htv),
+                       hash_join.probe_agg(probe, probe, hk, hv))
+
+
+def test_build_wrapper_rejects_bad_inputs(cuda):
+    keys = torch.arange(17, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        hash_join.build(keys, keys, 16)
+    keys[3] = -(1 << 31)
+    with pytest.raises(ValueError, match="EMPTY"):
+        hash_join.build(keys, keys, 32)
+    with pytest.raises(ValueError, match="power of 2"):
+        hash_join.build(keys[:4], keys[:4], 24)
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048, 100_003])
+@pytest.mark.parametrize("selectivity", [0.0, 1e-5, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("order", cases.SPARSE_ORDERS)
+def test_select_scan_sparse_equals_select_scan(cuda, n, selectivity, order):
+    args = _on(cases.sparse_case(n, n, selectivity, order), cuda)
+    out, cnt = _launched(select_scan, "select_scan_sparse", *args,
+                         counter="SPARSE_LAUNCHES")
+    dense, dense_cnt = select_scan.select_scan(*args)
+    want, want_cnt = ref.select_scan_sparse(*args)
+    assert torch.equal(cnt, dense_cnt) and torch.equal(out, dense)
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+    again = select_scan.select_scan_sparse(*args)
+    assert torch.equal(again[0], out)
+
+
+def test_select_scan_sparse_float_column(cuda):
+    args = _on(cases.select_case(5, 100_003, "mid", "float32"), cuda)
+    out, cnt = select_scan.select_scan_sparse(*args)
+    want, want_cnt = ref.select_scan(*args)
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+
+
+@pytest.fixture
+def streamed_db(cuda):
+    """SF 0.05 on the host (not resident), its packed copy, the oracle."""
+    db = ssb.generate(sf=0.05, seed=13)
+    return db, storage.pack_database(db)
+
+
+@pytest.mark.parametrize("strategy", ["fused", "opat", "part", "shared"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_morsel_queries_on_card_match_resident(streamed_db, strategy,
+                                               packed):
+    from repro_torch.sql import morsel
+    db, pdb = streamed_db
+    database = pdb if packed else db
+    # at most an eighth of the packed table, one plain column's bytes: at
+    # least four morsels a query
+    budget = database.lineorder.nbytes // 8 if packed else \
+        4 * db.lineorder.n_rows
+    cache = hashtable.HashTableCache()
+    for name, plan in engine.ssb_queries().items():
+        q = compile_.compile_plan(plan, strategy)
+        before = ssb_fused.LAUNCHES, multi_fused.LAUNCHES
+        got = q.execute(database, cache=cache, morsel_bytes=budget)
+        assert q.n_morsels > 1, name
+        if strategy == "fused":
+            assert ssb_fused.LAUNCHES == before[0] + q.n_morsels
+        if strategy == "shared":
+            assert multi_fused.LAUNCHES == before[1] + q.n_morsels
+        assert not database.lineorder.resident_bytes(None), name
+        np.testing.assert_array_equal(got, engine.run_query_oracle(db, plan),
+                                      err_msg=name)
+    assert morsel._REGISTERED
+
+
+def test_morsel_stream_keeps_two_buffers_on_card(streamed_db):
+    db, _ = streamed_db
+    plan = engine.ssb_queries()["q2.1"]
+    cache = hashtable.HashTableCache()
+    q = compile_.compile_plan(plan, "fused")
+    q.execute(db, cache=cache, morsel_bytes=1 << 19)     # tables built
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = q.execute(db, cache=cache, morsel_bytes=1 << 19)
+    torch.cuda.synchronize()
+    assert q.n_morsels > 8
+    assert torch.cuda.max_memory_allocated() - before <= \
+        q.peak_resident_bytes + (4 << 20)
+    np.testing.assert_array_equal(got, engine.run_query_oracle(db, plan))
+    wave = list(engine.ssb_queries().values())
+    outs, report = compile_.execute_shared_morsels(
+        wave, db, cache=cache, pad_to=16, morsel_bytes=1 << 22)
+    assert report.n_morsels > 1
+    for p, o in zip(wave, outs):
+        np.testing.assert_array_equal(o, engine.run_query_oracle(db, p),
+                                      err_msg=p.name)
+
+
+def test_page_locked_upload_is_the_host_bytes(cuda):
+    from repro_torch.sql import morsel
+    host = np.arange(3 << 20, dtype=np.int32)
+    start, end = morsel.page_lock(host)
+    assert end - start > host.nbytes - 2 * 4096
+    assert morsel.page_lock(host) == (start, end)     # once per array
+    side = torch.cuda.Stream()
+    for cut in (host, host[4096:], host[5:-7], host[:100]):
+        with torch.cuda.stream(side):
+            t = morsel.upload(cut, cuda, (start, end))
+        side.synchronize()
+        assert torch.equal(t.cpu(), torch.from_numpy(cut))

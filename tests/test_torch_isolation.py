@@ -19,6 +19,7 @@ from repro_torch.kernels import (agg, hash_join, multi_fused, ops,
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
 from repro_torch.sql import hashtable as THT
+from repro_torch.sql import morsel as MS
 from repro_torch.sql import ssb as TSSB
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -44,6 +45,23 @@ def test_import_loads_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(MODULES) >= 11
+
+
+@pytest.mark.parametrize("module", ["repro_torch.sql.morsel",
+                                    "repro_torch.sql.faults",
+                                    "repro_torch.sql.resilience"])
+def test_morsel_spine_loads_neither_jax_nor_reference(module):
+    """The morsel spine and its fault machinery, each imported alone (the
+    fault and resilience modules are the port's own copies of the
+    reference's jax-free ones)."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -84,6 +102,10 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
         THT.build_dim_partitions(db, plan.joins[0], 2, packed=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.order_by(db.lineorder, "lo_orderdate")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MS.MorselStream(db.lineorder, morsel_bytes=1 << 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.execute_shared_morsels([plan], db, morsel_bytes=1 << 10)
 
 
 @pytest.mark.parametrize("mode", ["kernel", "auto", "ref"])
@@ -119,8 +141,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         (part_probe, "part_probe", cases.part_probe_case(7, 256, 2), ()),
         (hash_join, "probe_agg", cases.probe_agg_case(7, 256), ()),
         (agg, "reduce_sum", cases.reduce_case(7, 256), ()),
+        (hash_join, "build", cases.build_case(7, 256), ()),
+        (select_scan, "select_scan_sparse",
+         cases.sparse_case(7, 256, 0.5), ()),
     ]
-    counters = {"probe_agg": "AGG_LAUNCHES", "reduce_sum": "SUM_LAUNCHES"}
+    counters = {"probe_agg": "AGG_LAUNCHES", "reduce_sum": "SUM_LAUNCHES",
+                "build": "BUILD_LAUNCHES",
+                "select_scan_sparse": "SPARSE_LAUNCHES"}
     for mod, fn, case, extra in calls:
         counter = counters.get(fn, "LAUNCHES")
         before = getattr(mod, counter)
