@@ -90,10 +90,13 @@ exits non-zero without printing a result:
            through ``fused``, ``opat`` and the 13-query wave (``shared``,
            padded to 16), and ``fused`` on phase 6's packed database,
            each a fold over 256 MiB morsels uploaded from page-locked host
-           memory on a side stream (at least 4 morsels a query) — every
-           result bit-identical to phase 4's oracle and to the resident
-           results; the device memory peak of each run beside the hash
-           tables plus two morsels; per query ``query_ms`` beside the
+           memory on a side stream (at least 4 morsels a query, 3 on
+           packed storage) — every result bit-identical to phase 4's
+           oracle and to the resident results; phases 1-10's tensors are
+           freed first, and the device memory peak of each run is held to
+           the hash tables, two morsels and a morsel's rows at the working
+           set a one-morsel run of the query measured (plus 64 MiB of
+           allocator slack); per query ``query_ms`` beside the
            resident one, the upload's bound (scanned bytes over the
            measured host-to-device rate, beside a pinned 1 GiB copy) and
            the resident kernel time; one morsel query profiled.
@@ -106,6 +109,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import importlib
 import json
 import statistics
@@ -181,7 +185,7 @@ SPARSE_SELECTIVITY = (1e-5, 1e-4, 1e-3, 1e-2, 0.1, 0.5)
 # bytes of the host-to-device copies timed
 MORSEL_BYTES = 256 << 20
 MIN_MORSELS = 4
-MIN_PACKED_MORSELS = 2
+MIN_PACKED_MORSELS = 3
 H2D_BYTES = 1 << 30
 MORSEL_REPS = 3
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
@@ -875,11 +879,10 @@ class Timed:
         setattr(self.mod, self.fn, self.kernel)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+def resident_phases() -> dict:
+    """Phases 1-10; returns what phase 11 reads.  Every other tensor they
+    made is freed when this returns, so phase 11 starts from the hash
+    cache alone."""
     from repro_torch import cases
     from repro_torch.kernels import build, ref, ssb_fused
     from repro_torch.sql import engine, hashtable, ssb, storage
@@ -1966,13 +1969,16 @@ def main() -> int:
             else "operations", "library_ms": sum(lib) if lib else None})
 
     # the hash build of the same tables, from their keys (the main run,
-    # checked, then timed)
+    # checked, then timed); the payloads equal the keys, as the host
+    # build's, but lie in an array of their own, so that the build reads
+    # both inputs, as its bound counts
     hj.BUILD_LAUNCHES = 0
     for kb, htk, htv, n_build in tables:
         bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
         bkeys = torch.from_numpy(bkeys).to(dev)
-        got = hj.build(bkeys, bkeys, n_slots)
-        want = ref.build(bkeys, bkeys, n_slots)
+        bvals = bkeys.clone()
+        got = hj.build(bkeys, bvals, n_slots)
+        want = ref.build(bkeys, bvals, n_slots)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"build {kb} KB: kernel != plain")
         keys = torch.remainder(base, n_build)
@@ -1993,11 +1999,14 @@ def main() -> int:
     for kb, _, _, n_build in tables:
         bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
         bkeys = torch.from_numpy(bkeys).to(dev)
+        bvals = bkeys.clone()
+        # keys and payloads read once, the (S,) key and payload slots
+        # written once
         moved = 8 * n_build + 8 * n_slots
         row = {"table_KB": kb, "n_build": n_build, "n_slots": n_slots,
-               "ms": event_ms(lambda: hj.build(bkeys, bkeys, n_slots),
+               "ms": event_ms(lambda: hj.build(bkeys, bvals, n_slots),
                               KERNEL_REPS),
-               "plain_ms": event_ms(lambda: ref.build(bkeys, bkeys, n_slots),
+               "plain_ms": event_ms(lambda: ref.build(bkeys, bvals, n_slots),
                                     1),
                "np_build_ms": np_build_ms[kb], "bytes": moved, "ops": 0,
                "bytes_ms": moved / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
@@ -2073,9 +2082,42 @@ def main() -> int:
     print(f"phase10_s {time.perf_counter() - t:.3f}")
     del base, vals, sum_inputs, tables
 
+    return dict(t_all=t_all, card=card, dev=dev, kernels=kernels, db=db,
+                pdb=pdb, cache=cache, queries=queries, oracle=oracle,
+                mods=mods, all13=waves["all13"], pad_to=pads["all13"],
+                fused=(first, {r["query"]: r["query_ms"] for r in rows},
+                       {r["query"]: r["kernel_ms"] for r in rows}),
+                opat=(opat, opat_ms, {}),
+                packed_fused=(pfirst,
+                              {r["query"]: r["query_ms"] for r in prows},
+                              {r["query"]: r["kernel_ms"] for r in prows}),
+                shared=({"all13": wave_out["plain", "all13"]},
+                        {"all13": main_wave["query_ms"]},
+                        {"all13": main_wave["kernel_ms"]}))
+
+
+def cuda_tensors() -> list:
+    """(bytes, shape, dtype) of each device storage that a Python tensor
+    still holds, largest first."""
+    gc.collect()
+    held = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            held[st.data_ptr()] = (st.nbytes(), list(o.shape),
+                                   str(o.dtype).replace("torch.", ""))
+    return sorted(held.values(), reverse=True)
+
+
+def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
+                 mods, all13, pad_to, **resident) -> int:
+    """Phase 11, then the kernels line and the result line."""
+    from repro_torch.kernels import ssb_fused
+    from repro_torch.sql import compile as TC
+    from repro_torch.sql import morsel as MS
+    from repro_torch.sql.compile import compile_plan
     t = phase(f"11 morsels: 13 SSB queries fused, opat, shared and packed "
               f"fused, {MORSEL_BYTES >> 20} MiB morsels, SF {SF}")
-    from repro_torch.sql import morsel as MS
     h2d, host = {}, np.ones(H2D_BYTES, np.uint8)
     dst = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
     pinned = torch.ones(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
@@ -2110,6 +2152,7 @@ def main() -> int:
     pdb.lineorder.release(device=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
     def tensors_of(entry):
         """The device tensors of a hash-cache entry: a table's (htk, htv),
         part_loop's list of them, or PackedParts."""
@@ -2120,70 +2163,95 @@ def main() -> int:
         return [t for t in (getattr(entry, "htk", None),
                             getattr(entry, "htv", None)) if torch.is_tensor(t)]
 
-    tables_bytes = sum(t.numel() * t.element_size()
-                       for entry in cache.tables.values()
-                       for t in tensors_of(entry))
+    def tables_bytes():
+        return sum(t.numel() * t.element_size()
+                   for entry in cache.tables.values()
+                   for t in tensors_of(entry))
+
+    held = cuda_tensors()
     print(f"resident fact bytes {db.lineorder.resident_bytes(dev)} plain, "
           f"{pdb.lineorder.resident_bytes(dev)} packed; allocated "
           f"{torch.cuda.memory_allocated() / 1e6:.1f} MB, of which the hash "
-          f"cache's tables {tables_bytes / 1e6:.1f} MB", flush=True)
-    all13 = waves["all13"]
+          f"cache's tables {tables_bytes() / 1e6:.1f} MB; device tensors "
+          f"held: {len(held)}, {sum(h[0] for h in held) / 1e6:.1f} MB, the "
+          f"largest {held[:4]}", flush=True)
     opat_mods = [mods[m] for m, *_ in OPAT]
-    # strategy label -> (database, resident results, resident query_ms,
-    # resident kernel_ms); the wave is one "query"
-    runs = {
-        "fused": (db, first, {r["query"]: r["query_ms"] for r in rows},
-                  {r["query"]: r["kernel_ms"] for r in rows}),
-        "opat": (db, opat, opat_ms, {}),
-        "packed_fused": (pdb, pfirst,
-                         {r["query"]: r["query_ms"] for r in prows},
-                         {r["query"]: r["kernel_ms"] for r in prows}),
-        "shared": (db, {"all13": wave_out["plain", "all13"]},
-                   {"all13": main_wave["query_ms"]},
-                   {"all13": main_wave["kernel_ms"]}),
-    }
+    mf = mods["multi_fused"]
 
-    def run_morsels(label, database, name):
+    def scan_cols(label, name):
+        """The fact columns a query (or the wave) streams."""
+        if label == "shared":
+            col_ix, joins, mcol = TC.shared_footprint(all13)
+            return [*col_ix, *(j.fact_col for j in joins), *mcol]
+        plan = queries[name]
+        return (TC._chain_scan_cols(plan) if label == "opat"
+                else TC._fused_scan_cols(plan))
+
+    def run_morsels(label, database, name, budget=MORSEL_BYTES):
         """One morsel run of a query (or the wave) -> (result, n_morsels,
-        double-buffer peak, scanned columns)."""
+        double-buffer peak)."""
         if label == "shared":
             got, rep = TC.execute_shared_morsels(
-                all13, database, cache=cache, pad_to=pads["all13"],
-                morsel_bytes=MORSEL_BYTES)
-            col_ix, joins, mcol = TC.shared_footprint(all13)
-            cols = [*col_ix, *(j.fact_col for j in joins), *mcol]
-            return got, rep.n_morsels, rep.peak_resident_bytes, cols
-        plan = queries[name]
-        q = compile_plan(plan, "opat" if label == "opat" else "fused")
-        got = q.execute(database, cache=cache, morsel_bytes=MORSEL_BYTES)
-        cols = (TC._chain_scan_cols(plan) if label == "opat"
-                else TC._fused_scan_cols(plan))
-        return got, q.n_morsels, q.peak_resident_bytes, cols
+                all13, database, cache=cache, pad_to=pad_to,
+                morsel_bytes=budget)
+            return got, rep.n_morsels, rep.peak_resident_bytes
+        q = compile_plan(queries[name],
+                         "opat" if label == "opat" else "fused")
+        got = q.execute(database, cache=cache, morsel_bytes=budget)
+        return got, q.n_morsels, q.peak_resident_bytes
+
+    def working_set(label, database, name, cols):
+        """Device bytes a fact row of the query needs beyond its scanned
+        columns and the hash tables (intermediates, grids): a one-morsel
+        run over the columns uploaded whole first, which are then
+        dropped again."""
+        fact = database.lineorder
+        for c in dict.fromkeys(cols):
+            fact.on_device(c, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, n_morsels, _ = run_morsels(label, database, name,
+                                      budget=1 << 40)
+        torch.cuda.synchronize()
+        work = torch.cuda.max_memory_allocated() - before
+        fact.release(device=True)
+        if n_morsels != 1:
+            raise AssertionError(f"morsels {label} {name}: {n_morsels} "
+                                 "morsels in the one-morsel run")
+        return work / fact.n_rows
 
     def counted():
         return {"spja": ssb_fused.LAUNCHES, "multi_spja": mf.LAUNCHES,
                 **{fn: mod.LAUNCHES for (_, fn, *_), mod in
                    zip(OPAT, opat_mods)}}
 
+    databases = {"fused": db, "opat": db, "packed_fused": pdb, "shared": db}
+    per_row = {(label, name): working_set(label, databases[label], name,
+                                          scan_cols(label, name))
+               for label, (res, *_) in resident.items() for name in res}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     ssb_fused.LAUNCHES = mf.LAUNCHES = 0
     for mod in opat_mods:
         mod.LAUNCHES = 0
     morsel_rows, slack = [], 64 << 20
-    for label, (database, resident, res_ms, res_kernel_ms) in runs.items():
-        for name in resident:
+    for label, (res, res_ms, res_kernel_ms) in resident.items():
+        database = databases[label]
+        for name in res:
+            cols = scan_cols(label, name)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before_alloc = torch.cuda.memory_allocated()
             launched = counted()
-            got, n_morsels, peak_res, cols = run_morsels(label, database,
-                                                         name)
+            got, n_morsels, peak_res = run_morsels(label, database, name)
             torch.cuda.synchronize()
             peak_alloc = torch.cuda.max_memory_allocated()
             launched = {k: v - launched[k] for k, v in counted().items()}
             members = (list(zip(all13, got)) if label == "shared"
                        else [(queries[name], got)])
-            want = (dict(zip((p.name for p in all13), resident["all13"]))
-                    if label == "shared" else {name: resident[name]})
+            want = (dict(zip((p.name for p in all13), res["all13"]))
+                    if label == "shared" else {name: res[name]})
             for plan, g in members:
                 if not (same_bits(g, oracle[plan.name])
                         and same_bits(g, want[plan.name])):
@@ -2199,15 +2267,15 @@ def main() -> int:
             if kernel and launched[kernel] != n_morsels:
                 raise AssertionError(f"morsels {label} {name}: {launched} "
                                      f"launches for {n_morsels} morsels")
-            fact = getattr(database, all13[0].scan.table)
-            stream = MS.MorselStream(fact, MORSEL_BYTES, cols=cols)
+            stream = MS.MorselStream(database.lineorder, MORSEL_BYTES,
+                                     cols=cols)
             scanned = sum(stream.morsel_nbytes(i)
                           for i in range(stream.n_morsels))
-            # opat materializes its intermediates per morsel: up to 48
-            # bytes a row (row ids, group ids, gathered keys and values,
-            # selection vectors) beside the two buffers
-            work = 48 * stream.rows_per if label == "opat" else 0
-            bound = before_alloc + peak_res + work + slack
+            # the hash tables, the two buffers, and a morsel's rows at the
+            # working set the one-morsel run measured
+            tables = tables_bytes()
+            work = per_row[label, name] * stream.rows_per
+            bound = tables + peak_res + work + slack
             if peak_alloc > bound:
                 raise AssertionError(f"morsels {label} {name}: device peak "
                                      f"{peak_alloc} B over {bound} B")
@@ -2227,7 +2295,10 @@ def main() -> int:
                    "peak_alloc_MB": peak_alloc / 1e6,
                    "bound_MB": bound / 1e6,
                    "allocated_before_MB": before_alloc / 1e6,
-                   "double_buffer_MB": peak_res / 1e6}
+                   "hash_tables_MB": tables / 1e6,
+                   "double_buffer_MB": peak_res / 1e6,
+                   "work_B_per_row": per_row[label, name],
+                   "work_MB": work / 1e6}
             row["over_upload_bound"] = row["query_ms"] / \
                 row["upload_bound_ms"]
             morsel_rows.append(row)
@@ -2238,7 +2309,7 @@ def main() -> int:
                       for k in ("query_ms", "resident_query_ms",
                                 "resident_kernel_ms", "upload_bound_ms",
                                 "scanned_GB")}
-              for label in runs}
+              for label in resident}
     print("morsel totals " + json.dumps(totals), flush=True)
     print("profile morsel q2.1 fused " + json.dumps(profiled(
         lambda: compile_plan(queries["q2.1"], "fused").execute(
@@ -2257,6 +2328,14 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    return morsel_phase(**resident_phases())
 
 
 if __name__ == "__main__":

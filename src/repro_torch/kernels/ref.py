@@ -379,14 +379,13 @@ def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
     return select_scan(decode_words(words, phys)[:y.shape[0]], y, lo, hi)
 
 
-def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi,
-                       unit: int = SKIP_ROWS
+def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``select_scan`` in two phases (the paper's selective load, §5.3):
-    phase 1 reads x alone and marks the ``unit``-row tiles that hold a
-    match; phase 2 compacts only the marked tiles, reading y only there.
+    phase 1 reads x alone and marks the ``SKIP_ROWS``-row tiles that hold
+    a match; phase 2 compacts only the marked tiles, reading y only there.
     The result is ``select_scan``'s, bit for bit, whatever the unit."""
-    n = x.shape[0]
+    n, unit = x.shape[0], SKIP_ROWS
     hit = B.block_pred_range(x, lo, hi) > 0
     pad = (-n) % unit
     tiles = torch.nn.functional.pad(hit, (0, pad)).view(-1, unit)

@@ -20,8 +20,8 @@ Uploads
 The upload of a morsel runs on a side CUDA stream: each scanned column
 of the cut (a plain column's values, a packed column's word window) is
 copied with ``non_blocking`` from host memory that is page-locked in
-place (``cudaHostRegister`` of the whole pages of the column's host
-array, once), so the copy engine reads it straight from the table, with
+place (``cudaHostRegister`` of the whole pages of the array that owns
+the column's memory, once), so the copy engine reads it straight from the table, with
 no staging copy on the host.  An event fences the upload; the compute
 stream waits on it and ``record_stream`` marks each uploaded tensor as
 read there, so the caching allocator hands its memory out again only
@@ -68,8 +68,8 @@ LANE = 32
 # one morsel and takes the whole-table pass.
 DEFAULT_MORSEL_BYTES = 64 << 20
 
-# host arrays page-locked in place: (start, end) of the locked pages -> the
-# finalizer that unlocks them
+# host memory page-locked in place: (start, end) of the locked pages -> the
+# finalizer that unlocks them when the array owning them goes
 _REGISTERED: Dict[Tuple[int, int], weakref.finalize] = {}
 _PAGE = mmap.PAGESIZE
 
@@ -142,20 +142,34 @@ def _host_array(table, col: str) -> np.ndarray:
     return table.columns[col]
 
 
-def _unregister(ptr: int) -> None:
-    torch.cuda.cudart().cudaHostUnregister(ptr)
+def _owner(arr: np.ndarray) -> np.ndarray:
+    """The array that owns ``arr``'s memory: the last ndarray in its chain
+    of bases (a view keeps its owner alive, so the owner outlives every
+    view of it)."""
+    while isinstance(arr.base, np.ndarray):
+        arr = arr.base
+    return arr
+
+
+def _unregister(start: int, end: int) -> None:
+    """Unlock the pages ``page_lock`` locked, and forget them: another
+    array may later be allocated at the same addresses."""
+    del _REGISTERED[start, end]
+    torch.cuda.cudart().cudaHostUnregister(start)
 
 
 def page_lock(arr: np.ndarray) -> Tuple[int, int]:
-    """Page-lock a host array in place (``cudaHostRegister``, once per
-    array) so the copy engine reads it with no staging copy; it is
-    unregistered when the array goes.  Only the whole pages inside the
-    array are locked, so two arrays never claim one page.  Returns the
-    locked address range ``(start, end)`` (empty when the array spans no
-    whole page)."""
-    start = -(-arr.ctypes.data // _PAGE) * _PAGE
-    end = (arr.ctypes.data + arr.nbytes) // _PAGE * _PAGE
-    if not arr.flags.c_contiguous or end <= start:
+    """Page-lock the memory of a host array in place (``cudaHostRegister``,
+    once per owning array) so the copy engine reads it with no staging
+    copy.  The lock covers the whole pages inside the array that owns the
+    memory, so every view of it shares one lock and two arrays never
+    claim one page; it is undone when the owner goes.  Returns the locked
+    address range ``(start, end)`` (empty when the owner spans no whole
+    page)."""
+    own = _owner(arr)
+    start = -(-own.ctypes.data // _PAGE) * _PAGE
+    end = (own.ctypes.data + own.nbytes) // _PAGE * _PAGE
+    if not own.flags.c_contiguous or end <= start:
         return (0, 0)
     if (start, end) not in _REGISTERED:
         rc = int(torch.cuda.cudart().cudaHostRegister(start, end - start,
@@ -163,7 +177,8 @@ def page_lock(arr: np.ndarray) -> Tuple[int, int]:
         if rc != 0:
             raise RuntimeError(f"cudaHostRegister of {end - start} bytes "
                                f"failed: CUDA error {rc}")
-        _REGISTERED[start, end] = weakref.finalize(arr, _unregister, start)
+        _REGISTERED[start, end] = weakref.finalize(own, _unregister, start,
+                                                   end)
     return start, end
 
 

@@ -1,42 +1,12 @@
-"""Resilience layer for the query server: typed errors, deadlines,
-retry/degradation ladders, circuit breakers, and a memory governor.
+"""Typed errors of the query path: the part of ``repro.sql.resilience``
+that the port reads so far.
 
-The serving path (server.py) has many execution strategies for the same
-logical query — fused Crystal-style kernels, shared waves, mesh shards,
-morsel streams, and a pure-numpy oracle.  This module supplies the
-machinery that turns "a kernel faulted" into "the request degraded one
-rung down the ladder and still answered inside its deadline":
-
-* ``QueryError`` hierarchy — every failure the server surfaces is one of
-  these; foreign exceptions are wrapped via :func:`classify_error` with
-  ``__cause__`` chained so the original traceback survives.
-* ``ErrorInfo`` — the structured value stored in ``QueryResult.error``
-  (kind / message / strategy attempted / attempt count).  It stringifies
-  to ``"Kind: message"`` and supports ``in`` so existing substring
-  assertions keep working.
-* ``Deadline`` — a monotonic remaining-budget clock carried by requests.
-* ``CircuitBreaker`` / ``BreakerBoard`` — per-(strategy, backend)
-  failure counters that open after K consecutive faults and half-open
-  after a cooldown so one probe may close them again.
-* ``ResourceGovernor`` — reacts to allocation failures / a resident-byte
-  budget by halving ``morsel_bytes`` (floor: one LANE-aligned morsel),
-  evicting the decode memo and cold hash-table entries, and shedding
-  load at admission past a high-water mark.
-* ``ladder_for`` — the degradation ladder per requested strategy,
-  always terminating at the host-side ``ref`` oracle.
-
-Nothing here imports compile/model at module scope — the server wires
-the pieces together, keeping this module import-cycle free.
+The chaos harness (``faults.py``) raises ``FaultInjected`` (an
+``ExecError``) or ``InjectedOOM`` (a ``MemoryPressure``), both
+``QueryError``\\ s.  The rest of the reference's module (the other error
+kinds, deadlines, degradation ladders, circuit breakers, the memory
+governor) comes with the server that reads it.
 """
-from __future__ import annotations
-
-import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
-
-# ---------------------------------------------------------------------------
-# error taxonomy
-# ---------------------------------------------------------------------------
 
 
 class QueryError(Exception):
@@ -50,26 +20,12 @@ class QueryError(Exception):
         return type(self).__name__
 
 
-class PlanError(QueryError):
-    """The logical plan itself is invalid (bad filter, unknown column).
-
-    Not retryable: every rung would fail identically."""
-
-
-class CompileError(QueryError):
-    """Lowering/strategy selection failed before any execution began."""
-
-
 class ExecError(QueryError):
     """A strategy faulted at runtime (kernel, upload, build, shard).
 
     Retryable: the same plan may succeed one rung down the ladder."""
 
     retryable = True
-
-
-class DeadlineExceeded(QueryError):
-    """The request's deadline budget ran out before a rung succeeded."""
 
 
 class MemoryPressure(QueryError):
@@ -87,318 +43,3 @@ class FaultInjected(ExecError):
 
 class InjectedOOM(MemoryPressure):
     """Simulated allocation failure raised by the chaos harness."""
-
-
-_OOM_MARKERS = ("resource_exhausted", "out of memory", "allocation fail",
-                "oom", "cannot allocate")
-
-
-def classify_error(exc: BaseException, during: str = "execute") -> QueryError:
-    """Wrap a foreign exception into the taxonomy, chaining ``__cause__``.
-
-    ``during`` picks the class for plain exceptions: "plan" -> PlanError,
-    "compile" -> CompileError, anything else -> ExecError.  Allocation
-    failures (XLA RESOURCE_EXHAUSTED et al.) map to MemoryPressure
-    regardless of phase.  Already-typed errors pass through unchanged.
-    BaseExceptions that are not Exceptions (KeyboardInterrupt, SystemExit)
-    must never reach here — callers catch ``Exception`` only.
-    """
-    if isinstance(exc, QueryError):
-        return exc
-    msg = f"{type(exc).__name__}: {exc}"
-    low = str(exc).lower()
-    if any(m in low for m in _OOM_MARKERS):
-        wrapped: QueryError = MemoryPressure(msg)
-    elif during == "plan":
-        wrapped = PlanError(msg)
-    elif during == "compile":
-        wrapped = CompileError(msg)
-    elif isinstance(exc, (ValueError, TypeError, KeyError)):
-        # the engine raises these for *contract* violations (negative
-        # payloads, unknown columns, ragged batches) — every rung would
-        # fail identically, so they are plan errors, not exec faults
-        wrapped = PlanError(msg)
-    else:
-        wrapped = ExecError(msg)
-    wrapped.__cause__ = exc
-    return wrapped
-
-
-@dataclass
-class ErrorInfo:
-    """Structured error stored on ``QueryResult.error``.
-
-    Stringifies as ``"Kind: message"``; substring membership tests
-    (``"negative" in result.error``) keep working via ``__contains__``.
-    ``exception`` holds the typed QueryError whose ``__cause__`` chains
-    back to the original traceback.
-    """
-
-    error_kind: str
-    message: str
-    strategy: Optional[str] = None
-    attempts: int = 1
-    exception: Optional[QueryError] = None
-
-    @classmethod
-    def from_exception(cls, exc: QueryError, strategy: Optional[str] = None,
-                       attempts: int = 1) -> "ErrorInfo":
-        return cls(error_kind=exc.kind, message=str(exc), strategy=strategy,
-                   attempts=attempts, exception=exc)
-
-    def __str__(self) -> str:
-        return f"{self.error_kind}: {self.message}"
-
-    def __contains__(self, item: str) -> bool:
-        return item in str(self)
-
-    def __eq__(self, other: object) -> bool:
-        if isinstance(other, str):
-            return str(self) == other
-        if isinstance(other, ErrorInfo):
-            return (self.error_kind, self.message) == (
-                other.error_kind, other.message)
-        return NotImplemented
-
-
-# ---------------------------------------------------------------------------
-# deadlines
-# ---------------------------------------------------------------------------
-
-
-@dataclass
-class Deadline:
-    """Monotonic remaining-budget clock.  ``budget_s=None`` never expires."""
-
-    budget_s: Optional[float]
-    started: float = field(default_factory=time.monotonic)
-
-    def remaining(self) -> float:
-        if self.budget_s is None:
-            return float("inf")
-        return self.budget_s - (time.monotonic() - self.started)
-
-    def expired(self) -> bool:
-        return self.remaining() <= 0.0
-
-
-# ---------------------------------------------------------------------------
-# retry ladder + backoff
-# ---------------------------------------------------------------------------
-
-#: strategies tried in order when the requested one faults.  Every ladder
-#: bottoms out at "ref", the pure-numpy oracle that touches no device,
-#: no kernel dispatch, no hash-table build — the safe harbor.
-_LADDERS: Dict[str, Tuple[str, ...]] = {
-    "sharded":   ("sharded", "fused", "opat", "ref"),
-    "shared":    ("shared", "fused", "opat", "ref"),
-    "fused":     ("fused", "opat", "ref"),
-    "part":      ("part", "opat", "ref"),
-    "part_loop": ("part_loop", "opat", "ref"),
-    "opat":      ("opat", "ref"),
-    "auto":      ("auto", "fused", "opat", "ref"),
-    "ref":       ("ref",),
-}
-
-BACKOFF_BASE_S = 0.005
-BACKOFF_CAP_S = 0.1
-
-
-def ladder_for(strategy: str) -> Tuple[str, ...]:
-    """Degradation ladder for a requested strategy (itself first)."""
-    return _LADDERS.get(strategy, (strategy, "fused", "opat", "ref"))
-
-
-def backoff_s(attempt: int) -> float:
-    """Capped exponential backoff for the attempt-th retry (0-based)."""
-    return min(BACKOFF_BASE_S * (2 ** attempt), BACKOFF_CAP_S)
-
-
-# ---------------------------------------------------------------------------
-# circuit breaker
-# ---------------------------------------------------------------------------
-
-
-class CircuitBreaker:
-    """Classic closed / open / half-open breaker.
-
-    ``record_failure`` K times in a row opens the breaker; while open,
-    ``allow()`` is False until ``cooldown_s`` passes, after which exactly
-    one half-open probe is let through — its success closes the breaker,
-    its failure re-opens it (restarting the cooldown)."""
-
-    def __init__(self, threshold: int = 3, cooldown_s: float = 1.0):
-        self.threshold = threshold
-        self.cooldown_s = cooldown_s
-        self.failures = 0
-        self.state = "closed"
-        self.opened_at = 0.0
-        self._probing = False
-
-    def allow(self) -> bool:
-        if self.state == "closed":
-            return True
-        if self.state == "open":
-            if time.monotonic() - self.opened_at >= self.cooldown_s:
-                self.state = "half-open"
-                self._probing = False
-            else:
-                return False
-        # half-open: admit a single probe
-        if not self._probing:
-            self._probing = True
-            return True
-        return False
-
-    def record_success(self) -> None:
-        self.failures = 0
-        self.state = "closed"
-        self._probing = False
-
-    def record_failure(self) -> None:
-        self.failures += 1
-        if self.state == "half-open" or self.failures >= self.threshold:
-            self.state = "open"
-            self.opened_at = time.monotonic()
-            self._probing = False
-
-
-class BreakerBoard:
-    """Per-(strategy, backend) breakers, lazily created."""
-
-    def __init__(self, threshold: int = 3, cooldown_s: float = 1.0):
-        self.threshold = threshold
-        self.cooldown_s = cooldown_s
-        self._breakers: Dict[Tuple[str, str], CircuitBreaker] = {}
-
-    def get(self, strategy: str, backend: str) -> CircuitBreaker:
-        key = (strategy, backend)
-        br = self._breakers.get(key)
-        if br is None:
-            br = CircuitBreaker(self.threshold, self.cooldown_s)
-            self._breakers[key] = br
-        return br
-
-    def snapshot(self) -> Dict[Tuple[str, str], str]:
-        return {k: b.state for k, b in self._breakers.items()}
-
-
-# ---------------------------------------------------------------------------
-# resource governor
-# ---------------------------------------------------------------------------
-
-
-class ResourceGovernor:
-    """Memory-pressure reactor for the serving loop.
-
-    Tracks the morsel granularity the server should use and responds to
-    pressure events (allocation failures, resident-bytes observations
-    above budget) by (1) halving ``morsel_bytes`` down to a floor of one
-    LANE-aligned morsel, and (2) evicting soft state: the packed-column
-    decode memo and cold ``HashTableCache`` entries.  Past a high-water
-    mark (consecutive pressure events or an explicit shed latch) new
-    admissions are refused with a typed :class:`MemoryPressure` — at the
-    door, not mid-query.
-    """
-
-    def __init__(self, morsel_bytes: Optional[int],
-                 budget_bytes: Optional[int] = None,
-                 high_water: int = 3):
-        from .morsel import DEFAULT_MORSEL_BYTES, LANE
-        self._lane = LANE
-        self.morsel_bytes = int(morsel_bytes or DEFAULT_MORSEL_BYTES)
-        self._floor = LANE * 64  # one lane of wide rows; recomputed per-db
-        self.budget_bytes = budget_bytes
-        self.high_water = high_water
-        self.pressure_events = 0
-        self.consecutive = 0
-        self.sheds = 0
-        self.evictions = 0
-
-    # -- admission -----------------------------------------------------
-    def should_shed(self) -> bool:
-        return self.consecutive >= self.high_water
-
-    def admit(self) -> None:
-        """Raise typed MemoryPressure when past the high-water mark."""
-        if self.should_shed():
-            self.sheds += 1
-            raise MemoryPressure(
-                "admission shed: sustained memory pressure "
-                f"({self.consecutive} consecutive events, "
-                f"morsel_bytes={self.morsel_bytes})")
-
-    # -- reaction ------------------------------------------------------
-    def observe_resident(self, resident_bytes: int) -> bool:
-        """Report a resident-bytes observation; True if over budget."""
-        if self.budget_bytes is not None and resident_bytes > self.budget_bytes:
-            return True
-        return False
-
-    def on_pressure(self, db=None, cache=None, result_cache=None) -> None:
-        """React to one pressure event (allocation failure / over budget)."""
-        self.pressure_events += 1
-        self.consecutive += 1
-        # halve the morsel granularity, but never below one aligned lane
-        nxt = max(self._floor, self.morsel_bytes // 2)
-        nxt -= nxt % self._lane
-        self.morsel_bytes = max(self._lane, nxt)
-        # drop soft state: decode memos + device word uploads on every
-        # packed table, cold hash tables no in-flight query will reuse.
-        if db is not None:
-            for name in ("lineorder", "date", "supplier", "customer",
-                         "part"):
-                tbl = getattr(db, name, None)
-                release = getattr(tbl, "release", None)
-                if release is not None:
-                    release(device=True)
-                    self.evictions += 1
-        if cache is not None and hasattr(cache, "evict_cold"):
-            self.evictions += cache.evict_cold()
-        # finished aggregate grids are the cheapest state to rebuild —
-        # under pressure the whole result cache goes, not just cold
-        # entries (a stale-but-kept grid would also be the one cache
-        # whose wrong answer nobody re-verifies)
-        if result_cache is not None and hasattr(result_cache, "clear"):
-            self.evictions += result_cache.clear()
-
-    def on_success(self) -> None:
-        """A request completed cleanly; decay the consecutive counter."""
-        self.consecutive = 0
-
-
-# ---------------------------------------------------------------------------
-# helpers for the server's ladder loop
-# ---------------------------------------------------------------------------
-
-
-def fit_in_budget(predictions: Optional[Dict[str, float]], strategy: str,
-                  remaining_s: float, slack: float = 1.0) -> bool:
-    """True when the cost model thinks ``strategy`` fits the remaining
-    deadline budget.  Unknown strategies (no prediction — e.g. ``ref``)
-    always fit: the oracle is the rung of last resort and must stay
-    reachable."""
-    if predictions is None:
-        return True
-    pred = predictions.get(strategy)
-    if pred is None:
-        return True
-    return pred * slack <= remaining_s
-
-
-def sleep_backoff(attempt: int, deadline: Deadline) -> None:
-    """Sleep the capped-exponential backoff, clamped to the deadline."""
-    pause = backoff_s(attempt)
-    rem = deadline.remaining()
-    if rem <= 0:
-        return
-    time.sleep(min(pause, max(rem, 0.0)))
-
-
-__all__ = [
-    "QueryError", "PlanError", "CompileError", "ExecError",
-    "DeadlineExceeded", "MemoryPressure", "FaultInjected", "InjectedOOM",
-    "classify_error", "ErrorInfo", "Deadline", "CircuitBreaker",
-    "BreakerBoard", "ResourceGovernor", "ladder_for", "backoff_s",
-    "fit_in_budget", "sleep_backoff", "BACKOFF_BASE_S", "BACKOFF_CAP_S",
-]

@@ -119,10 +119,13 @@ def test_select_scan_sparse_matches_reference_kernel_in_row_order(bounds):
 @pytest.mark.parametrize("order", cases.SPARSE_ORDERS)
 def test_select_scan_sparse_any_skip_unit_gives_select_scan(unit,
                                                             selectivity,
-                                                            order):
+                                                            order,
+                                                            monkeypatch):
     x, y, lo, hi = cases.sparse_case(9, 4099, selectivity, order)
     args = (torch.from_numpy(x), torch.from_numpy(y), lo, hi)
-    got = TREF.select_scan_sparse(*args, unit=unit)
+    with monkeypatch.context() as m:
+        m.setattr(TREF, "SKIP_ROWS", unit)
+        got = TREF.select_scan_sparse(*args)
     want = TREF.select_scan(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert all(torch.equal(a, b) for a, b in

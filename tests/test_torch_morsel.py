@@ -346,6 +346,43 @@ def test_release_drops_device_buffers():
     assert not col._resident and not batch._resident
 
 
+class _Cudart:
+    """Records the page-lock calls ``morsel.page_lock`` makes."""
+
+    def __init__(self):
+        self.registered, self.unregistered = [], []
+
+    def cudaHostRegister(self, ptr, size, flags):
+        self.registered.append((ptr, size))
+        return 0
+
+    def cudaHostUnregister(self, ptr):
+        self.unregistered.append(ptr)
+        return 0
+
+
+def test_page_lock_is_per_owner_and_forgotten_when_it_goes(monkeypatch):
+    rt = _Cudart()
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: rt)
+    buf = bytearray(16 * MS._PAGE)
+    a = np.frombuffer(buf, np.int32)
+    start, end = MS.page_lock(a)
+    assert (end - start) // MS._PAGE in (15, 16)
+    # a view shares its owner's lock
+    assert MS.page_lock(a[100:-100]) == (start, end)
+    assert rt.registered == [(start, end - start)]
+    del a
+    assert rt.unregistered == [start]
+    assert (start, end) not in MS._REGISTERED
+    # a new array at the same addresses is locked again, and released
+    b = np.frombuffer(buf, np.int32)
+    assert MS.page_lock(b) == (start, end)
+    assert rt.registered == [(start, end - start)] * 2
+    del b
+    assert rt.unregistered == [start, start]
+    assert (start, end) not in MS._REGISTERED
+
+
 # ---------------------------------------------------------------------------
 # streaming generator
 # ---------------------------------------------------------------------------
