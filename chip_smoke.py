@@ -19,7 +19,11 @@ exits non-zero without printing a result:
            hash ``build`` (ragged n, duplicate keys, a full table, no
            rows) and ``select_scan_sparse`` (selectivity 0, 1e-5 and 0.5,
            x uniform and sorted, equal to ``select_scan``), each run
-           twice with the same bits;
+           twice with the same bits; the radix kernels (``histogram``,
+           ``digit_counts``, the one-sweep ``partition_multi`` pass with
+           its counts from either) at every radix case, and
+           ``radix_sort`` of keys whose passes all move rows, all but
+           the top one, two of four and none, launching only those;
 4. main path: ``ssb.generate(sf=20)`` (120 M lineorder rows), resident
            on the card, all 13 SSB queries through
            ``compile_plan(plan, "fused").execute(db, cache=...)``: 13
@@ -34,7 +38,9 @@ exits non-zero without printing a result:
            query; every result bit-identical to phase 4's oracle and fused
            results, to a second pass and to the plain versions on the
            card; then per-query times beside fused (the fig17 analogue)
-           and each kernel's time over one pass beside its bound;
+           and each kernel's time over one pass beside its bound
+           (``project``, whose calls there are their fixed cost, in
+           turns with ``torch.sub``);
 6. packed storage: phase 4's database packed (``storage.pack_database``)
            and resident on the card, the 13 queries ``fused`` (``spja`` on
            packed streams) and ``opat`` (the leading filter through
@@ -50,19 +56,24 @@ exits non-zero without printing a result:
            "part")`` and ``"part_loop"`` on phase 4's database and on
            phase 6's packed one, through the same hash cache — per join,
            ``part`` launches one ``histogram``, one ``partition_multi``
-           scatter and one ``part_probe``, ``part_loop`` one histogram,
-           one scatter and one ``probe_join`` per non-empty partition;
+           pass (its bucket counts the histogram's column sums: no digit
+           count) and one ``part_probe``, ``part_loop`` one histogram,
+           one pass and one ``probe_join`` per non-empty partition;
            every result bit-identical to phase 4's oracle, a second pass
            and the plain versions on the card; per-query times beside
            fused and opat, each new kernel's time over one pass beside
            its bound; then the Fig. 8 analogue, one FK join of 2^27 fact
            rows against dims of 2^12 to 2^24 rows, through fused, opat,
            part and part_loop, each against the oracle;
-8. ORDER BY: ``engine.order_by`` of lineorder by ``lo_orderdate`` (four
-           8-bit radix passes) against numpy's stable argsort, and a
-           filter + join + ``OrderBy`` row plan against numpy's stable
-           argsort of its survivors; ``radix_sort`` timed beside its bound
-           and ``torch.sort(stable=True)``;
+8. ORDER BY: ``engine.order_by`` of lineorder by ``lo_orderdate`` (one
+           digit-count launch, then the two 8-bit passes of four that
+           move rows) against numpy's stable argsort, and a filter + join
+           + ``OrderBy`` row plan against numpy's stable argsort of its
+           survivors, launches held to the pass plan of the plain digit
+           counts; ``radix_sort`` of the dates and of random 32-bit keys
+           in turns with ``torch.sort(stable=True)``, beside its bound,
+           with the digit counts and one pass timed alone and the rate
+           over the bytes the design moves;
 9. shared waves: the 13 queries as one wave through ``execute_shared(...,
            pad_to=16)``, flight 1, flight 2 and flights 2 + 4, on phase 4's
            database and on phase 6's packed one with a fresh hash cache —
@@ -85,7 +96,9 @@ exits non-zero without printing a result:
            timed beside the host ``np_build``; ``select_scan_sparse`` of
            2^28 rows at selectivities 1e-5 to 0.5, x uniform and sorted,
            equal to ``select_scan`` and timed beside it, with the share of
-           32-row tiles that hold a match;
+           32-row tiles that hold a match; ``project`` of 2^28 rows, with
+           and without the sigmoid, in turns with ``torch.sub``, beside
+           its bound;
 11. morsels: phase 4's database no longer resident, the 13 queries
            through ``fused``, ``opat`` and the 13-query wave (``shared``,
            padded to 16), and ``fused`` on phase 6's packed database,
@@ -135,6 +148,10 @@ QUERY_REPS = 5                  # end-to-end runs per query (median)
 KERNEL_REPS = 10                # back-to-back launches per timing
 PLAIN_REPS = 2
 CALL_REPS = 3                   # back-to-back launches per opat call
+# kernel against library call in turns: rounds of (kernel, library,
+# library, kernel), each the mean of TURN_CALLS back-to-back calls
+TURN_ROUNDS = 5
+TURN_CALLS = 50
 KERNEL = {"name": "ssb_fused.spja", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/ssb_fused.cu",
           "replaces": "src/repro/kernels/ssb_fused.py:115"}
@@ -189,6 +206,10 @@ MIN_PACKED_MORSELS = 3
 H2D_BYTES = 1 << 30
 MORSEL_REPS = 3
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
+# phase 3: radix_sort's keys (cases.sort_case kinds) and the passes of
+# four that move rows
+SORT_SYNTHETIC = [("negative", [0, 1, 2, 3]), ("top_byte", [0, 1, 2]),
+                  ("date", [0, 1]), ("equal", [])]
 # the Fig. 8 analogue (benchmarks/run.py::_fig8_db's shape): 2^27 fact
 # rows, FK uniform over a dim of 2^12 .. 2^24 rows (the last a 256 MB
 # table, past the 50 MB L2)
@@ -210,6 +231,7 @@ SINGLES = ("q1.1", "q2.1")
 JOIN_ROWS = 1 << 28
 JOIN_TABLE_KB = (8, 256, 4096, 32768, 65536, 262144)
 SUM_ROWS = 1 << 28
+PROJECT_ROWS = 1 << 28
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
 # ragged tail, an empty build side, duplicate and wrapping keys, group ids
@@ -345,6 +367,20 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns(kernel, library, rounds: int = TURN_ROUNDS,
+          calls: int = TURN_CALLS) -> dict:
+    """``rounds`` rounds of (kernel, library, library, kernel), each the
+    mean of ``calls`` back-to-back calls (``event_ms``) -> every round's
+    times and the medians of each side."""
+    got = {"kernel_ms": [], "library_ms": []}
+    for _ in range(rounds):
+        for side in ("kernel_ms", "library_ms", "library_ms", "kernel_ms"):
+            got[side].append(event_ms(kernel if side == "kernel_ms"
+                                      else library, calls))
+    return dict(got, kernel_median=statistics.median(got["kernel_ms"]),
+                library_median=statistics.median(got["library_ms"]))
 
 
 def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -846,7 +882,10 @@ class Timed:
     """Stands in for a kernel wrapper for one timed pass: each call runs
     the wrapper CALL_REPS times back to back between CUDA events (after
     one warm-up call), then the plain version and the library call on the
-    same inputs, and keeps the times and the call's bound."""
+    same inputs, and keeps the times and the call's bound.  ``project``,
+    whose calls on the pass are their fixed cost, is timed in turns with
+    its library call instead (``turns``: medians of TURN_ROUNDS rounds of
+    TURN_CALLS calls)."""
 
     def __init__(self, mod, fn: str, plain):
         self.mod, self.fn, self.plain = mod, fn, plain
@@ -856,19 +895,25 @@ class Timed:
 
     def __call__(self, *args, **kw):
         out = self.kernel(*args, **kw)
-        ms = event_ms(lambda: self.kernel(*args, **kw), CALL_REPS)
+        row = {}
+        if self.fn == "project":        # a call is its fixed cost: turns
+            row["turns"] = turns(lambda: self.kernel(*args, **kw),
+                                 lambda: self.library(*args, **kw))
+            ms = row["turns"]["kernel_median"]
+            lib_ms = row["turns"]["library_median"]
+        else:
+            ms = event_ms(lambda: self.kernel(*args, **kw), CALL_REPS)
+            lib_ms = (None if self.library is None else
+                      event_ms(lambda: self.library(*args, **kw), CALL_REPS))
         want = self.plain(*args, **kw)
         plain_ms = event_ms(lambda: self.plain(*args, **kw), 1)
         again = self.kernel(*args, **kw) if self.fn == "group_sum" else None
         self.err = max(self.err, check_against_plain(
             self.fn, "opat pass", out, want, again=again,
             sigmoid=kw.get("sigmoid", False)))
-        lib_ms = (None if self.library is None else
-                  event_ms(lambda: self.library(*args, **kw), CALL_REPS))
-        self.rows.append(dict(opat_need(self.fn, args, out),
+        self.rows.append(dict(opat_need(self.fn, args, out), **row,
                               n=call_rows(self.fn, args), ms=ms,
-                              plain_ms=plain_ms,
-                              library_ms=lib_ms))
+                              plain_ms=plain_ms, library_ms=lib_ms))
         return out
 
     def __enter__(self):
@@ -970,6 +1015,7 @@ def resident_phases() -> dict:
             print(f"{fn} {label}: {what} max_abs_err={err} ok", flush=True)
     radix, pprobe = mods["radix_part"], mods["part_probe"]
     part_err = {fn: 0.0 for _, fn, *_ in PARTITIONED}
+    part_err["digit_counts"] = 0.0
 
     def held(fn, label, got, again, want):
         """A radix-slice kernel against its plain version and its own
@@ -980,32 +1026,52 @@ def resident_phases() -> dict:
         part_err[fn] = max(part_err[fn],
                            check_against_plain(fn, label, got, want))
 
+    def radix_counts():
+        return (radix.HIST_LAUNCHES, radix.COUNT_LAUNCHES,
+                radix.SCATTER_LAUNCHES)
+
     for i, (start_bit, r, kind, n_vals) in enumerate(cases.RADIX_CASES):
         for n in (BIG, 37):
             keys, vals, _, _ = cases.tensors(cases.radix_case(
                 3000 + i, n, start_bit, r, kind, n_vals), dev)
             label = f"{kind}, bits {start_bit}+{r}, {n_vals} payloads, n={n}"
-            before = (radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES)
+            before = radix_counts()
             hist = radix.histogram(keys, start_bit, r)
             again = radix.histogram(keys, start_bit, r)
             held("histogram", label, hist, again,
                  ref.histogram(keys, start_bit, r))
+            # the one-sweep pass: bucket counts from the histogram, then
+            # from the digit-count kernel
             got = radix.partition_multi(keys, vals, start_bit, r, hist=hist)
             again = radix.partition_multi(keys, vals, start_bit, r)
             held("partition_multi", label, got, again,
                  ref.partition_multi(keys, vals, start_bit, r))
-            if (radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES) != \
-                    (before[0] + 3, before[1] + 2):
+            if radix_counts() != (before[0] + 2, before[1] + 1,
+                                  before[2] + 2):
                 raise AssertionError(f"radix {label}: the kernels did not "
                                      "launch as called")
-            print(f"histogram + partition_multi {label}: buckets filled "
-                  f"{int((hist.sum(0) > 0).sum())} ok", flush=True)
-    keys, (vals,), _, _ = cases.tensors(
-        cases.radix_case(3100, BIG, 0, 1, "negative", 1), dev)
-    got = radix.radix_sort(keys, vals)
-    held("partition_multi", f"radix_sort, negative keys, n={BIG}", got,
-         radix.radix_sort(keys, vals), ref.radix_sort(keys, vals))
-    print(f"radix_sort negative keys n={BIG}: unsigned order ok", flush=True)
+            passes = min((31 - start_bit) // r + 1,
+                         radix.MAX_COUNTERS >> r)
+            got = radix.digit_counts(keys, start_bit, r, passes)
+            held("digit_counts", f"{label}, {passes} passes", got,
+                 radix.digit_counts(keys, start_bit, r, passes),
+                 ref.digit_counts(keys, start_bit, r, passes))
+            print(f"histogram + partition_multi + digit_counts {label}: "
+                  f"buckets filled {int((hist.sum(0) > 0).sum())} ok",
+                  flush=True)
+    for kind, plan in SORT_SYNTHETIC:
+        keys, vals = cases.tensors(cases.sort_case(3100, BIG, kind), dev)
+        before = radix_counts()
+        got = radix.radix_sort(keys, vals)
+        if radix_counts() != (before[0], before[1] + 1,
+                              before[2] + len(plan)):
+            raise AssertionError(f"radix_sort {kind}: launched "
+                                 f"{radix_counts()} after {before}, "
+                                 f"expected passes {plan}")
+        held("partition_multi", f"radix_sort, {kind} keys, n={BIG}", got,
+             radix.radix_sort(keys, vals), ref.radix_sort(keys, vals))
+        print(f"radix_sort {kind} keys n={BIG}: passes {plan}, unsigned "
+              "order ok", flush=True)
     for kind in cases.PART_PROBE_KINDS:
         for bits, n in ((1, PART_N), (4, PART_N), (8, PART_N), (4, 37)):
             args = cases.tensors(cases.part_probe_case(3200 + bits, n, bits,
@@ -1307,7 +1373,9 @@ def resident_phases() -> dict:
             print(json.dumps({"call": fn, "n": r["n"], "ms": r["ms"],
                               "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
                               "plain_ms": r["plain_ms"],
-                              "library_ms": r["library_ms"]}))
+                              "library_ms": r["library_ms"],
+                              **({"turns": r["turns"]} if "turns" in r
+                                 else {})}))
         tot = {k: sum(r[k] for r in calls)
                for k in ("ms", "plain_ms", "bytes", "ops", "bytes_ms",
                          "ops_ms")}
@@ -1513,6 +1581,7 @@ def resident_phases() -> dict:
 
     part_launches, part_per = {}, {}
     hits, misses = cache.hits, cache.misses
+    radix.COUNT_LAUNCHES = 0
     for label, database in (("plain", db), ("packed", pdb)):
         for strategy in ("part", "part_loop"):
             reset7()
@@ -1558,6 +1627,10 @@ def resident_phases() -> dict:
                   f"partition_multi={launched[1]} part_probe={launched[2]} "
                   f"probe_join={launched[3]} bit-identical: oracle, second "
                   "pass, plain on card", flush=True)
+    if radix.COUNT_LAUNCHES:
+        raise AssertionError(f"the partitioned join launched the digit "
+                             f"counts {radix.COUNT_LAUNCHES} times: its "
+                             "pass takes its histogram's column sums")
     print(f"cache hits {cache.hits - hits} misses {cache.misses - misses}",
           flush=True)
 
@@ -1645,15 +1718,32 @@ def resident_phases() -> dict:
 
     t = phase(f"8 ORDER BY: LSB radix sort, SF {SF}")
     lo = db.lineorder
-    radix.HIST_LAUNCHES = radix.SCATTER_LAUNCHES = 0
+    n = lo.n_rows
+    passes = radix.sort_passes(32, SORT_BITS)
+
+    def counts8():
+        return [sel.LAUNCHES, hj.LAUNCHES, radix.HIST_LAUNCHES,
+                radix.COUNT_LAUNCHES, radix.SCATTER_LAUNCHES]
+
+    def plan_of(keys: np.ndarray) -> list:
+        """The passes radix_sort must launch on these keys: the plan of
+        the plain digit counts (on the card)."""
+        return radix.pass_plan(ref.digit_counts(
+            torch.from_numpy(keys).to(dev), 0, SORT_BITS, passes).cpu(),
+            keys.shape[0])
+
+    sel = mods["select_scan"]
+    date_plan = plan_of(lo["lo_orderdate"])
+    radix.HIST_LAUNCHES = radix.COUNT_LAUNCHES = radix.SCATTER_LAUNCHES = 0
     t0 = time.perf_counter()
     ordered = engine.order_by(lo, "lo_orderdate")
     order_by_s = time.perf_counter() - t0
-    ob_launches = [radix.HIST_LAUNCHES, radix.SCATTER_LAUNCHES]
-    passes = -(-32 // SORT_BITS)
-    if ob_launches != [passes, passes]:
-        raise AssertionError(f"order_by launched {ob_launches}, expected "
-                             f"{passes} histogram and scatter passes")
+    ob_launches = [radix.HIST_LAUNCHES, radix.COUNT_LAUNCHES,
+                   radix.SCATTER_LAUNCHES]
+    if ob_launches != [0, 1, len(date_plan)]:
+        raise AssertionError(f"order_by launched {ob_launches} (histogram, "
+                             f"digit counts, passes), expected 0, 1 and "
+                             f"the passes {date_plan} of {passes}")
     perm = np.argsort(lo["lo_orderdate"], kind="stable")
     for c in lo.columns:
         if not np.array_equal(ordered[c], lo[c][perm]):
@@ -1661,29 +1751,27 @@ def resident_phases() -> dict:
                                  "stable argsort order")
     print(f"order_by lineorder by lo_orderdate: {lo.n_rows} rows, "
           f"launches histogram={ob_launches[0]} "
-          f"partition_multi={ob_launches[1]}, order_by_s {order_by_s:.3f}, "
-          "equal to numpy's stable argsort", flush=True)
+          f"digit_counts={ob_launches[1]} partition_multi={ob_launches[2]}"
+          f" (passes run {date_plan}, skipped "
+          f"{sorted(set(range(passes)) - set(date_plan))}), order_by_s "
+          f"{order_by_s:.3f}, equal to numpy's stable argsort", flush=True)
 
     row_plan = (engine.QueryBuilder("ordered").scan("lineorder")
                 .where_range("lo_discount", 1, 3)
                 .hash_join("lo_orderdate", "date", "d_datekey",
                            dim_filter=P.EqPred("d_year", 1993))
                 .order_by("lo_revenue").build())
-    sel = mods["select_scan"]
-
-    def counts8():
-        return [sel.LAUNCHES, hj.LAUNCHES, radix.HIST_LAUNCHES,
-                radix.SCATTER_LAUNCHES]
-
-    before = counts8()
-    got = compile_plan(row_plan, "opat").execute(db, cache=cache)
-    row_launches = [a - b for a, b in zip(counts8(), before)]
-    if row_launches != [1, 1, passes, passes]:
-        raise AssertionError(f"row plan launched {row_launches}")
     disc = lo["lo_discount"]
     year = db.date["d_datekey"][db.date["d_year"] == 1993]
     survivors = np.flatnonzero((disc >= 1) & (disc <= 3) &
                                np.isin(lo["lo_orderdate"], year))
+    revenue_plan = plan_of(lo["lo_revenue"][survivors])
+    before = counts8()
+    got = compile_plan(row_plan, "opat").execute(db, cache=cache)
+    row_launches = [a - b for a, b in zip(counts8(), before)]
+    if row_launches != [1, 1, 0, 1, len(revenue_plan)]:
+        raise AssertionError(f"row plan launched {row_launches}, expected "
+                             f"[1, 1, 0, 1, {len(revenue_plan)}]")
     want = survivors[np.argsort(lo["lo_revenue"][survivors], kind="stable")]
     for other, what in ((want, "numpy's stable argsort"),
                         (compile_plan(row_plan, "opat").execute(
@@ -1694,32 +1782,73 @@ def resident_phases() -> dict:
         if not np.array_equal(got, other):
             raise AssertionError(f"row plan: differs from the {what}")
     print(f"row plan filter + join + OrderBy(lo_revenue): {len(got)} rows, "
-          f"launches select_scan/probe_join/histogram/partition_multi "
-          f"{row_launches}, equal to numpy's stable argsort, a second pass "
-          "and the plain versions on the card", flush=True)
+          f"launches select_scan/probe_join/histogram/digit_counts/"
+          f"partition_multi {row_launches} (passes run {revenue_plan}), "
+          "equal to numpy's stable argsort, a second pass and the plain "
+          "versions on the card", flush=True)
 
-    keys = lo.on_device("lo_orderdate", dev)
-    vals = torch.arange(lo.n_rows, dtype=torch.int32, device=dev)
-    n = lo.n_rows
-    sort_bytes = 16 * n             # keys and row ids read and written once
-    sort_row = {"n": n, "passes": passes,
-                "ms": event_ms(lambda: radix.radix_sort(keys, vals),
-                               KERNEL_REPS),
-                "plain_ms": event_ms(lambda: ref.radix_sort(keys, vals), 1),
-                "library_ms": event_ms(
-                    lambda: torch.sort(keys, stable=True), KERNEL_REPS),
-                "bound_ms": sort_bytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes"}
-    hist = radix.histogram(keys, 0, SORT_BITS)
-    sort_row["pass_histogram_ms"] = event_ms(
-        lambda: radix.histogram(keys, 0, SORT_BITS), KERNEL_REPS)
-    sort_row["pass_scatter_ms"] = event_ms(
-        lambda: radix.partition_multi(keys, (vals,), 0, SORT_BITS,
-                                      hist=hist), KERNEL_REPS)
-    sort_row["bound_share"] = sort_row["bound_ms"] / sort_row["ms"]
-    print("radix_sort " + json.dumps(sort_row), flush=True)
-    for entry in kernels[-3:-1]:
-        entry["launches_order_by"] = ob_launches[0]
+    # radix_sort of 120 M keys + int32 row ids: SSB's dates (two passes
+    # skipped) and uniform random 32-bit keys (none skipped), in turns
+    # with torch.sort; the design moves 4n bytes for the digit counts and
+    # 16n a pass, the function itself 16n (its bound)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    sort_keys = {"lo_orderdate": lo.on_device("lo_orderdate", dev),
+                 "random32": torch.randint(-(1 << 31), 1 << 31, (n,),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)}
+    sort_rows = {}
+    for name, keys in sort_keys.items():
+        counts = radix.digit_counts(keys, 0, SORT_BITS, passes)
+        plan = radix.pass_plan(counts.cpu(), n)
+        got = radix.radix_sort(keys, vals)
+        order = torch.sort(keys.to(torch.int64) & 0xFFFFFFFF,
+                           stable=True).indices.to(torch.int32)
+        if not (torch.equal(got[1], order) and
+                torch.equal(got[0], keys[order])):
+            raise AssertionError(f"radix_sort {name}: not a stable sort by "
+                                 "the keys as unsigned words")
+        del got, order
+        row = {"n": n, "passes": passes, "passes_run": plan,
+               "turns": turns(lambda: radix.radix_sort(keys, vals),
+                              lambda: torch.sort(keys, stable=True),
+                              calls=1),
+               "plain_ms": event_ms(lambda: ref.radix_sort(keys, vals), 1),
+               "counts_ms": event_ms(lambda: radix.digit_counts(
+                   keys, 0, SORT_BITS, passes), KERNEL_REPS),
+               "pass_ms": event_ms(lambda: radix.sweep(
+                   keys, (vals,), 0, SORT_BITS, counts[0]), KERNEL_REPS),
+               "bound_ms": 16 * n / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "design_bytes": 4 * n + 16 * n * len(plan)}
+        row["ms"] = row["turns"]["kernel_median"]
+        row["library_ms"] = row["turns"]["library_median"]
+        row["design_GBps"] = row["design_bytes"] / row["ms"] / 1e6
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        sort_rows[name] = row
+        print(f"radix_sort {name} " + json.dumps(row), flush=True)
+    counts_row = {"n": n, "passes": passes,
+                  "ms": sort_rows["lo_orderdate"]["counts_ms"],
+                  "plain_ms": event_ms(lambda: ref.digit_counts(
+                      sort_keys["lo_orderdate"], 0, SORT_BITS, passes), 1),
+                  "bound_ms": 4 * n / HBM_BYTES_PER_S * 1e3}
+    del sort_keys, vals
+    kernels.append({
+        "name": "digit_counts", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/radix_part.cu",
+        "replaces": "src/repro/kernels/radix_part.py:111",
+        "launches": ob_launches[1],
+        "max_abs_err": part_err["digit_counts"], "ms": counts_row["ms"],
+        "plain_ms": counts_row["plain_ms"],
+        "bound_ms": counts_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
+    for entry, launched in zip(kernels[-4:-2], ob_launches[::2]):
+        entry["launches_order_by"] = launched
+    kernels[-3]["radix_sort"] = {
+        k: {x: sort_rows[k][x] for x in ("ms", "library_ms", "plain_ms",
+                                         "bound_ms", "passes_run")}
+        for k in sort_rows}
     print(f"phase8_s {time.perf_counter() - t:.3f}")
 
     t = phase(f"9 shared waves: the 13 queries, flight 1, flight 2, "
@@ -2079,6 +2208,38 @@ def resident_phases() -> dict:
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
             else "operations", "library_ms": None})
+    # project of 2^28 rows, the paper's Q1 (§4.1) at a size the memory
+    # bounds: with and without the sigmoid, each in turns with torch.sub,
+    # beside the 12n-byte bound
+    pj = mods["project"]
+    x1 = torch.randn(PROJECT_ROWS, generator=gen, device=dev)
+    x2 = torch.randn(PROJECT_ROWS, generator=gen, device=dev)
+    got = pj.project(x1, x2, 1.0, -1.0)
+    if not (torch.equal(got, ref.project(x1, x2, 1.0, -1.0)) and
+            torch.equal(got, torch.sub(x1, x2))):
+        raise AssertionError("project of 2^28 rows differs from its plain "
+                             "version or torch.sub")
+    torch.testing.assert_close(
+        pj.project(x1, x2, 0.75, -1.25, sigmoid=True),
+        ref.project(x1, x2, 0.75, -1.25, sigmoid=True), rtol=1e-6, atol=0)
+    del got
+    big = {"n": PROJECT_ROWS,
+           "bound_ms": 12 * PROJECT_ROWS / HBM_BYTES_PER_S * 1e3,
+           "plain": turns(lambda: pj.project(x1, x2, 1.0, -1.0),
+                          lambda: torch.sub(x1, x2), calls=KERNEL_REPS),
+           "sigmoid": turns(
+               lambda: pj.project(x1, x2, 1.0, -1.0, sigmoid=True),
+               lambda: torch.sub(x1, x2), calls=KERNEL_REPS)}
+    big["bound_share"] = big["bound_ms"] / big["plain"]["kernel_median"]
+    big["sigmoid_bound_share"] = \
+        big["bound_ms"] / big["sigmoid"]["kernel_median"]
+    print("project 2^28 " + json.dumps(big), flush=True)
+    next(e for e in kernels if e["name"] == "project")["rows_2e28"] = {
+        "ms": big["plain"]["kernel_median"],
+        "sigmoid_ms": big["sigmoid"]["kernel_median"],
+        "library_ms": big["plain"]["library_median"],
+        "bound_ms": big["bound_ms"]}
+    del x1, x2
     print(f"phase10_s {time.perf_counter() - t:.3f}")
     del base, vals, sum_inputs, tables
 

@@ -346,6 +346,32 @@ def radix_case(seed: int, n: int, start_bit: int, r: int,
     return keys, tuple(vals), start_bit, r
 
 
+SORT_KINDS = ("negative", "top_byte", "equal", "date")
+
+
+def sort_case(seed: int, n: int, kind: str = "negative") -> tuple:
+    """(keys, row numbers) for a radix sort, int32, by how many of its
+    passes move rows: "negative" over all of int32 (at a few thousand rows
+    every pass does); "top_byte" random low 24 bits under one top byte
+    (an 8-bit sort's top pass moves nothing); "equal" one key >= 0 (no
+    pass moves a row); "date" day indices in [0, 2556), as SSB's lo_orderdate
+    (bits 12 and up are zero: two of an 8-bit sort's four passes move
+    nothing)."""
+    rng = np.random.default_rng(seed)
+    if kind == "negative":
+        keys = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    elif kind == "top_byte":
+        keys = rng.integers(0, 1 << 24, n, dtype=np.int64) | (0x5A << 24)
+    elif kind == "equal":
+        keys = np.full(n, int(rng.integers(0, 1 << 31)), np.int64)
+    elif kind == "date":
+        keys = rng.integers(0, 2556, n, dtype=np.int64)
+    else:
+        raise ValueError(f"sort_case kind {kind!r} not in {SORT_KINDS}")
+    return (keys.astype(np.uint32).view(np.int32),
+            np.arange(n, dtype=np.int32))
+
+
 PART_PROBE_KINDS = ("uniform", "hot", "empty_parts", "duplicates", "dead",
                     "empty_table")
 

@@ -13,9 +13,10 @@ ignores it), named by a hash of the source, every shared header
 or a failed build raises: there is no fallback.
 
 Every library exports ``kernel_error_string(int)``; ``check`` turns a
-launcher's nonzero return into a ``RuntimeError`` with that text, and
+launcher's nonzero return into a ``RuntimeError`` with that text,
+``launch`` calls a launcher on the current stream and checks it, and
 ``check_stream`` is what every wrapper asks of a tensor before it passes
-its pointer.
+its pointer (``streams_ok`` the same as one cheap test).
 """
 from __future__ import annotations
 
@@ -96,6 +97,9 @@ def build(name: str) -> str:
 def load(name: str, signatures: Signatures) -> ctypes.CDLL:
     """The kernel's library, built if needed, loaded once per process,
     with ``signatures`` and ``kernel_error_string`` bound."""
+    lib = _LOADED.get(name)          # loaded: no lock on a launch's path
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
@@ -115,6 +119,28 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
                            f"({lib.kernel_error_string(rc).decode()})")
+
+
+def launch(lib: ctypes.CDLL, fn, device: torch.device, what: str,
+           *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream and raise if it returns a CUDA error.  The per-call path costs
+    little: the device guard is entered only when ``device`` is not the
+    current device, and two calls of ``torch._C`` replace public ones
+    that cost more on every launch: ``_cuda_getCurrentRawStream`` (the
+    call Triton's launcher makes) where ``torch.cuda.current_stream``
+    builds a ``Stream`` object, and ``_cuda_getDevice`` where
+    ``torch.cuda.current_device`` first checks lazy initialisation (a
+    CUDA tensor exists, so it has happened)."""
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
+    if rc:
+        check(lib, rc, what)
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,3 +166,16 @@ def check_stream(t: torch.Tensor, what: str, n: int, device: torch.device,
                          f"got {t.dtype} {tuple(t.shape)}")
     if t.shape[0] != n:
         raise ValueError(f"{what} has {t.shape[0]} rows, expected {n}")
+
+
+def streams_ok(n: int, index: int, dtype: torch.dtype,
+               *tensors: torch.Tensor) -> bool:
+    """Whether each tensor is a contiguous 1-D ``dtype`` tensor of ``n``
+    rows on CUDA device ``index``: what ``check_stream`` asks, as one
+    cheap test for a wrapper whose calls are their fixed cost.  The
+    wrapper calls ``check_stream`` for the error when it is False."""
+    for t in tensors:
+        if t.get_device() != index or t.dtype is not dtype or \
+                t.dim() != 1 or not t.is_contiguous() or t.shape[0] != n:
+            return False
+    return True

@@ -179,8 +179,9 @@ def radix_partition_multi(keys, vals, start_bit: int, r: int,
                           mode: str = "auto", hist=None):
     """Stable partition pass with N payload columns riding the key ->
     (keys', (vals0', ...)): the partitioned join's shuffle.  ``hist``:
-    the pass's ``radix_histogram`` when the caller has it (the kernel
-    then launches no histogram of its own; the plain pass needs none)."""
+    the pass's ``radix_histogram`` when the caller has it (its column sums
+    are then the pass's bucket counts and the kernel path launches no
+    digit count of its own; the plain pass needs none)."""
     vals = tuple(vals)
     if use_kernel(mode, keys.device):
         return _radix.partition_multi(keys, vals, start_bit, r, hist=hist)
@@ -197,7 +198,9 @@ def radix_partition(keys, vals, start_bit: int, r: int, mode: str = "auto"):
 def radix_sort(keys, vals, mode: str = "auto", r: int = 8,
                key_bits: int = 32):
     """LSB radix sort by the keys as unsigned 32-bit words, stable ->
-    (keys', vals'): ceil(key_bits / r) partition passes."""
+    (keys', vals'): ceil(key_bits / r) partition passes; the kernel path
+    counts every pass's digits in one launch and runs only the passes
+    that move rows (``radix_part.pass_plan``)."""
     fn = _radix.radix_sort if use_kernel(mode, keys.device) else \
         _ref.radix_sort
     return fn(keys, vals, key_bits=key_bits, r=r)

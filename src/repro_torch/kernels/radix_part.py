@@ -1,47 +1,62 @@
-"""Radix partitioning on the card: per-tile bucket histograms and stable
-partition passes (paper §4.4; the partitioned join's shuffle and the LSB
-radix sort behind ORDER BY).
+"""Radix partitioning on the card: per-tile bucket histograms, every
+pass's digit counts in one read, and one-sweep stable partition passes
+(paper §4.4; the partitioned join's shuffle and the LSB radix sort behind
+ORDER BY).
 
 Wrappers of the hand-written CUDA kernels ``csrc/radix_part.cu``, the port
 of the Pallas TPU kernels ``repro/kernels/radix_part.py::histogram`` and
 ``partition_multi`` (``partition`` and ``radix_sort`` wrap the latter, as
 in the reference).  Same contracts as ``ref.histogram``,
-``ref.partition_multi``, ``ref.partition`` and ``ref.radix_sort``, bit for
-bit: a key's bucket is bits [start_bit, start_bit + r) of the key as an
-unsigned word, r <= 8, tiles of 2048 rows.
+``ref.digit_counts``, ``ref.partition_multi``, ``ref.partition`` and
+``ref.radix_sort``, bit for bit: a key's bucket is bits [start_bit,
+start_bit + r) of the key as an unsigned word, r <= 8; histogram tiles of
+2048 rows.
 
-Between the two kernels runs the bucket-major exclusive scan of the
-histogram (the paper's K2), in plain torch: the reference writes it in
-plain jnp outside Pallas (``radix_part.py:124-125``).
+A pass (``sweep``) is one launch: it places each tile's rows by the
+pass's global bucket counts and a look-back over the tiles before it, so
+no per-tile offsets array sits between two launches.  ``partition_multi``
+takes those counts from the digit-count kernel, or from the column sums
+of a ``histogram`` its caller already has.  ``radix_sort`` counts every
+pass's digits in one read, brings the counts to the host once, and runs
+only the passes that move rows (``pass_plan``).
 
 The wrappers launch the kernels on CUDA tensors or raise; the choice of
-the plain version for a CPU tensor is ``ops``' alone.  ``HIST_LAUNCHES``
-counts the histogram kernel's launches of this process,
-``SCATTER_LAUNCHES`` the scatter kernel's.
+the plain version for a CPU tensor is ``ops``' alone.  Launches of this
+process: ``HIST_LAUNCHES`` of the histogram kernel, ``COUNT_LAUNCHES`` of
+the digit-count kernel, ``SCATTER_LAUNCHES`` of the pass kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 HIST_LAUNCHES = 0
+COUNT_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
 MAX_BITS = 8
 MAX_VALS = 3
+MAX_COUNTERS = 1024             # passes x 2^r digit counts of one read
 
 _VAL_TYPES = (torch.int32, torch.float32, torch.uint32)
 _SIGNATURES = {
     "radix_histogram_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]),
-    "radix_scatter_launch": (ctypes.c_int, [
+    "radix_shape": (ctypes.c_int, [ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_longlong)]),
+    "radix_counts_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
+    "radix_sweep_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] +
         [ctypes.c_void_p] * 8),
+    "radix_sweep_status_words": (ctypes.c_longlong, [ctypes.c_longlong,
+                                                     ctypes.c_int]),
     "radix_tile_rows": (ctypes.c_longlong, []),
 }
 
@@ -63,8 +78,17 @@ def _check(keys: torch.Tensor, start_bit: int, r: int, what: str) -> int:
     return n
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def sort_passes(key_bits: int, r: int) -> int:
+    """Passes of r bits of an LSB sort of ``key_bits``-bit keys."""
+    return -(-key_bits // r)
+
+
+def pass_plan(counts, n: int) -> List[int]:
+    """The passes of an LSB sort that move rows, in order: pass p runs
+    unless one bucket holds all n rows, since a stable pass with a single
+    non-empty bucket is the identity.  ``counts``: the sort's (passes,
+    2^r) digit counts on the host (a tensor or an array)."""
+    return [p for p, row in enumerate(counts.tolist()) if max(row) < n]
 
 
 def histogram(keys: torch.Tensor, start_bit: int, r: int) -> torch.Tensor:
@@ -78,12 +102,72 @@ def histogram(keys: torch.Tensor, start_bit: int, r: int) -> torch.Tensor:
                        device=keys.device)
     if n == 0:
         return hist
-    with torch.cuda.device(keys.device):
-        rc = lib.radix_histogram_launch(keys.data_ptr(), n, start_bit, r,
-                                        hist.data_ptr(), _stream(keys.device))
-    build.check(lib, rc, "radix histogram")
+    build.launch(lib, lib.radix_histogram_launch, keys.device,
+                 "radix histogram", keys.data_ptr(), n, start_bit, r,
+                 hist.data_ptr())
     HIST_LAUNCHES += 1
     return hist
+
+
+def digit_counts(keys: torch.Tensor, start_bit: int, r: int,
+                 passes: int = 1) -> torch.Tensor:
+    """The digits of ``passes`` passes of r bits from ``start_bit``, counted
+    in one read -> (passes, 2^r) int32 on the keys' device: row p counts
+    the keys' buckets at bits [start_bit + p·r, + r).  passes · 2^r <=
+    1024 and start_bit + (passes - 1)·r <= 31."""
+    global COUNT_LAUNCHES
+    n = _check(keys, start_bit, r, "digit_counts")
+    if passes < 1 or passes << r > MAX_COUNTERS or \
+            start_bit + (passes - 1) * r > 31:
+        raise ValueError(f"digit_counts: {passes} passes of {r} bits from "
+                         f"bit {start_bit}: at most {MAX_COUNTERS} counters "
+                         "and a last pass starting at bit 31 or below")
+    if n == 0:
+        return torch.zeros((passes, 1 << r), dtype=torch.int32,
+                           device=keys.device)
+    counts = torch.empty((passes, 1 << r), dtype=torch.int32,
+                         device=keys.device)
+    lib = library()
+    grid = build.resident(lib, "radix_shape", keys.device.index, 0)
+    build.launch(lib, lib.radix_counts_launch, keys.device,
+                 "radix digit counts", keys.data_ptr(), n, start_bit, r,
+                 passes, grid, counts.data_ptr())
+    COUNT_LAUNCHES += 1
+    return counts
+
+
+def sweep(keys: torch.Tensor, vals: Sequence[torch.Tensor], start_bit: int,
+          r: int, totals: torch.Tensor
+          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One stable radix-partition pass in one launch -> (keys', (vals0',
+    ...)).  ``totals``: (2^r,) int32 on the keys' device, this pass's
+    bucket counts of these keys (a row of ``digit_counts``, or the column
+    sums of their ``histogram``); the pass trusts them, and other counts
+    give another permutation (rows placed past n are dropped)."""
+    global SCATTER_LAUNCHES
+    vals = tuple(vals)
+    n = _check(keys, start_bit, r, "partition pass")
+    if len(vals) > MAX_VALS:
+        raise ValueError(f"a partition pass carries at most {MAX_VALS} "
+                         f"payload columns, got {len(vals)}")
+    for j, v in enumerate(vals):
+        build.check_stream(v, f"vals[{j}]", n, keys.device, _VAL_TYPES)
+    build.check_stream(totals, "totals", 1 << r, keys.device)
+    out_keys = torch.empty_like(keys)
+    outs = tuple(torch.empty_like(v) for v in vals)
+    if n == 0:
+        return out_keys, outs
+    lib = library()
+    status = torch.empty((lib.radix_sweep_status_words(n, r),),
+                         dtype=torch.int32, device=keys.device)
+    ptrs = [v.data_ptr() for v in vals] + [0] * (MAX_VALS - len(vals))
+    optrs = [o.data_ptr() for o in outs] + [0] * (MAX_VALS - len(vals))
+    build.launch(lib, lib.radix_sweep_launch, keys.device, "radix pass",
+                 keys.data_ptr(), n, start_bit, r, totals.data_ptr(),
+                 status.data_ptr(), len(vals), *ptrs, *optrs,
+                 out_keys.data_ptr())
+    SCATTER_LAUNCHES += 1
+    return out_keys, outs
 
 
 def partition_multi(keys: torch.Tensor, vals: Sequence[torch.Tensor],
@@ -94,43 +178,21 @@ def partition_multi(keys: torch.Tensor, vals: Sequence[torch.Tensor],
     (keys', (vals0', ...)), every column permuted by the same stable
     bucket order.  keys: (n,) int32; vals: (n,) 4-byte tensors.  ``hist``:
     this pass's ``histogram`` of these keys when the caller already has it
-    (the partitioned join reads its column sums), else it is computed
-    here; the scatter places each tile's rows by it."""
-    global SCATTER_LAUNCHES
-    vals = tuple(vals)
+    (the partitioned join reads its column sums): its column sums are the
+    pass's bucket counts and no count kernel runs; else the digit-count
+    kernel counts them."""
     n = _check(keys, start_bit, r, "partition_multi")
-    if len(vals) > MAX_VALS:
-        raise ValueError(f"partition_multi carries at most {MAX_VALS} "
-                         f"payload columns, got {len(vals)}")
-    for j, v in enumerate(vals):
-        build.check_stream(v, f"vals[{j}]", n, keys.device, _VAL_TYPES)
-    out_keys = torch.empty_like(keys)
-    outs = tuple(torch.empty_like(v) for v in vals)
-    if n == 0:
-        return out_keys, outs
-    lib = library()
-    tiles = -(-n // lib.radix_tile_rows())
     if hist is None:
-        hist = histogram(keys, start_bit, r)
-    elif hist.shape != (tiles, 1 << r) or hist.dtype != torch.int32 or \
-            hist.device != keys.device or not hist.is_contiguous():
-        raise ValueError(f"hist must be contiguous ({tiles}, {1 << r}) int32 "
-                         f"on {keys.device}, got {hist.dtype} "
-                         f"{tuple(hist.shape)} on {hist.device}")
-    # the paper's K2: bucket-major exclusive scan of the (tile, bucket)
-    # counts, read by the scatter as offsets[bucket * tiles + tile]
-    flat = hist.t().reshape(-1)
-    offsets = torch.cumsum(flat, 0, dtype=torch.int32) - flat
-    ptrs = [v.data_ptr() for v in vals] + [0] * (MAX_VALS - len(vals))
-    optrs = [o.data_ptr() for o in outs] + [0] * (MAX_VALS - len(vals))
-    with torch.cuda.device(keys.device):
-        rc = lib.radix_scatter_launch(
-            keys.data_ptr(), n, start_bit, r, hist.data_ptr(),
-            offsets.data_ptr(), len(vals),
-            *ptrs, *optrs, out_keys.data_ptr(), _stream(keys.device))
-    build.check(lib, rc, "radix scatter")
-    SCATTER_LAUNCHES += 1
-    return out_keys, outs
+        totals = digit_counts(keys, start_bit, r)[0]
+    else:
+        tiles = -(-n // library().radix_tile_rows())
+        if hist.shape != (tiles, 1 << r) or hist.dtype != torch.int32 or \
+                hist.device != keys.device or not hist.is_contiguous():
+            raise ValueError(f"hist must be contiguous ({tiles}, {1 << r}) "
+                             f"int32 on {keys.device}, got {hist.dtype} "
+                             f"{tuple(hist.shape)} on {hist.device}")
+        totals = hist.sum(0, dtype=torch.int32)
+    return sweep(keys, vals, start_bit, r, totals)
 
 
 def partition(keys: torch.Tensor, vals: torch.Tensor, start_bit: int,
@@ -142,9 +204,17 @@ def partition(keys: torch.Tensor, vals: torch.Tensor, start_bit: int,
 
 def radix_sort(keys: torch.Tensor, vals: torch.Tensor, key_bits: int = 32,
                r: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LSB radix sort: ceil(key_bits / r) stable partition passes (a
-    histogram and a scatter launch each), keys ordered as unsigned 32-bit
-    words -> (keys', vals')."""
-    for p in range(-(-key_bits // r)):
-        keys, vals = partition(keys, vals, p * r, r)
+    """LSB radix sort by ceil(key_bits / r) stable passes of r bits, keys
+    ordered as unsigned 32-bit words -> (keys', vals').  One launch counts
+    every pass's digits; the counts come to the host once (one sync), and
+    only the passes of ``pass_plan`` launch, one launch each.  When none
+    moves a row the outputs are copies of the inputs."""
+    n = _check(keys, 0, r, "radix_sort")
+    build.check_stream(vals, "vals", n, keys.device, _VAL_TYPES)
+    counts = digit_counts(keys, 0, r, sort_passes(key_bits, r))
+    plan = pass_plan(counts.cpu(), n)
+    if not plan:
+        return keys.clone(), vals.clone()
+    for p in plan:
+        keys, (vals,) = sweep(keys, (vals,), p * r, r, counts[p])
     return keys, vals

@@ -479,6 +479,18 @@ def histogram(keys: torch.Tensor, start_bit: int, r: int,
         n_tiles, nb).to(torch.int32)
 
 
+def digit_counts(keys: torch.Tensor, start_bit: int, r: int,
+                 passes: int = 1) -> torch.Tensor:
+    """Global bucket counts of ``passes`` passes of r bits from
+    ``start_bit`` -> (passes, 2^r) int32: row p counts the keys' buckets
+    at bits [start_bit + p·r, + r), the column sums of that pass's
+    ``histogram``."""
+    return torch.stack([
+        torch.bincount(bucket_of(keys, start_bit + p * r, r),
+                       minlength=1 << r) for p in range(passes)]).to(
+                           torch.int32)
+
+
 def partition_multi(keys: torch.Tensor, vals: Sequence[torch.Tensor],
                     start_bit: int, r: int
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:

@@ -21,12 +21,14 @@ The port of ``repro.sql.compile``.  Five strategies lower so far:
             packed fact table the leading range filter selects straight
             off the word stream (``select_scan_packed``).  A row plan's
             trailing ``OrderBy`` is an LSB radix sort of the survivors
-            by the key (``radix_sort``: four 8-bit histogram + scatter
-            passes).
+            by the key (``radix_sort``: one launch counts the digits of
+            its four 8-bit passes, then one one-sweep launch for each
+            pass whose rows do not all share one bucket).
 ``part``  — opat with every join radix-partitioned (paper §4.4, Fig. 8):
             the live rows' keys, row ids and group ids move in one
             partition pass by the key's low ``part_bits`` bits
-            (``histogram`` + ``partition_multi``), then one
+            (``histogram``, then a one-sweep ``partition_multi`` by
+            its column sums), then one
             ``part_probe`` launch probes every partition against its own
             table of the packed ``(P, S)`` layout.
 ``part_loop`` — the same partition pass, then one ``probe_join`` per

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch import cases
-from repro_torch.kernels import (agg, hash_join, multi_fused, ops,
+from repro_torch.kernels import (agg, build, hash_join, multi_fused, ops,
                                  part_probe, project, radix_part, ref,
                                  select_scan, ssb_fused, unpack)
 from repro_torch.sql import compile as compile_, engine, hashtable, ssb, \
@@ -184,6 +184,19 @@ def test_project_kernel_matches_plain(cuda, n, sigmoid):
             torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
         else:
             assert torch.equal(got, want)
+
+
+def test_project_launch_asks_no_launch_shape(cuda):
+    """The grid follows from n alone: a call asks the runtime for no
+    launch shape (``build.resident`` is not consulted), on aligned and
+    unaligned pointers and a ragged end."""
+    x1, x2 = _on(cases.project_case(5, 1003), cuda)
+    info = build.resident.cache_info()
+    for lo in (0, 1):
+        got = _launched(project, "project", x1[lo:], x2[lo:], 1.0, -1.0)
+        assert torch.equal(got, torch.sub(x1[lo:], x2[lo:]))
+    after = build.resident.cache_info()
+    assert (after.hits, after.misses) == (info.hits, info.misses)
 
 
 @pytest.mark.parametrize("n", [1, 37, 100_003])
@@ -368,20 +381,98 @@ def test_radix_kernels_bit_identical_to_plain(cuda, i, n):
     assert _equal(radix_part.partition_multi(keys, vals, start_bit, r), got)
 
 
+def _counters():
+    return (radix_part.HIST_LAUNCHES, radix_part.COUNT_LAUNCHES,
+            radix_part.SCATTER_LAUNCHES)
+
+
+def _planned(keys, r, key_bits=32):
+    """The passes ``radix_sort`` must launch: the plan of the plain digit
+    counts."""
+    counts = ref.digit_counts(keys, 0, r, radix_part.sort_passes(key_bits, r))
+    return radix_part.pass_plan(counts.cpu(), keys.shape[0])
+
+
 @pytest.mark.parametrize("r", [4, 7, 8])
 @pytest.mark.parametrize("kind", ["negative", "duplicates"])
 def test_radix_sort_kernel_bit_identical_to_plain(cuda, kind, r):
+    """One digit-count launch, then one pass launch for each pass the
+    plan keeps (every pass, on these keys); no histogram."""
     keys, (vals,), _, _ = _on(cases.radix_case(r, 100_003, 0, 1, kind, 1),
                               cuda)
-    before = radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES
+    before = _counters()
     got = radix_part.radix_sort(keys, vals, r=r)
-    passes = -(-32 // r)
-    assert (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES) == \
-        (before[0] + passes, before[1] + passes)
+    plan = _planned(keys, r)
+    assert plan == list(range(-(-32 // r)))
+    assert _counters() == (before[0], before[1] + 1, before[2] + len(plan))
     assert _equal(got, ref.radix_sort(keys, vals, r=r))
     assert _equal(radix_part.radix_sort(keys, vals, r=r), got)
     order = np.argsort(keys.cpu().numpy().view(np.uint32), kind="stable")
     np.testing.assert_array_equal(got[1].cpu().numpy(), order)
+
+
+SWEEP_TILE = 4096               # csrc/radix_part.cu's kSweepTile
+
+
+@pytest.mark.parametrize("start_bit", [0, 24])
+@pytest.mark.parametrize("n_vals", [0, 1, 2, 3])
+@pytest.mark.parametrize("r", [1, 4, 7, 8])
+@pytest.mark.parametrize("n", [37, SWEEP_TILE - 1, SWEEP_TILE,
+                               SWEEP_TILE + 1, (1 << 20) + 7])
+def test_radix_sweep_bit_identical_to_plain(cuda, n, r, n_vals, start_bit):
+    """The one-sweep pass at ragged and whole tiles, every payload count:
+    the plain pass's bits, a second run's, and its bits when the bucket
+    counts come from a histogram's column sums."""
+    keys, vals, _, _ = cases.radix_case(n + r, n, start_bit, r, "negative",
+                                        max(n_vals, 1))
+    keys, *vals = _on((keys, *vals[:n_vals]), cuda)
+    before = _counters()
+    got = radix_part.partition_multi(keys, vals, start_bit, r)
+    assert _counters() == (before[0], before[1] + 1, before[2] + 1)
+    want = ref.partition_multi(keys, vals, start_bit, r)
+    assert _equal(got, want) and len(got[1]) == n_vals
+    assert _equal(radix_part.partition_multi(keys, vals, start_bit, r), got)
+    hist = radix_part.histogram(keys, start_bit, r)
+    before = _counters()
+    assert _equal(radix_part.partition_multi(keys, vals, start_bit, r,
+                                             hist=hist), got)
+    assert _counters() == (before[0], before[1], before[2] + 1)
+
+
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+@pytest.mark.parametrize("kind", cases.SORT_KINDS)
+def test_radix_sort_launches_only_the_passes_that_move_rows(cuda, kind, n):
+    """Keys whose high bytes are one value (SSB dates, a constant top
+    byte) or all equal: the skipped passes launch nothing and the bits are
+    the plain sort's; a sort that skips every pass returns copies."""
+    keys, vals = _on(cases.sort_case(n, n, kind), cuda)
+    before = _counters()
+    got = radix_part.radix_sort(keys, vals)
+    plan = _planned(keys, 8)
+    expect = {"negative": [0, 1, 2, 3], "top_byte": [0, 1, 2],
+              "equal": [], "date": [0, 1]}[kind]
+    assert plan == (expect if n > 1 else [])
+    assert _counters() == (before[0], before[1] + 1, before[2] + len(plan))
+    assert _equal(got, ref.radix_sort(keys, vals))
+    assert _equal(radix_part.radix_sort(keys, vals), got)
+    if not plan:
+        assert got[0].data_ptr() != keys.data_ptr()
+        assert got[1].data_ptr() != vals.data_ptr()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+@pytest.mark.parametrize("bits", [(0, 8, 4), (0, 7, 5), (0, 1, 32),
+                                  (24, 8, 1), (8, 4, 6)])
+def test_digit_counts_kernel_matches_plain(cuda, bits, n, offset):
+    """Every pass's counts in one launch, keys 16-byte aligned or not."""
+    start_bit, r, passes = bits
+    keys, _, _, _ = cases.radix_case(n, n + offset, 0, 1, "negative", 1)
+    keys = _on((keys,), cuda)[0][offset:]
+    got = _launched(radix_part, "digit_counts", keys, start_bit, r, passes,
+                    counter="COUNT_LAUNCHES")
+    assert torch.equal(got, ref.digit_counts(keys, start_bit, r, passes))
+    assert int(got.sum()) == n * passes
 
 
 @pytest.mark.parametrize("n", [1, 37, 100_003])
@@ -405,6 +496,12 @@ def test_radix_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="hist must be"):
         radix_part.partition_multi(keys, vals, 0, 8,
                                    hist=radix_part.histogram(keys, 0, 4))
+    for start_bit, r, passes in ((0, 8, 5), (28, 4, 2), (0, 1, 33)):
+        with pytest.raises(ValueError, match="counters"):
+            radix_part.digit_counts(keys, start_bit, r, passes)
+    with pytest.raises(ValueError, match="totals"):
+        radix_part.sweep(keys, vals, 0, 8,
+                         radix_part.digit_counts(keys, 0, 4)[0])
     args = list(_on(cases.part_probe_case(1, 1000, 4), cuda))
     with pytest.raises(ValueError, match="powers of 2"):
         part_probe.part_probe(*args[:5], args[5][:3], args[6][:3], 3)
@@ -444,10 +541,12 @@ def test_part_queries_on_card_match_oracle(cuda, strategy):
 
 
 def test_order_by_on_card_matches_numpy(cuda):
+    """One digit-count launch and the two passes that move rows (the
+    dates' bits 16-31 are zero), no histogram."""
     db = ssb.generate(sf=0.05, seed=7)
-    before = radix_part.HIST_LAUNCHES
+    before = _counters()
     out = engine.order_by(db.lineorder, "lo_orderdate")
-    assert radix_part.HIST_LAUNCHES == before + 4
+    assert _counters() == (before[0], before[1] + 1, before[2] + 2)
     perm = np.argsort(db.lineorder["lo_orderdate"], kind="stable")
     for c, v in db.lineorder.columns.items():
         np.testing.assert_array_equal(out[c], v[perm])

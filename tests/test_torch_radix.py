@@ -1,6 +1,8 @@
 """The port's radix slice on the CPU against the reference package: the
-plain ``histogram``, ``partition_multi``, ``partition`` and ``radix_sort``,
-and ORDER BY (``engine.order_by``, row plans ending in ``OrderBy``).
+plain ``histogram``, ``digit_counts``, ``partition_multi``, ``partition``
+and ``radix_sort``, the radix sort's pass plan (``radix_part.pass_plan``,
+which skips the passes that move no row), and ORDER BY
+(``engine.order_by``, row plans ending in ``OrderBy``).
 
 Same inputs in both (made with numpy from a seed; the database carried
 across with ``from_numpy``).  Tolerance: bit-identical throughout — the
@@ -152,6 +154,80 @@ def test_negative_keys_sort_unsigned_as_the_reference_kernel():
         got_v.numpy(), np.argsort(keys.view(np.uint32), kind="stable"))
 
 
+def _planned_sort(keys, vals, key_bits, r):
+    """The kernel ``radix_sort``'s passes with the plain pass: the plan of
+    ``radix_part.pass_plan`` over the plain digit counts, then
+    ``ref.partition`` for each pass it keeps -> ((keys', vals'), plan)."""
+    counts = TREF.digit_counts(keys, 0, r,
+                               radix_part.sort_passes(key_bits, r))
+    plan = radix_part.pass_plan(counts, keys.shape[0])
+    for p in plan:
+        keys, vals = TREF.partition(keys, vals, p * r, r)
+    return (keys, vals), plan
+
+
+@pytest.mark.parametrize("key_bits", [32, 12])
+@pytest.mark.parametrize("r", [1, 4, 7, 8])
+@pytest.mark.parametrize("kind", cases.SORT_KINDS)
+def test_pass_plan_skips_only_the_passes_that_move_nothing(kind, r,
+                                                           key_bits):
+    """Skipping a pass whose rows all share one bucket leaves the sort's
+    bits as they were: the plain ``radix_sort``'s, the reference's kernel
+    and oracle on keys >= 0, and numpy's stable argsort of the bits the
+    passes cover."""
+    keys, vals = cases.sort_case(r + key_bits, 2000, kind)
+    tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
+    (got_k, got_v), plan = _planned_sort(tk, tv, key_bits, r)
+    passes = radix_part.sort_passes(key_bits, r)
+    assert plan == [p for p in range(passes)
+                    if TREF.bucket_of(tk, p * r, r).unique().numel() > 1]
+    if kind == "equal":
+        assert plan == []
+    elif kind != "negative" and key_bits == 32:
+        assert len(plan) < passes                 # a pass was skipped
+    want_k, want_v = TREF.radix_sort(tk, tv, key_bits=key_bits, r=r)
+    _same(got_k, want_k)
+    _same(got_v, want_v)
+    covered = keys.view(np.uint32).astype(np.uint64) & \
+        ((1 << min(32, passes * r)) - 1)
+    np.testing.assert_array_equal(got_v.numpy(),
+                                  np.argsort(covered, kind="stable"))
+    if key_bits == 32 and kind != "negative":
+        oracle_k, oracle_v = RREF.radix_sort(jnp.asarray(keys),
+                                             jnp.asarray(vals))
+        _same(got_k, oracle_k)
+        _same(got_v, oracle_v)
+        if r == 8 and kind != "equal":
+            kern_k, kern_v = RRADIX.radix_sort(
+                jnp.asarray(keys), jnp.asarray(vals), r=r, tile=2048,
+                interpret=True)
+            _same(got_k, kern_k)
+            _same(got_v, kern_v)
+
+
+def test_pass_plan_of_an_empty_sort_runs_nothing():
+    counts = TREF.digit_counts(torch.zeros(0, dtype=torch.int32), 0, 8, 4)
+    assert counts.shape == (4, 256) and not counts.any()
+    assert radix_part.pass_plan(counts, 0) == []
+    assert radix_part.pass_plan(counts.numpy(), 0) == []
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_digit_counts_are_the_histograms_column_sums(case):
+    """Every pass's plain digit counts, as many passes as fit from the
+    case's start bit, against the column sums of the port's and the
+    reference's per-tile histograms."""
+    i, (start_bit, r, kind, n_vals) = case
+    tk, _, rk, _ = _both(200 + i, 3001, start_bit, r, kind, n_vals)
+    passes = min((31 - start_bit) // r + 1, radix_part.MAX_COUNTERS >> r)
+    got = TREF.digit_counts(tk, start_bit, r, passes)
+    assert got.dtype == torch.int32 and got.shape == (passes, 1 << r)
+    for p in range(passes):
+        bit = start_bit + p * r
+        _same(got[p], TREF.histogram(tk, bit, r).sum(0))
+        _same(got[p], np.asarray(RREF.histogram(rk, bit, r, 2048)).sum(0))
+
+
 @pytest.mark.parametrize("fn,args", [
     ("radix_histogram", (0, 8)),
     ("radix_partition", (8, 4)),
@@ -188,13 +264,17 @@ def test_radix_ops_modes_on_cpu_tensors(fn, args, mode):
 def test_radix_wrappers_refuse_cpu_tensors_and_bad_widths():
     keys, vals, _, _ = cases.tensors(
         cases.radix_case(9, 300, 0, 1, "uniform", 1), "cpu")
-    before = (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES)
+    counters = ("HIST_LAUNCHES", "COUNT_LAUNCHES", "SCATTER_LAUNCHES")
+    before = [getattr(radix_part, c) for c in counters]
+    totals = TREF.digit_counts(keys, 0, 8)[0]
     for call in (lambda: radix_part.histogram(keys, 0, 8),
+                 lambda: radix_part.digit_counts(keys, 0, 8),
+                 lambda: radix_part.sweep(keys, vals, 0, 8, totals),
                  lambda: radix_part.partition_multi(keys, vals, 0, 8),
                  lambda: radix_part.radix_sort(keys, vals[0])):
         with pytest.raises(ValueError, match="no kernel for device cpu"):
             call()
-    assert (radix_part.HIST_LAUNCHES, radix_part.SCATTER_LAUNCHES) == before
+    assert [getattr(radix_part, c) for c in counters] == before
 
 
 # ---------------------------------------------------------------------------
