@@ -40,7 +40,9 @@ exits non-zero without printing a result:
            card; then per-query times beside fused (the fig17 analogue)
            and each kernel's time over one pass beside its bound
            (``project``, whose calls there are their fixed cost, in
-           turns with ``torch.sub``);
+           turns with ``torch.sub``; each ``probe_join`` call run twice
+           with the same bits, beside a fill of its zero tail), and one
+           ``probe_join`` call profiled: one sweep kernel and one memset;
 6. packed storage: phase 4's database packed (``storage.pack_database``)
            and resident on the card, the 13 queries ``fused`` (``spja`` on
            packed streams) and ``opat`` (the leading filter through
@@ -62,7 +64,9 @@ exits non-zero without printing a result:
            every result bit-identical to phase 4's oracle, a second pass
            and the plain versions on the card; per-query times beside
            fused and opat, each new kernel's time over one pass beside
-           its bound; then the Fig. 8 analogue, one FK join of 2^27 fact
+           its bound (``part_probe`` as ``probe_join`` in phase 5, one
+           call profiled), and part_loop's ``probe_join`` calls timed
+           over one pass; then the Fig. 8 analogue, one FK join of 2^27 fact
            rows against dims of 2^12 to 2^24 rows, through fused, opat,
            part and part_loop, each against the oracle;
 8. ORDER BY: ``engine.order_by`` of lineorder by ``lo_orderdate`` (one
@@ -206,6 +210,10 @@ MIN_PACKED_MORSELS = 3
 H2D_BYTES = 1 << 30
 MORSEL_REPS = 3
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
+# the one-sweep compactions (csrc/lookback.cuh): a call is one memset and
+# one kernel, each timed call run twice
+SWEEPS = ("probe_join", "part_probe")
+SMALL_ROWS = 10_000             # a call this small is its fixed cost
 # phase 3: radix_sort's keys (cases.sort_case kinds) and the passes of
 # four that move rows
 SORT_SYNTHETIC = [("negative", [0, 1, 2, 3]), ("top_byte", [0, 1, 2]),
@@ -325,7 +333,12 @@ OPAT_SYNTHETIC = {
     "probe_join": [
         (f"{kind}, n={n}", "probe_case", (n, n, kind), (), False)
         for n, kind in ((BIG, "duplicate_wrap"), (1_000_003, "empty"),
-                        (1_000_003, "misses"), (37, "duplicate_wrap"))],
+                        (1_000_003, "misses"), (37, "duplicate_wrap"),
+                        (BIG, "clustered"), (BIG, "full"),
+                        ((1 << 24) + 5, "first_tile"),
+                        ((1 << 24) + 5, "last_tile"),
+                        (3_000_017, "slots1"), (3_000_017, "slots2"),
+                        (3_000_017, "slots4"), (37, "full"))],
     "project": [
         (f"a={a} b={b} sigmoid={sig}, n={n}", "project_case", (n, n),
          (a, b), sig)
@@ -761,8 +774,8 @@ def check_against_plain(fn: str, label: str, got, want, again=None,
 # them) and PyTorch's glue around them; first match wins
 DEVICE_KINDS = [("select_count", "select_scan"),
                 ("select_scatter", "select_scan"),
-                ("probe_count", "probe_join"), ("probe_scatter", "probe_join"),
-                ("scan_tiles", "select_scan/probe_join tile scan"),
+                ("part_probe", "part_probe"), ("probe_join", "probe_join"),
+                ("scan_tiles", "select_scan tile scan"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
@@ -770,7 +783,12 @@ DEVICE_KINDS = [("select_count", "select_scan"),
                 ("arange", "torch arange"), ("index", "torch gather"),
                 ("copy", "torch copy/cast"), ("Fill", "torch zeros"),
                 ("Memcpy HtoD", "copy to device"),
-                ("Memcpy", "copy to host")]
+                ("Memcpy", "copy to host"), ("Memset", "memset")]
+
+
+def device_kind(name: str) -> str:
+    """The kind a device record of this name is filed under."""
+    return next((k for sub, k in DEVICE_KINDS if sub in name), "other")
 
 
 def profiled(run, expect=()) -> dict:
@@ -805,7 +823,7 @@ def profiled(run, expect=()) -> dict:
         if e.device_type != cuda or "spin_kernel" in e.name:
             continue
         kernels += not e.name.startswith(("Memcpy", "Memset"))
-        kind = next((k for sub, k in DEVICE_KINDS if sub in e.name), "other")
+        kind = device_kind(e.name)
         ms = e.device_time / 1e3
         kinds[kind] = kinds.get(kind, 0.0) + ms
         calls, total = names.setdefault(kind, {}).get(e.name[:96], (0, 0.0))
@@ -821,6 +839,35 @@ def profiled(run, expect=()) -> dict:
                         for kind, by in names.items()},
             "busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
             "launches": launches}
+
+
+def one_call(fn: str, run, n: int, count: int, lib) -> dict:
+    """The device work of one call of a one-sweep compaction wrapper
+    (``probe_join``, ``part_probe``), from the profile: raises unless it
+    is one kernel of the wrapper's kind and one memset (the status words
+    and the ticket).  Beside them, the sweep's resident blocks an SM
+    (``lib``'s ``<fn>_shape``) and the device time of a fill of the
+    2·(n − count) zeros the sweep writes past the count, as one
+    ``torch.zeros`` (what the sweep's zero tail would cost alone)."""
+    prof = profiled(run, (fn,))
+    calls = {kind: sum(c for _, c, _ in rows)
+             for kind, rows in prof["kernels"].items()}
+    if calls != {fn: 1, "memset": 1}:
+        raise AssertionError(f"{fn}: one call launched {calls}, not one "
+                             "sweep and one memset")
+    fill = profiled(lambda: torch.zeros((2, n - count), dtype=torch.int32,
+                                        device="cuda")) if count < n else {}
+    from repro_torch.kernels import build
+    dev = torch.cuda.current_device()
+    blocks = build.resident(lib, f"{fn}_shape", dev, 0)
+    return {"fn": fn, "n": n, "count": count,
+            "blocks_per_sm": blocks / torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+            "kernel": prof["kernels"][fn][0][0],
+            "kernel_ms": prof["device_ms"][fn],
+            "memset_ms": prof["device_ms"]["memset"],
+            "zero_tail_fill_ms": fill.get("device_ms", {}).get("torch zeros",
+                                                               0.0)}
 
 
 @contextlib.contextmanager
@@ -908,6 +955,15 @@ class Timed:
         want = self.plain(*args, **kw)
         plain_ms = event_ms(lambda: self.plain(*args, **kw), 1)
         again = self.kernel(*args, **kw) if self.fn == "group_sum" else None
+        if self.fn in SWEEPS:
+            if not all(torch.equal(a, b) for a, b in
+                       zip(outputs(out), outputs(self.kernel(*args)))):
+                raise AssertionError(f"{self.fn}: two runs of a pass's call "
+                                     "differ")
+            zeros = 2 * (call_rows(self.fn, args) - int(out[2]))
+            row["zero_tail_ms"] = event_ms(lambda: torch.zeros(
+                (zeros,), dtype=torch.int32, device=out[0].device),
+                CALL_REPS)
         self.err = max(self.err, check_against_plain(
             self.fn, "opat pass", out, want, again=again,
             sigmoid=kw.get("sigmoid", False)))
@@ -958,9 +1014,12 @@ def resident_phases() -> dict:
         logs = dict(zip(names, pool.map(build.build, names)))
     for name in names:
         print(build.library_path(name).relative_to(ROOT))
+        entry = ""
         for line in logs[name].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {line.strip()}")
+                print(f"  {entry[-48:]}: {line.strip()}")
     for mod in (ssb_fused, *mods.values()):
         mod.library()
     print(f"build_s {time.perf_counter() - t:.3f}", flush=True)
@@ -1008,6 +1067,10 @@ def resident_phases() -> dict:
                 else None
             want = getattr(ref, fn)(*args, **kw)
             torch.cuda.synchronize()
+            if fn in SWEEPS and not all(
+                    torch.equal(a, b) for a, b in
+                    zip(outputs(got), outputs(getattr(mods[m], fn)(*args)))):
+                raise AssertionError(f"{fn} {label}: two runs differ")
             err = check_against_plain(fn, label, got, want, again, sigmoid)
             opat_err[fn] = max(opat_err[fn], err)
             what = (f"count={int(got[-1])}" if isinstance(got, tuple)
@@ -1353,6 +1416,13 @@ def resident_phases() -> dict:
 
     print("profile opat " + json.dumps(profiled(
         run_opat, ("select_scan", "probe_join", "group_sum"))), flush=True)
+    hj = mods["hash_join"]
+    for n_pin in (BIG, 37):
+        args = cases.tensors(cases.probe_case(3300, n_pin), dev)
+        count = int(hj.probe_join(*args)[2])
+        print("one call " + json.dumps(one_call(
+            "probe_join", lambda: hj.probe_join(*args), n_pin, count,
+            hj.library())), flush=True)
     n = db.lineorder.n_rows     # the chain's first positions vector, alone
     arange_ms = event_ms(lambda: torch.arange(n, dtype=torch.int32,
                                               device=dev), KERNEL_REPS)
@@ -1374,8 +1444,8 @@ def resident_phases() -> dict:
                               "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
                               "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"],
-                              **({"turns": r["turns"]} if "turns" in r
-                                 else {})}))
+                              **{k: r[k] for k in ("turns", "zero_tail_ms")
+                                 if k in r}}))
         tot = {k: sum(r[k] for r in calls)
                for k in ("ms", "plain_ms", "bytes", "ops", "bytes_ms",
                          "ops_ms")}
@@ -1389,9 +1459,12 @@ def resident_phases() -> dict:
                  "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                  else "operations",
                  "library_ms": sum(lib) if lib else None}
+        tail = [r["zero_tail_ms"] for r in calls if "zero_tail_ms" in r]
         print(json.dumps(dict(entry, calls=len(calls), GB=tot["bytes"] / 1e9,
                               Gops=tot["ops"] / 1e9,
-                              bound_share=bound_ms / tot["ms"])), flush=True)
+                              bound_share=bound_ms / tot["ms"],
+                              **({"zero_tail_ms": sum(tail)} if tail
+                                 else {}))), flush=True)
         return entry
 
     for (m, fn, src, replaces), launched in zip(OPAT, opat_launches):
@@ -1677,6 +1750,34 @@ def resident_phases() -> dict:
             kernel_entry(fn, src, replaces, part_launches["plain", "part"][i],
                          max(part_err[fn], timers[fn].err), timers[fn].rows),
             launches_part_loop=loop_launches[i] if i < 2 else 0))
+    args = cases.tensors(cases.part_probe_case(3300, PART_N, 4), dev)
+    count = int(pprobe.part_probe(*args)[2])
+    print("one call " + json.dumps(one_call(
+        "part_probe", lambda: pprobe.part_probe(*args), PART_N, count,
+        pprobe.library())), flush=True)
+
+    # part_loop's probe_join calls, one per non-empty partition, timed
+    # as the opat pass's are
+    with Timed(mods["hash_join"], "probe_join", ref.probe_join) as loop:
+        timed, _, _ = run_part("part_loop")
+    for name in queries:
+        if not same_bits(timed[name], oracle[name]):
+            raise AssertionError(f"{name}: the timed part_loop pass differs")
+    calls = loop.rows
+    small = [r["ms"] for r in calls if r["n"] < SMALL_ROWS]
+    loop_row = {"calls": len(calls), "ms": sum(r["ms"] for r in calls),
+                "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"])
+                                for r in calls),
+                "zero_tail_ms": sum(r["zero_tail_ms"] for r in calls),
+                "plain_ms": sum(r["plain_ms"] for r in calls),
+                "small_calls": len(small), "small_ms": sum(small),
+                "largest_ms": max((r["ms"] for r in calls), default=0.0)}
+    print("part_loop probe_join " + json.dumps(loop_row), flush=True)
+    entry = next(k for k in kernels if k["name"] == "probe_join")
+    entry.update(launches_part_loop=loop_launches[3],
+                 part_loop_ms=loop_row["ms"],
+                 part_loop_bound_ms=loop_row["bound_ms"])
+    entry["max_abs_err"] = max(entry["max_abs_err"], loop.err)
 
     fig8_plan = (engine.QueryBuilder("fig8").scan("lineorder")
                  .hash_join("lo_partkey", "part", "p_partkey",

@@ -1,12 +1,14 @@
-"""Time the port's radix sort and projection kernels in turns beside the
-PyTorch call that computes the same function, on one card.
+"""Time the port's radix sort, projection, probe and sum kernels on one
+card, in turns beside the PyTorch call that computes the same function
+where there is one.
 
-    python3 kernel_turns.py [--tree PATH]
+    python3 kernel_turns.py [--tree PATH] [--only SECTION ...]
 
 ``--tree`` imports ``PATH/src/repro_torch`` in place of the checkout's
 (say a ``git archive`` of an earlier commit unpacked under ``build/``),
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
+``--only`` runs the named sections alone (sort, project, probe, sum).
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -27,6 +29,16 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
 3. ``project`` of 2^28 random f32 rows, with and without the sigmoid,
    each in turns beside ``torch.sub`` (no one call adds the sigmoid), and
    the 12n-byte bound.
+4. ``probe_join`` and ``part_probe`` on the calls captured from the opat,
+   part and part_loop passes of the 13 queries (``compile_plan(q,
+   strategy).execute``): the first join of q2.1 (120 M rows), the third
+   join of q4.2 (4.88 M rows), each call under 10 K rows, and each pass's
+   calls back to back.  No one PyTorch call computes either function, so
+   each is timed alone, TURN_ROUNDS rounds of ``event_ms`` (TURN_CALLS
+   calls, TURN_ROUNDS passes); the parent is the other side of the turns
+   (``--tree``).  Every captured call is held bit-identical to the plain
+   version (``ref``) before it is timed.
+5. ``reduce_sum`` of 2^28 random f32 rows in turns with ``torch.sum``.
 
 Prints the card's name and power limit first and one JSON object last.
 Exits nonzero without CUDA.
@@ -35,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -44,6 +57,102 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+SECTIONS = ("sort", "project", "probe", "sum")
+# (query, join) of the calls timed alone: the first join of q2.1 and the
+# third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
+PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
+
+
+def rounds(fn, calls: int) -> dict:
+    """TURN_ROUNDS rounds of ``event_ms(fn, calls)`` -> every round's time
+    and their median."""
+    from chip_smoke import TURN_ROUNDS, event_ms
+    ms = [event_ms(fn, calls) for _ in range(TURN_ROUNDS)]
+    return {"ms": ms, "median": statistics.median(ms)}
+
+
+def capture(mod, fn: str, strategy: str, db, cache) -> list:
+    """Every call of ``mod.fn`` in one pass of the 13 queries through
+    ``strategy`` -> [(query, its k-th call in the query, cloned args)]."""
+    from repro_torch.sql import engine
+    from repro_torch.sql.compile import compile_plan
+    calls, kernel, query = [], getattr(mod, fn), [None]
+
+    def record(*args):
+        k = sum(c[0] == query[0] for c in calls)
+        calls.append((query[0], k, tuple(
+            a.clone() if isinstance(a, torch.Tensor) else a for a in args)))
+        return kernel(*args)
+    setattr(mod, fn, record)
+    try:
+        for name, plan in engine.ssb_queries().items():
+            query[0] = name
+            compile_plan(plan, strategy).execute(db, cache=cache)
+    finally:
+        setattr(mod, fn, kernel)
+    return calls
+
+
+def probe_turns(db) -> dict:
+    """Section 4: ``probe_join`` on the opat and part_loop passes' calls,
+    ``part_probe`` on the part pass's; each captured call held to the
+    plain version first."""
+    from chip_smoke import SMALL_ROWS, TURN_CALLS, opat_need
+    from repro_torch.kernels import hash_join, part_probe, ref
+    from repro_torch.sql import hashtable
+    cache = hashtable.HashTableCache()
+    report = {}
+    for strategy, mod, fn in (("opat", hash_join, "probe_join"),
+                              ("part", part_probe, "part_probe"),
+                              ("part_loop", hash_join, "probe_join")):
+        calls = capture(mod, fn, strategy, db, cache)
+        kernel, plain = getattr(mod, fn), getattr(ref, fn)
+        for query, k, args in calls:
+            for got, want in zip(kernel(*args), plain(*args)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{fn} {strategy} {query} call {k}"
+                                         ": kernel != plain")
+
+        def timed(args):
+            need = opat_need(fn, args, kernel(*args))
+            return dict(n=int(args[0].shape[0]), **rounds(
+                lambda: kernel(*args), TURN_CALLS),
+                bound_ms=max(need["bytes_ms"], need["ops_ms"]))
+
+        def whole_pass():
+            for _, _, args in calls:
+                kernel(*args)
+        row = {"fn": fn, "calls": len(calls),
+               "rows": sum(int(a[0].shape[0]) for _, _, a in calls),
+               "pass": rounds(whole_pass, 5),
+               "picked": {f"{q} join {j}": timed(args)
+                          for q, j, args in calls
+                          if strategy != "part_loop" and
+                          (q, j) in PROBE_CALLS},
+               "small": [timed(args) for _, _, args in calls
+                         if args[0].shape[0] < SMALL_ROWS]}
+        report[f"{fn}_{strategy}"] = row
+        print(f"{fn} {strategy} " + json.dumps(row), flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return report
+
+
+def sum_turns(dev) -> dict:
+    """Section 5: ``reduce_sum`` of 2^28 random f32 rows in turns with
+    ``torch.sum``, beside the 4n-byte bound."""
+    from chip_smoke import HBM_BYTES_PER_S, KERNEL_REPS, SEED, SUM_ROWS, \
+        turns
+    from repro_torch.kernels import agg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(SUM_ROWS, device=dev, generator=gen)
+    row = turns(lambda: agg.reduce_sum(x), lambda: torch.sum(x),
+                calls=KERNEL_REPS)
+    row.update(n=SUM_ROWS, bound_ms=4 * SUM_ROWS / HBM_BYTES_PER_S * 1e3,
+               kernel_sum=agg.reduce_sum(x).item(),
+               library_sum=torch.sum(x).item())
+    print("reduce_sum f32 2^28 " + json.dumps(row), flush=True)
+    return row
 
 
 def main() -> int:
@@ -51,6 +160,8 @@ def main() -> int:
     ap.add_argument("--tree", type=Path,
                     help="root of the checkout whose src/repro_torch to "
                     "import (default: this one)")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS,
+                    default=list(SECTIONS), help="the sections to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -77,108 +188,117 @@ def main() -> int:
     t0 = time.perf_counter()
     db = ssb.generate(sf=SF, seed=SEED)
     n = db.lineorder.n_rows
-    rng = np.random.default_rng(SEED)
-    sort_keys = {
-        "lo_orderdate": torch.from_numpy(db.lineorder["lo_orderdate"]),
-        "random32": torch.from_numpy(rng.integers(
-            -(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32))}
     print(f"setup_s {time.perf_counter() - t0:.3f}", flush=True)
 
-    vals = torch.arange(n, dtype=torch.int32, device=dev)
-    for name, host_keys in sort_keys.items():
-        keys = host_keys.to(dev)
-        got_k, got_v = radix.radix_sort(keys, vals, r=SORT_BITS)
-        order = torch.sort(keys.to(torch.int64) & 0xFFFFFFFF,
-                           stable=True).indices.to(torch.int32)
-        if not (torch.equal(got_v, order) and torch.equal(got_k, keys[order])):
-            raise AssertionError(f"radix_sort {name}: not a stable sort by "
-                                 "the keys as unsigned words")
-        row = turns(lambda: radix.radix_sort(keys, vals, r=SORT_BITS),
-                    lambda: torch.sort(keys, stable=True), calls=1)
-        row.update(n=n, bound_ms=16 * n / HBM_BYTES_PER_S * 1e3)
-        if report["one_sweep"]:
-            passes = radix.sort_passes(32, SORT_BITS)
-            counts = radix.digit_counts(keys, 0, SORT_BITS, passes)
-            row["passes_run"] = radix.pass_plan(counts.cpu(), n)
-            row["counts_ms"] = event_ms(lambda: radix.digit_counts(
-                keys, 0, SORT_BITS, passes), TURN_CALLS)
-            row["pass_ms"] = event_ms(lambda: radix.sweep(
-                keys, (vals,), 0, SORT_BITS, counts[0]), TURN_CALLS)
-        else:
-            hist = radix.histogram(keys, 0, SORT_BITS)
+    if "sort" in args.only:
+        rng = np.random.default_rng(SEED)
+        sort_keys = {
+            "lo_orderdate": torch.from_numpy(db.lineorder["lo_orderdate"]),
+            "random32": torch.from_numpy(rng.integers(
+                -(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32))}
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        for name, host_keys in sort_keys.items():
+            keys = host_keys.to(dev)
+            got_k, got_v = radix.radix_sort(keys, vals, r=SORT_BITS)
+            order = torch.sort(keys.to(torch.int64) & 0xFFFFFFFF,
+                               stable=True).indices.to(torch.int32)
+            if not (torch.equal(got_v, order) and
+                    torch.equal(got_k, keys[order])):
+                raise AssertionError(f"radix_sort {name}: not a stable sort "
+                                     "by the keys as unsigned words")
+            row = turns(lambda: radix.radix_sort(keys, vals, r=SORT_BITS),
+                        lambda: torch.sort(keys, stable=True), calls=1)
+            row.update(n=n, bound_ms=16 * n / HBM_BYTES_PER_S * 1e3)
+            if report["one_sweep"]:
+                passes = radix.sort_passes(32, SORT_BITS)
+                counts = radix.digit_counts(keys, 0, SORT_BITS, passes)
+                row["passes_run"] = radix.pass_plan(counts.cpu(), n)
+                row["counts_ms"] = event_ms(lambda: radix.digit_counts(
+                    keys, 0, SORT_BITS, passes), TURN_CALLS)
+                row["pass_ms"] = event_ms(lambda: radix.sweep(
+                    keys, (vals,), 0, SORT_BITS, counts[0]), TURN_CALLS)
+            else:
+                hist = radix.histogram(keys, 0, SORT_BITS)
 
-            def scan():
-                flat = hist.t().reshape(-1)
-                return torch.cumsum(flat, 0, dtype=torch.int32) - flat
-            row["pass_histogram_ms"] = event_ms(
-                lambda: radix.histogram(keys, 0, SORT_BITS), TURN_CALLS)
-            row["pass_offsets_ms"] = event_ms(scan, TURN_CALLS)
-            row["pass_scatter_ms"] = event_ms(
-                lambda: radix.partition_multi(keys, (vals,), 0, SORT_BITS,
-                                              hist=hist), TURN_CALLS)
-        report[f"radix_sort_{name}"] = row
-        print(f"radix_sort {name} " + json.dumps(row), flush=True)
-        del keys, got_k, got_v, order
-    del vals
-    torch.cuda.empty_cache()
+                def scan():
+                    flat = hist.t().reshape(-1)
+                    return torch.cumsum(flat, 0, dtype=torch.int32) - flat
+                row["pass_histogram_ms"] = event_ms(
+                    lambda: radix.histogram(keys, 0, SORT_BITS), TURN_CALLS)
+                row["pass_offsets_ms"] = event_ms(scan, TURN_CALLS)
+                row["pass_scatter_ms"] = event_ms(
+                    lambda: radix.partition_multi(keys, (vals,), 0, SORT_BITS,
+                                                  hist=hist), TURN_CALLS)
+            report[f"radix_sort_{name}"] = row
+            print(f"radix_sort {name} " + json.dumps(row), flush=True)
+            del keys, got_k, got_v, order
+        del vals
+        torch.cuda.empty_cache()
 
-    # the opat pass's project calls: q4's sub measure on its survivors
     db.to(dev)
-    cache = hashtable.HashTableCache()
-    captured, kernel_project = [], proj.project
+    if "project" in args.only:
+        # the opat pass's project calls: q4's sub measure on its survivors
+        cache = hashtable.HashTableCache()
+        captured, kernel_project = [], proj.project
 
-    def record(x1, x2, a, b, sigmoid=False):
-        captured.append((x1.clone(), x2.clone(), a, b))
-        return kernel_project(x1, x2, a, b, sigmoid=sigmoid)
-    proj.project = record
-    try:
-        for name, plan in engine.ssb_queries().items():
-            compile_plan(plan, "opat").execute(db, cache=cache)
-    finally:
-        proj.project = kernel_project
-    for x1, x2, a, b in captured:
-        if not torch.equal(proj.project(x1, x2, a, b), torch.sub(x1, x2)):
-            raise AssertionError("project differs from torch.sub")
+        def record(x1, x2, a, b, sigmoid=False):
+            captured.append((x1.clone(), x2.clone(), a, b))
+            return kernel_project(x1, x2, a, b, sigmoid=sigmoid)
+        proj.project = record
+        try:
+            for name, plan in engine.ssb_queries().items():
+                compile_plan(plan, "opat").execute(db, cache=cache)
+        finally:
+            proj.project = kernel_project
+        for x1, x2, a, b in captured:
+            if not torch.equal(proj.project(x1, x2, a, b), torch.sub(x1, x2)):
+                raise AssertionError("project differs from torch.sub")
 
-    def each(fn):
-        def run():
-            for x1, x2, a, b in captured:
-                fn(x1, x2, a, b)
-        return run
-    kernel_calls = each(proj.project)
-    sub_calls = each(lambda x1, x2, a, b: torch.sub(x1, x2))
-    row = turns(kernel_calls, sub_calls)
-    calls = len(captured)
-    row.update(rows=[int(c[0].shape[0]) for c in captured],
-               kernel_per_call_ms=row["kernel_median"] / calls,
-               library_per_call_ms=row["library_median"] / calls,
-               bound_ms=sum(12 * c[0].shape[0] for c in captured)
-               / HBM_BYTES_PER_S * 1e3)
+        def each(fn):
+            def run():
+                for x1, x2, a, b in captured:
+                    fn(x1, x2, a, b)
+            return run
+        kernel_calls = each(proj.project)
+        sub_calls = each(lambda x1, x2, a, b: torch.sub(x1, x2))
+        row = turns(kernel_calls, sub_calls)
+        calls = len(captured)
+        row.update(rows=[int(c[0].shape[0]) for c in captured],
+                   kernel_per_call_ms=row["kernel_median"] / calls,
+                   library_per_call_ms=row["library_median"] / calls,
+                   bound_ms=sum(12 * c[0].shape[0] for c in captured)
+                   / HBM_BYTES_PER_S * 1e3)
 
-    def profile(run):
-        return profiled(lambda: [run() for _ in range(TURN_CALLS)])
-    row["profile_kernel"] = profile(kernel_calls)
-    row["profile_library"] = profile(sub_calls)
-    report["project_opat"] = row
-    print("project opat " + json.dumps(row), flush=True)
-    del captured, cache
-    torch.cuda.empty_cache()
+        def profile(run):
+            return profiled(lambda: [run() for _ in range(TURN_CALLS)])
+        row["profile_kernel"] = profile(kernel_calls)
+        row["profile_library"] = profile(sub_calls)
+        report["project_opat"] = row
+        print("project opat " + json.dumps(row), flush=True)
+        del captured, cache
+        torch.cuda.empty_cache()
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x1 = torch.randn(PROJECT_ROWS, device=dev, generator=gen)
-    x2 = torch.randn(PROJECT_ROWS, device=dev, generator=gen)
-    if not torch.equal(proj.project(x1, x2, 1.0, -1.0), torch.sub(x1, x2)):
-        raise AssertionError("project differs from torch.sub at 2^28 rows")
-    big = {"n": PROJECT_ROWS,
-           "bound_ms": 12 * PROJECT_ROWS / HBM_BYTES_PER_S * 1e3}
-    big["plain"] = turns(lambda: proj.project(x1, x2, 1.0, -1.0),
-                         lambda: torch.sub(x1, x2), calls=KERNEL_REPS)
-    big["sigmoid"] = turns(
-        lambda: proj.project(x1, x2, 1.0, -1.0, sigmoid=True),
-        lambda: torch.sub(x1, x2), calls=KERNEL_REPS)
-    big["bound_share"] = big["bound_ms"] / big["plain"]["kernel_median"]
-    report["project_2e28"] = big
-    print("project 2^28 " + json.dumps(big), flush=True)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x1 = torch.randn(PROJECT_ROWS, device=dev, generator=gen)
+        x2 = torch.randn(PROJECT_ROWS, device=dev, generator=gen)
+        if not torch.equal(proj.project(x1, x2, 1.0, -1.0), torch.sub(x1, x2)):
+            raise AssertionError("project differs from torch.sub at 2^28 rows")
+        big = {"n": PROJECT_ROWS,
+               "bound_ms": 12 * PROJECT_ROWS / HBM_BYTES_PER_S * 1e3}
+        big["plain"] = turns(lambda: proj.project(x1, x2, 1.0, -1.0),
+                             lambda: torch.sub(x1, x2), calls=KERNEL_REPS)
+        big["sigmoid"] = turns(
+            lambda: proj.project(x1, x2, 1.0, -1.0, sigmoid=True),
+            lambda: torch.sub(x1, x2), calls=KERNEL_REPS)
+        big["bound_share"] = big["bound_ms"] / big["plain"]["kernel_median"]
+        report["project_2e28"] = big
+        print("project 2^28 " + json.dumps(big), flush=True)
+        del x1, x2
+        torch.cuda.empty_cache()
+    if "probe" in args.only:
+        report.update(probe_turns(db))
+    if "sum" in args.only:
+        report["reduce_sum_f32"] = sum_turns(dev)
     print(json.dumps(report))
     return 0
 

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels.common import PHYS_WIDTHS
 from repro_torch.sql import storage
-from repro_torch.sql.hashtable import (next_pow2, np_build, np_hash,
+from repro_torch.sql.hashtable import (EMPTY, next_pow2, np_build, np_hash,
                                        pack_partitions)
 
 PACKED_WIDTHS = PHYS_WIDTHS[:-1]        # the widths that pack (below 32)
@@ -252,7 +252,36 @@ def select_case(seed: int, n: int, selectivity: str = "mid",
     return x, y, lo, hi
 
 
-PROBE_KINDS = ("duplicate_wrap", "empty", "misses")
+# the one-sweep probe kernels' tile (csrc/lookback.cuh's kProbeTile): the
+# "first_tile" and "last_tile" kinds place their matches by it
+PROBE_TILE = 2048
+PROBE_KINDS = ("duplicate_wrap", "empty", "misses", "clustered", "slots1",
+               "slots2", "slots4", "full", "first_tile", "last_tile")
+PROBE_MISS_KINDS = ("empty", "misses")          # no probe key is found
+# (slots, keys) of the small and the full tables; full tables hold key 0
+_SMALL_TABLES = {"slots1": (1, 1), "slots2": (2, 1), "slots4": (4, 4),
+                 "full": (64, 64)}
+
+
+def _homed(rng: np.random.Generator, count: int, n_slots: int, lo: int,
+           hi: int, taken: Optional[np.ndarray] = None) -> np.ndarray:
+    """Up to ``count`` distinct int32 keys in [-2^24, 2^24), none in
+    ``taken``, whose home slot in an ``n_slots`` table is in [lo, hi)."""
+    cand = np.unique(rng.integers(-(1 << 24), 1 << 24,
+                                  4 * count * n_slots // (hi - lo) + 64)
+                     .astype(np.int32))
+    home = np_hash(cand, n_slots)
+    cand = cand[(home >= lo) & (home < hi)]
+    if taken is not None:
+        cand = cand[~np.isin(cand, taken)]
+    return rng.permutation(cand)[:count]
+
+
+def tile_span(n: int, kind: str) -> tuple:
+    """The rows [lo, hi) of the first or the last PROBE_TILE tile."""
+    lo = 0 if kind == "first_tile" else max(n - 1, 0) // PROBE_TILE * \
+        PROBE_TILE
+    return lo, min(n, lo + PROBE_TILE)
 
 
 def probe_case(seed: int, n: int, kind: str = "duplicate_wrap",
@@ -260,17 +289,52 @@ def probe_case(seed: int, n: int, kind: str = "duplicate_wrap",
     """(keys, vals, htk, htv) for ``probe_join``: "duplicate_wrap" probes
     a table with duplicate keys and chains that wrap its end, 80 % of
     the keys found; "empty" an all-EMPTY table; "misses" a table none of
-    the keys is in."""
+    the keys is in; "clustered" a 256-slot table where 40 of 100 keys
+    have their home in the last 6 slots, so their chains cross several
+    8-slot runs and go on past the table's end, 60 % of the keys found
+    and 20 % missing after walking that cluster; "slots1", "slots2",
+    "slots4" tables of 1, 2 and 4 slots holding 1, 1 and 4 keys, 70 %
+    found; "full" 64 keys in 64 slots, 70 % found: with no EMPTY slot a
+    miss ends after one lap (as in "slots1" and "slots4"; each full
+    table holds key 0); "first_tile" and "last_tile" the duplicate_wrap
+    table, every row of the first or the last PROBE_TILE rows found and
+    no other."""
     rng = np.random.default_rng(seed)
-    rows = 0 if kind == "empty" else build_rows
-    dkeys, _, htk, htv = _dim_table(rng, rows, 1 << 20,
-                                    duplicates=kind == "duplicate_wrap",
-                                    wrap=kind == "duplicate_wrap")
-    others = rng.integers(1 << 24, 1 << 30, n, dtype=np.int32)
-    if kind == "duplicate_wrap":
-        keys = np.where(rng.random(n) < 0.8, rng.choice(dkeys, n), others)
+    if kind in _SMALL_TABLES or kind == "clustered":
+        others = rng.integers(1 << 24, 1 << 30, n, dtype=np.int32)
+        if kind == "clustered":
+            n_slots = 256
+            near_end = _homed(rng, 40, n_slots, n_slots - 6, n_slots)
+            bkeys = np.concatenate(
+                [near_end, _homed(rng, 60, n_slots, 0, n_slots, near_end)])
+            strays = _homed(rng, 64, n_slots, n_slots - 6, n_slots, bkeys)
+            u = rng.random(n)
+            keys = np.where(u < 0.6, rng.choice(bkeys, n),
+                            np.where(u < 0.8, rng.choice(strays, n), others))
+        else:
+            n_slots, n_keys = _SMALL_TABLES[kind]
+            bkeys = np.concatenate([[0], rng.choice(
+                np.arange(1, 1 << 12), n_keys - 1, replace=False)])
+            keys = np.where(rng.random(n) < 0.7, rng.choice(bkeys, n),
+                            others)
+        bkeys = bkeys.astype(np.int32)
+        htk, htv = np_build(bkeys, rng.integers(0, 1 << 20, len(bkeys),
+                                                dtype=np.int32), n_slots)
     else:
-        keys = others
+        rows = 0 if kind == "empty" else build_rows
+        table = kind in ("duplicate_wrap", "first_tile", "last_tile")
+        dkeys, _, htk, htv = _dim_table(rng, rows, 1 << 20,
+                                        duplicates=table, wrap=table)
+        others = rng.integers(1 << 24, 1 << 30, n, dtype=np.int32)
+        if kind == "duplicate_wrap":
+            keys = np.where(rng.random(n) < 0.8, rng.choice(dkeys, n),
+                            others)
+        elif kind in ("first_tile", "last_tile"):
+            lo, hi = tile_span(n, kind)
+            keys = others.copy()
+            keys[lo:hi] = rng.choice(dkeys, hi - lo)
+        else:
+            keys = others
     vals = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
     return keys.astype(np.int32), vals, htk, htv
 
@@ -373,7 +437,46 @@ def sort_case(seed: int, n: int, kind: str = "negative") -> tuple:
 
 
 PART_PROBE_KINDS = ("uniform", "hot", "empty_parts", "duplicates", "dead",
-                    "empty_table")
+                    "empty_table", "clustered", "slots2", "slots4", "full",
+                    "first_tile", "last_tile")
+
+
+def _part_tables(rng: np.random.Generator, bits: int, kind: str):
+    """(build keys, vals, htk, htv) of part_probe_case's "clustered",
+    "slots2", "slots4" and "full" kinds: per partition p, keys = p mod P
+    from [-2^20, 2^20) in a row of S slots.  "clustered": 8 keys a
+    partition in 16 slots, 4 of them homed in the row's last 8 slots where
+    the partition has such keys, so their chains run past its end;
+    "slots2" / "slots4": 1 / 3 keys in 2 / 4 slots; "full": 16 keys of
+    partition 0 (key 0 among them) fill its 16 slots, 8 keys a partition
+    elsewhere.  With P >= S a partition's
+    keys share one home slot: its chain holds them all."""
+    n_parts = 1 << bits
+    n_slots, per = {"clustered": (16, 8), "slots2": (2, 1),
+                    "slots4": (4, 3), "full": (16, 8)}[kind]
+    htk = np.full((n_parts, n_slots), EMPTY, np.int32)
+    htv = np.zeros((n_parts, n_slots), np.int32)
+    bkeys, bvals = [], []
+    for p in range(n_parts):
+        cand = (np.arange(-(1 << 20), 1 << 20, n_parts, dtype=np.int64) +
+                p).astype(np.int32)
+        take = n_slots if kind == "full" and p == 0 else per
+        if kind == "clustered":
+            # P >= S: a partition's keys all share one home slot
+            tail = cand[np_hash(cand, n_slots) >= n_slots - 8]
+            keys = rng.choice(tail if len(tail) else cand, per // 2,
+                              replace=False)
+            keys = np.concatenate([keys, rng.choice(
+                cand[~np.isin(cand, keys)], per - per // 2, replace=False)])
+        else:
+            keys = rng.choice(cand[cand != 0], take, replace=False)
+            if kind == "full" and p == 0:
+                keys[0] = 0
+        vals = rng.integers(0, 1000, len(keys), dtype=np.int32)
+        htk[p], htv[p] = np_build(keys, vals, n_slots)
+        bkeys.append(keys)
+        bvals.append(vals)
+    return np.concatenate(bkeys), np.concatenate(bvals), htk, htv
 
 
 def part_probe_case(seed: int, n: int, bits: int, kind: str = "uniform",
@@ -388,47 +491,93 @@ def part_probe_case(seed: int, n: int, bits: int, kind: str = "uniform",
     partition 1; "duplicates": a quarter of the build keys repeated with
     other payloads after their first row (the first wins); "dead": a
     tenth of the rows carry rowid -1 and never match; "empty_table": no
-    build rows, an all-EMPTY table, every probe misses."""
+    build rows, an all-EMPTY table, every probe misses; "clustered",
+    "slots2", "slots4", "full": the tables of ``_part_tables``, the
+    misses of "clustered" homed in its clusters, and in "full" a run of
+    partition 0 of 128·max(1, n // 512) found rows (at most n / 2) then
+    n / 16 that miss after one lap of its full row; "first_tile" and
+    "last_tile": "uniform", with every row outside the first or the last
+    PROBE_TILE rows of the probe side turned into a miss of its own
+    partition."""
     rng = np.random.default_rng(seed)
     n_parts = 1 << bits
-    build_rows = build_rows or max(64, 4 * n_parts)
-    span = 8 * build_rows
-    bkeys = rng.choice(np.arange(-span, span, dtype=np.int32), build_rows,
-                       replace=False)
-    if kind == "empty_parts":
-        bkeys = bkeys & ~np.int32(n_parts - 1)
-    bkeys = np.unique(bkeys)
-    bvals = rng.integers(0, 1000, len(bkeys), dtype=np.int32)
-    if kind == "duplicates":
-        d = max(len(bkeys) // 4, 1)
-        bkeys = np.concatenate([bkeys, bkeys[:d]])
-        bvals = np.concatenate([bvals, rng.integers(1000, 2000, d,
-                                                    dtype=np.int32)])
-    if kind == "empty_table":
-        bkeys, bvals = bkeys[:0], bvals[:0]
-    hits = rng.choice(bkeys, n) if len(bkeys) else np.zeros(n, np.int32)
-    misses = rng.integers(-2 * span, 2 * span, n, dtype=np.int32)
-    keys = np.where(rng.random(n) < 0.75, hits, misses).astype(np.int32)
-    if kind == "hot":
-        hot = rng.random(n) < 0.9
-        home = bkeys[(bkeys & (n_parts - 1)) == 0]
-        keys[hot] = np.where(rng.random(int(hot.sum())) < 0.75,
-                             rng.choice(home, int(hot.sum())),
-                             keys[hot] & ~np.int32(n_parts - 1))
-    if kind == "empty_parts" and n_parts > 1:
-        one = (keys & (n_parts - 1)) == 1
-        keys[one] ^= 3 if n_parts > 2 else 1
+    if kind in ("clustered", "slots2", "slots4", "full"):
+        bkeys, bvals, htk, htv = _part_tables(rng, bits, kind)
+        # keys of partition 0 that no table holds (|key| >= 2^22)
+        far = (rng.integers(1 << 21, 1 << 22, n) * n_parts).astype(np.int32)
+        if kind == "clustered":
+            n_slots = htk.shape[1]
+            cand = (np.arange(-(1 << 20), 1 << 20, dtype=np.int64)
+                    .astype(np.int32))
+            strays = cand[(np_hash(cand, n_slots) >= n_slots - 8) &
+                          ~np.isin(cand, bkeys)]
+            u = rng.random(n)
+            keys = np.where(u < 0.6, rng.choice(bkeys, n),
+                            np.where(u < 0.8, rng.choice(strays, n),
+                                     far + rng.integers(0, n_parts, n)))
+        elif kind == "full":
+            found = min(n // 2, 128 * max(1, n // 512))
+            lost = n // 16 if n_parts > 1 else n - found
+            m = n - found - lost
+            rest = bkeys[(bkeys & (n_parts - 1)) != 0]
+            keys = np.concatenate([
+                rng.choice(bkeys[(bkeys & (n_parts - 1)) == 0], found),
+                far[:lost],
+                np.where(rng.random(m) < 0.75,
+                         rng.choice(rest, m) if len(rest) else 0,
+                         far[lost:lost + m] + 1 +
+                         rng.integers(0, max(n_parts - 1, 1), m))])
+        else:
+            keys = np.where(rng.random(n) < 0.75, rng.choice(bkeys, n),
+                            far + rng.integers(0, n_parts, n))
+        keys = keys.astype(np.int32)
+        mult = 3
+    else:
+        build_rows = build_rows or max(64, 4 * n_parts)
+        span = 8 * build_rows
+        bkeys = rng.choice(np.arange(-span, span, dtype=np.int32),
+                           build_rows, replace=False)
+        if kind == "empty_parts":
+            bkeys = bkeys & ~np.int32(n_parts - 1)
+        bkeys = np.unique(bkeys)
+        bvals = rng.integers(0, 1000, len(bkeys), dtype=np.int32)
+        if kind == "duplicates":
+            d = max(len(bkeys) // 4, 1)
+            bkeys = np.concatenate([bkeys, bkeys[:d]])
+            bvals = np.concatenate([bvals, rng.integers(1000, 2000, d,
+                                                        dtype=np.int32)])
+        if kind == "empty_table":
+            bkeys, bvals = bkeys[:0], bvals[:0]
+        hits = rng.choice(bkeys, n) if len(bkeys) else np.zeros(n, np.int32)
+        misses = rng.integers(-2 * span, 2 * span, n, dtype=np.int32)
+        keys = np.where(rng.random(n) < 0.75, hits, misses).astype(np.int32)
+        if kind == "hot":
+            hot = rng.random(n) < 0.9
+            home = bkeys[(bkeys & (n_parts - 1)) == 0]
+            keys[hot] = np.where(rng.random(int(hot.sum())) < 0.75,
+                                 rng.choice(home, int(hot.sum())),
+                                 keys[hot] & ~np.int32(n_parts - 1))
+        if kind == "empty_parts" and n_parts > 1:
+            one = (keys & (n_parts - 1)) == 1
+            keys[one] ^= 3 if n_parts > 2 else 1
+        htk, htv = pack_partitions(bkeys, bvals, bits)
+        mult = 3
     rowids = rng.permutation(n).astype(np.int32)
     if kind == "dead":
         rowids[rng.random(n) < 0.1] = -1
     groups = rng.integers(0, 50, n, dtype=np.int32)
     bucket = keys & (n_parts - 1)
     order = np.argsort(bucket, kind="stable")
+    keys = keys[order]
+    if kind in ("first_tile", "last_tile"):
+        lo, hi = tile_span(n, kind)
+        out = np.ones(n, bool)
+        out[lo:hi] = False
+        keys[out] = (keys[out] & (n_parts - 1)) + n_parts * (1 << 20)
     counts = np.bincount(bucket, minlength=n_parts).astype(np.int32)
     offs = (np.cumsum(counts) - counts).astype(np.int32)
-    htk, htv = pack_partitions(bkeys, bvals, bits)
-    return (keys[order], rowids[order], groups[order], offs, counts, htk,
-            htv, 3)
+    return (keys, rowids[order], groups[order], offs, counts, htk, htv,
+            mult)
 
 
 @dataclass

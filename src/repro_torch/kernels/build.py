@@ -168,6 +168,17 @@ def check_stream(t: torch.Tensor, what: str, n: int, device: torch.device,
         raise ValueError(f"{what} has {t.shape[0]} rows, expected {n}")
 
 
+def sweep_buffers(n: int, words: int, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """One allocation for a one-sweep compaction (``csrc/lookback.cuh``)
+    of n rows -> (out (2, n) int32, count 0-d int64, the address of
+    ``words`` int32 scratch words).  The kernel writes all of ``out`` and
+    the count, and its launcher clears the scratch."""
+    buf = torch.empty((2 * n + 2 + words,), dtype=torch.int32, device=device)
+    count = buf[2 * n:2 * n + 2].view(torch.int64)[0]   # 8-byte aligned
+    return buf[:2 * n].view(2, n), count, buf.data_ptr() + 4 * (2 * n + 2)
+
+
 def streams_ok(n: int, index: int, dtype: torch.dtype,
                *tensors: torch.Tensor) -> bool:
     """Whether each tensor is a contiguous 1-D ``dtype`` tensor of ``n``

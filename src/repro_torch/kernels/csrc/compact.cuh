@@ -1,7 +1,9 @@
-// Stable block-level compaction, shared by select_scan.cu and hash_join.cu.
+// Stable block-level compaction of the select scans (select_scan.cu);
+// radix_part.cu takes its block shape and warp helpers.  The probe
+// compactions sweep once instead (lookback.cuh).
 //
 // The Pallas kernels it replaces (src/repro/kernels/select_scan.py::
-// select_scan, hash_join.py::probe_join) carry the running output offset
+// select_scan and its packed and sparse forms) carry the running output offset
 // in SMEM across a grid that runs in order, so their output is stable.
 // Hopper blocks run in any order, and a global atomicAdd for each tile's
 // base (Crystal's selection) would change the order from run to run.  So a

@@ -1,5 +1,6 @@
 // Linear-probe lookup into an open-addressing table, shared by
-// ssb_fused.cu and hash_join.cu.
+// ssb_fused.cu, multi_fused.cu and hash_join.cu (probe), and by
+// lookback.cuh's probe sweep (the run-wide walk below).
 //
 // The rule of src/repro/core/blocks.py::block_lookup per key: start at
 // (uint32(key) * 2654435761) & mask and walk until the key (hit) or an
@@ -29,6 +30,85 @@ __device__ __forceinline__ bool probe(const int* __restrict__ htk,
     slot = (slot + 1u) & mask;
   }
   return false;
+}
+
+// The same walk in two parts.  The home slot alone first (home_slot):
+// on an SSB dimension table most walks end there.  Then the walk past it
+// a run of W slots a step (W = 1, 2, 4 or 8; W * 4 bytes, one or two
+// vector loads; the table row's address a multiple of W * 4 bytes and its
+// slot count of W): step s reads aligned run s from the one that holds
+// the home slot, wrapping at the row's end, and the first slot of the
+// run, in probe order, that holds the key (hit) or EMPTY (miss) ends the
+// walk, found in registers, so a step reads one run where probe() reads
+// one slot.  The answer is probe()'s: step 0 reads the home run from the
+// slot after home, and step S / W (the home run again) the slots before
+// home, after which a walk that met neither is a miss (one lap).
+__device__ __forceinline__ unsigned home_slot(int key, unsigned mask) {
+  return (static_cast<unsigned>(key) * kHashMul) & mask;
+}
+
+template <int W>
+struct SlotRun {
+  int k[W];
+};
+
+enum : int { kWalkOn = 0, kHit = 1, kMiss = 2 };
+
+template <int W>
+__device__ __forceinline__ unsigned run_base(int key, unsigned mask,
+                                             unsigned step) {
+  return ((home_slot(key, mask) & ~(W - 1u)) + step * W) & mask;
+}
+
+template <int W>
+__device__ __forceinline__ SlotRun<W> load_run(const int* __restrict__ htk,
+                                               unsigned base) {
+  static_assert(W == 1 || W == 2 || W == 4 || W == 8, "a run of 1-8 slots");
+  SlotRun<W> run;
+  if constexpr (W == 8 || W == 4) {
+#pragma unroll
+    for (int h = 0; h < W; h += 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(htk + base + h));
+      run.k[h] = v.x;
+      run.k[h + 1] = v.y;
+      run.k[h + 2] = v.z;
+      run.k[h + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(htk + base));
+    run.k[0] = v.x;
+    run.k[1] = v.y;
+  } else {
+    run.k[0] = __ldg(htk + base);
+  }
+  return run;
+}
+
+// Reads step `step` of the walk past `key`'s home slot: kHit (its slot in
+// *slot), kMiss, or kWalkOn to the next step.
+template <int W>
+__device__ __forceinline__ int read_run(const SlotRun<W>& run, int key,
+                                        unsigned mask, unsigned step,
+                                        unsigned* slot) {
+  const unsigned home = home_slot(key, mask);
+  const unsigned off = home & (W - 1u);
+  const unsigned base = ((home - off) + step * W) & mask;
+  const bool last = step != 0 && base == home - off;   // the lap's end
+  const unsigned from = step == 0 ? off + 1u : 0u;
+  const unsigned to = last ? off : static_cast<unsigned>(W);
+  unsigned found = 0u, ends = 0u;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    found |= static_cast<unsigned>(run.k[j] == key) << j;
+    ends |= static_cast<unsigned>(run.k[j] == key || run.k[j] == kEmpty) << j;
+  }
+  ends &= ((1u << to) - 1u) & ~((1u << from) - 1u);
+  if (ends) {
+    const int j = __ffs(ends) - 1;
+    *slot = base + j;
+    return (found >> j) & 1u ? kHit : kMiss;
+  }
+  return last ? kMiss : kWalkOn;
 }
 
 }  // namespace

@@ -4,23 +4,28 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/hash_join.py::
 // probe_join (_probe_join_kernel): BlockLookup, then BlockScan and
 // BlockShuffle of the found rows, with the running output offset carried
-// across an in-order grid.  Here the order comes from the three phases of
-// compact.cuh (count, scan of the tile counts, scatter), so the output is
-// stable and the same on every run.  Probes are hash.cuh's, as in
-// ssb_fused.cu.
+// across an in-order grid.  Here one launch sweeps the rows once
+// (lookback.cuh): a block takes tiles of 2048 rows from a ticket, probes
+// each row once, ranks its hits and finds the output offset of each tile
+// by decoupled look-back over the tiles before it, the counterpart of the
+// carried offset.  The output is stable and the same bits on every run.
 //
-// What bounds it: device-memory bytes at 3.35 TB/s.  The function needs
-// the keys and vals read once, 8 bytes written per found row, and the
-// table segments its probes visit.  The scatter probes again rather than
-// keep each row's found flag and payload from the count phase: those
-// would cost 5 bytes a row written and read again (10n), the second probe
-// costs the keys read again (4n) and probes of a table that stays in the
-// 50 MB L2 (an SSB dimension table at SF 20 is at most a few MB).  vals
-// are read only for found rows; a tile with no match skips the scatter's
-// loads altogether.  The probes, not the device-memory bytes, take the
-// time: dependent 4-byte reads of L2 (PERF.md).
-//
-// The caller zeroes the outputs: entries past the count stay zero.
+// What bounds it: the function needs the keys and vals read once (8n
+// bytes), 8 bytes written per found row and the table segments its
+// probes visit: at 3.35 TB/s that is the bound, but the probes take the
+// time.  Each is a dependent read of a table that stays in L1 or the 50
+// MB L2 (an SSB dimension table at SF 20 is at most a few MB), and a
+// tile's rows wait on a chain of them: the keys, the home slots, the runs
+// past them, the payloads.  What the design does about it: every row is
+// probed once (the old count-and-scatter pair probed it twice); a
+// thread's rows have their loads of each step in flight together; a run
+// step reads the aligned 32-byte run of 8 slots past the home slot
+// (hash.cuh), so a chain within a run costs one read; vals are read only
+// for found rows; a tile's look-back waits a whole tile after its count
+// is published, so it seldom spins; the output is written from shared
+// memory in runs.  The misses of each tile write their share of the
+// zeros past the count, so no fill runs before it and a call is one
+// memset (the status words and the ticket) and one kernel.
 //
 // probe_agg: SUM(payload + v) over the rows whose key is found (the
 // paper's join microbenchmark, SELECT SUM(A.v + B.v) FROM A, B WHERE
@@ -57,61 +62,11 @@
 // for a key equal to EMPTY, which no such table can hold.
 #include <cuda_runtime.h>
 
-#include "compact.cuh"
 #include "hash.cuh"
+#include "lookback.cuh"
 #include "reduce.cuh"
 
 namespace {
-
-__device__ __forceinline__ bool found(const int* __restrict__ keys,
-                                      long long r, long long n,
-                                      const int* __restrict__ htk,
-                                      const int* __restrict__ htv,
-                                      unsigned mask, int* payload) {
-  return r < n && probe(htk, htv, mask, __ldg(keys + r), payload);
-}
-
-__global__ void __launch_bounds__(kThreads)
-probe_count(const int* __restrict__ keys, long long n,
-            const int* __restrict__ htk, const int* __restrict__ htv,
-            unsigned mask, int* __restrict__ counts) {
-  __shared__ int warp_counts[kWarps];
-  const long long base = kTile * blockIdx.x;
-  int c = 0;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    int payload;
-    c += found(keys, base + static_cast<long long>(i) * kThreads + threadIdx.x,
-               n, htk, htv, mask, &payload);
-  }
-  const int total = block_sum(c, warp_counts);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-probe_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
-              long long n, const int* __restrict__ htk,
-              const int* __restrict__ htv, unsigned mask,
-              const int* __restrict__ counts, const int* __restrict__ offsets,
-              int* __restrict__ out_payload, int* __restrict__ out_vals) {
-  __shared__ int warp_counts[kWarps];
-  if (counts[blockIdx.x] == 0) return;           // uniform over the block
-  const long long base = kTile * blockIdx.x;
-  int pos = offsets[blockIdx.x];
-  for (int i = 0; i < kItems; ++i) {
-    const long long r = base + static_cast<long long>(i) * kThreads +
-                        threadIdx.x;
-    int payload = 0;
-    const bool hit = found(keys, r, n, htk, htv, mask, &payload);
-    int total;
-    const int rank = block_rank(hit, warp_counts, &total);
-    if (hit) {
-      out_payload[pos + rank] = payload;
-      out_vals[pos + rank] = __ldg(vals + r);
-    }
-    pos += total;
-  }
-}
 
 constexpr int kAggItems = 4;       // rows a thread probes at once
 
@@ -294,35 +249,115 @@ extern "C" int build_launch(const void* keys, const void* vals, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys, vals: (n,) int32; htk, htv: (mask + 1,) int32, mask + 1 a power of
-// two; counts, offsets: (ceil(n / 2048),) int32 scratch; out_payload,
-// out_vals: (n,) int32, zeroed; count: one int64.  0 < n < 2^31.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
-extern "C" int probe_join_launch(const void* keys, const void* vals,
-                                 long long n, const void* htk,
-                                 const void* htv, unsigned mask, void* counts,
-                                 void* offsets, void* out_payload,
-                                 void* out_vals, void* count, void* stream) {
-  if (n <= 0 || n > 2147483647LL || (mask & (mask + 1u)) != 0u)
+namespace {
+
+// probe_join's rows, table and outputs (lookback.cuh's Op).
+struct JoinProbe {
+  const int* keys;
+  const int* vals;
+  long long n;
+  const int* htk;
+  const int* htv;
+  unsigned mask;
+  int* out_a;                                   // payloads
+  int* out_b;                                   // vals
+
+  using Extra = int;                            // the row's val
+  __device__ __forceinline__ long long limit() const { return n; }
+  __device__ __forceinline__ bool load(unsigned r, int* key) const {
+    *key = __ldg(keys + r);
+    return true;
+  }
+  __device__ __forceinline__ const int* keys_of(int) const { return htk; }
+  __device__ __forceinline__ unsigned slot_of(int, unsigned s) const {
+    return s;
+  }
+  __device__ __forceinline__ Extra fetch(unsigned r) const {
+    return __ldg(vals + r);
+  }
+  __device__ __forceinline__ int2 result(int payload, Extra val) const {
+    return make_int2(payload, val);
+  }
+};
+
+template <int W>
+__global__ void __launch_bounds__(kProbeThreads, kProbeBlocks)
+probe_join_sweep(const JoinProbe op, unsigned* status, long long* count) {
+  const unsigned n = static_cast<unsigned>(op.n);
+  probe_sweep<W>(op, n, status, status + (n + kProbeTile - 1) / kProbeTile,
+                 count);
+}
+
+// probe_join_launch's arguments, passed by one pointer (a ctypes call
+// pays for each argument it converts).
+struct JoinArgs {
+  const int* keys;
+  const int* vals;
+  long long n;
+  const int* htk;
+  const int* htv;
+  unsigned mask;
+  int* out_payload;
+  int* out_vals;
+  long long* count;
+  unsigned* status;
+  long long blocks;                             // resident blocks
+};
+
+}  // namespace
+
+// Blocks of the sweep resident on the current device (`which` is 0).
+extern "C" int probe_join_shape(int which, long long* resident) {
+  if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return sweep_blocks(probe_join_sweep<8>, resident);
+}
+
+// args: a JoinArgs (void here, so the entry keeps external linkage).
+// keys, vals: (n,) int32; htk, htv: (mask + 1,) int32, mask + 1 a power
+// of two; out_payload, out_vals: (n,) int32, written whole (zeros past the
+// count); count: one int64; status: probe_join_status_words(n) words of
+// scratch, cleared here; blocks: probe_join_shape's.  0 < n < 2^31.  Asks
+// the runtime nothing but the memset and the launch.  Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
+extern "C" int probe_join_launch(const void* args, void* stream) {
+  const JoinArgs& a = *static_cast<const JoinArgs*>(args);
+  if (a.n <= 0 || a.n > 2147483647LL || (a.mask & (a.mask + 1u)) != 0u ||
+      a.blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (n + kTile - 1) / kTile;
-  const int* k = static_cast<const int*>(keys);
-  const int* tk = static_cast<const int*>(htk);
-  const int* tv = static_cast<const int*>(htv);
-  int* c = static_cast<int*>(counts);
-  int* o = static_cast<int*>(offsets);
+  const long long tiles = (a.n + kProbeTile - 1) / kProbeTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  probe_count<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      k, n, tk, tv, mask, c);
-  scan_tiles<<<1, kScanThreads, 0, s>>>(c, o, static_cast<int>(tiles),
-                                        static_cast<long long*>(count));
-  probe_scatter<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      k, static_cast<const int*>(vals), n, tk, tv, mask, c, o,
-      static_cast<int*>(out_payload), static_cast<int*>(out_vals));
+  cudaError_t err = cudaMemsetAsync(
+      a.status, 0, sizeof(unsigned) * static_cast<size_t>(tiles + 1), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const JoinProbe op{a.keys, a.vals, a.n,           a.htk,
+                     a.htv,  a.mask, a.out_payload, a.out_vals};
+  const unsigned grid = static_cast<unsigned>(
+      tiles < a.blocks ? tiles : a.blocks);
+  switch (run_slots(a.mask, a.htk)) {
+    case 8:
+      probe_join_sweep<8><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+                                                          a.count);
+      break;
+    case 4:
+      probe_join_sweep<4><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+                                                          a.count);
+      break;
+    case 2:
+      probe_join_sweep<2><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+                                                          a.count);
+      break;
+    default:
+      probe_join_sweep<1><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+                                                          a.count);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" long long probe_join_tile_rows() { return kTile; }
+// Scratch words probe_join_launch takes for n rows: a status word per
+// tile and the ticket.
+extern "C" long long probe_join_status_words(long long n) {
+  return (n + kProbeTile - 1) / kProbeTile + 1;
+}
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -13,7 +13,12 @@ and for a key equal to EMPTY, which no such table can hold.
 stable compacted (payload, val) pairs (the opat chain's join); the port
 of the Pallas TPU kernel ``repro/kernels/hash_join.py::probe_join``.  Same
 contract as ``ref.probe_join``: (payload (n,), vals (n,), count), the
-found rows in row order and zeros past the count, bit for bit.
+found rows in row order and zeros past the count, bit for bit.  A call is
+one allocation (both outputs, the count and the kernel's status words),
+one memset and one kernel, which also writes the zeros past the count;
+the tensors are checked by one cheap test (``build.streams_ok``) and the
+launch goes through ``build.launch``: the opat pass and part_loop make
+many calls of a few thousand rows, where the fixed cost is the time.
 
 ``probe_agg`` — SUM(payload + v) over the found rows (the paper's join
 microbenchmark); the port of ``repro/kernels/hash_join.py::probe_agg``.
@@ -41,12 +46,23 @@ LAUNCHES = 0
 AGG_LAUNCHES = 0
 BUILD_LAUNCHES = 0
 
+
+class _JoinArgs(ctypes.Structure):
+    """``probe_join_launch``'s arguments (``csrc/hash_join.cu``'s
+    ``JoinArgs``), passed by one pointer."""
+    _fields_ = [("keys", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("htk", ctypes.c_void_p),
+                ("htv", ctypes.c_void_p), ("mask", ctypes.c_uint),
+                ("out_payload", ctypes.c_void_p),
+                ("out_vals", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                ("status", ctypes.c_void_p), ("blocks", ctypes.c_longlong)]
+
+
 _SIGNATURES = {
-    "probe_join_launch": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-    "probe_join_tile_rows": (ctypes.c_longlong, []),
+    "probe_join_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+    "probe_join_status_words": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "probe_join_shape": (ctypes.c_int, [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
     "probe_agg_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong,
@@ -116,29 +132,30 @@ def probe_join(keys: torch.Tensor, vals: torch.Tensor,
     keys' device.  keys, vals: (n,) int32; ht_keys, ht_vals: (S,) int32
     open-addressing table, S a power of two."""
     global LAUNCHES
-    if keys.device.type != "cuda":
+    if not keys.is_cuda:
         raise ValueError(f"probe_join: no kernel for device {keys.device}")
-    device, n = keys.device, keys.shape[0]
-    kbuild.check_stream(keys, "keys", n, device)
-    kbuild.check_stream(vals, "vals", n, device)
-    s = _check_table(ht_keys, ht_vals, device)
+    n, index, s = keys.shape[0], keys.get_device(), ht_keys.shape[0]
+    if not (kbuild.streams_ok(n, index, torch.int32, keys, vals) and
+            kbuild.streams_ok(s, index, torch.int32, ht_keys, ht_vals) and
+            0 < s <= 1 << 32 and not s & (s - 1)):
+        kbuild.check_stream(keys, "keys", n, keys.device)
+        kbuild.check_stream(vals, "vals", n, keys.device)
+        _check_table(ht_keys, ht_vals, keys.device)
     if n >= 1 << 31:
         raise ValueError(f"probe_join takes under 2^31 rows, got {n}")
-    out = torch.zeros((2, n), dtype=torch.int32, device=device)
-    count = torch.zeros((), dtype=torch.int64, device=device)
     if n == 0:
-        return out[0], out[1], count
+        out = torch.zeros((2, 0), dtype=torch.int32, device=keys.device)
+        return out[0], out[1], torch.zeros((), dtype=torch.int64,
+                                           device=keys.device)
     lib = library()
-    tiles = -(-n // lib.probe_join_tile_rows())
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.probe_join_launch(
-            keys.data_ptr(), vals.data_ptr(), n, ht_keys.data_ptr(),
-            ht_vals.data_ptr(), s - 1, scratch[0].data_ptr(),
-            scratch[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            count.data_ptr(), stream)
-    kbuild.check(lib, rc, "probe_join")
+    out, count, status = kbuild.sweep_buffers(
+        n, lib.probe_join_status_words(n), keys.device)
+    args = _JoinArgs(keys.data_ptr(), vals.data_ptr(), n, ht_keys.data_ptr(),
+                     ht_vals.data_ptr(), s - 1, out[0].data_ptr(),
+                     out[1].data_ptr(), count.data_ptr(), status,
+                     kbuild.resident(lib, "probe_join_shape", index, 0))
+    kbuild.launch(lib, lib.probe_join_launch, keys.device, "probe_join",
+                  ctypes.addressof(args))
     LAUNCHES += 1
     return out[0], out[1], count
 

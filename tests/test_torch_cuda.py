@@ -171,6 +171,38 @@ def test_probe_join_kernel_bit_identical_to_plain(cuda, n, kind):
         assert torch.equal(g, w)
 
 
+# many sweep tiles (2048 rows) and more than one wave of resident blocks
+MANY_TILES = [3_000_017, (1 << 24) + 5]
+
+
+@pytest.mark.parametrize("n", MANY_TILES)
+@pytest.mark.parametrize("kind", ["duplicate_wrap", "clustered", "slots4",
+                                  "full", "first_tile", "last_tile",
+                                  "misses"])
+def test_probe_join_many_tiles_bit_identical_to_plain(cuda, n, kind):
+    """Each run bit-identical to the plain version: the look-back over
+    thousands of tiles, tiles with no match, and the zero tail."""
+    args = _on(cases.probe_case(n + 1, n, kind), cuda)
+    want = ref.probe_join(*args)
+    for _ in range(2):
+        assert _equal(_launched(hash_join, "probe_join", *args), want)
+
+
+def test_probe_join_unaligned_table_walks_slot_by_slot(cuda):
+    """A table whose address is not a multiple of a run's bytes is walked
+    a slot a step (the launcher's choice), with the same bits."""
+    keys, vals, htk, htv = _on(cases.probe_case(5, 100_003, "clustered"),
+                               cuda)
+    shifted = torch.empty(2 * htk.shape[0] + 1, dtype=torch.int32,
+                          device=cuda)
+    odd_k = shifted[1:htk.shape[0] + 1]
+    odd_v = shifted[htk.shape[0] + 1:]
+    odd_k.copy_(htk)
+    odd_v.copy_(htv)
+    got = _launched(hash_join, "probe_join", keys, vals, odd_k, odd_v)
+    assert _equal(got, ref.probe_join(keys, vals, htk, htv))
+
+
 @pytest.mark.parametrize("n", [1, 37, 100_003])
 @pytest.mark.parametrize("sigmoid", [False, True])
 def test_project_kernel_matches_plain(cuda, n, sigmoid):
@@ -483,6 +515,17 @@ def test_part_probe_kernel_bit_identical_to_plain(cuda, kind, bits, n):
     got = _launched(part_probe, "part_probe", *args)
     assert _equal(got, ref.part_probe(*args))
     assert _equal(part_probe.part_probe(*args), got)
+
+
+@pytest.mark.parametrize("n", MANY_TILES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("kind", ["uniform", "dead", "clustered", "slots2",
+                                  "full", "first_tile", "last_tile"])
+def test_part_probe_many_tiles_bit_identical_to_plain(cuda, kind, bits, n):
+    args = _on(cases.part_probe_case(bits + n, n, bits, kind), cuda)
+    want = ref.part_probe(*args)
+    for _ in range(2):
+        assert _equal(_launched(part_probe, "part_probe", *args), want)
 
 
 def test_radix_wrappers_reject_bad_inputs(cuda):

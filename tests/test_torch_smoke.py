@@ -291,6 +291,24 @@ def test_part_probe_need_walks_each_partition_table(kind, bits):
         smoke.INT32_OPS_PER_S * 1e3
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::part_probe_sweep<8>((anonymous namespace)"
+     "::PartProbe, unsigned int*, long long*)", "part_probe"),
+    ("void (anonymous namespace)::probe_join_sweep<8>((anonymous namespace)"
+     "::JoinProbe, unsigned int*, long long*)", "probe_join"),
+    ("void (anonymous namespace)::scan_tiles(int const*, int*, int, long "
+     "long*)", "select_scan tile scan"),
+    ("void (anonymous namespace)::probe_agg_partials<int, unsigned long "
+     "long>(int const*, int const*, long long, int const*, int const*, "
+     "unsigned int, unsigned long long*)", "other"),
+    ("Memset (Device)", "memset"),
+])
+def test_device_kinds_file_each_kernel_under_its_wrapper(name, kind):
+    """The profile files the partitioned probe under ``part_probe``, not
+    under the ``probe_join`` its name also resembles."""
+    assert smoke.device_kind(name) == kind
+
+
 @pytest.mark.parametrize("bits", [0, 1, 4])
 def test_mean_probe_walks_each_key_from_its_home(bits):
     """The mean walk of a hit: each build key's chain walked slot by slot
