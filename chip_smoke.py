@@ -296,6 +296,20 @@ MULTI_SYNTHETIC = [
           duplicates=True))
     for phys in (1, 2, 4, 8, 16)] + [
     ("n = 37", dict(n=37, n_members=3, n_preds=2, n_joins=2, n_groups=4)),
+] + [
+    # one probe a group of streams on one key column (merged tables)
+    ("Q 13 + 3 padding, 7000 groups, merged probe groups of 3, duplicate "
+     "+ wrapping keys",
+     dict(n=4_000_037, n_members=13, pad=3, n_preds=3, n_joins=6,
+          n_groups=7000, duplicates=True, wrap=True, merge=3,
+          build_rows=20_000)),
+    ("Q 64, merged probe groups of 7, 9 groups",
+     dict(n=2_000_003, n_members=64, n_preds=1, n_joins=7, n_groups=9,
+          merge=7, build_rows=50)),
+    ("Q 8 + 8 padding, packed preds at 4 bits, merged groups of 2, empty "
+     "build side",
+     dict(n=BIG, n_members=8, pad=8, n_preds=2, n_joins=4, n_groups=100,
+          merge=2, empty_join=True, packed=True, pred_phys=4)),
 ]
 # (fn, label, cases generator, its arguments): the microbenchmark kernels
 SUM_SYNTHETIC = [
@@ -526,7 +540,7 @@ def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
 
 def wave_need(wave_args, n_groups: int, pred_widths=None, key_widths=None,
               key_refs=None, m_widths=None, m_refs=None, n_rows=None,
-              member_groups=None) -> dict:
+              member_groups=None, probe_groups=None) -> dict:
     """What one ``multi_spja`` call needs on this data, for its bound.
 
     Bytes: the kernel loads a row's predicate column while a live member
@@ -540,7 +554,9 @@ def wave_need(wave_args, n_groups: int, pred_widths=None, key_widths=None,
     compares per filtering live member and row, 4 per probe step, 2 per
     join of a live member's group id, 2 per summed row (measure op and
     add), 2 per value decoded from a packed stream.  ``steps``: the probe
-    steps (table slots read)."""
+    steps (table slots read).  The work is the wave's, whatever tables
+    the kernel probes: ``probe_groups`` (its merged tables) changes no
+    count, so the bound stays the one the kernel before them had."""
     from repro_torch.kernels import ref
     pred_cols, bounds, join_keys, tables, mults, use, valid, meas, sel = \
         wave_args
@@ -630,6 +646,66 @@ def wave_need(wave_args, n_groups: int, pred_widths=None, key_widths=None,
             "ops": ops, "steps": steps_all,
             "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
             "ops_ms": ops / INT32_OPS_PER_S * 1e3}
+
+
+def spja_launch_info(ssb_fused, plan, dev) -> dict:
+    """The block size and blocks an SM of one fused query's ``spja``
+    launch (``ssb_fused.launch_shape``)."""
+    _, blocks = ssb_fused.launch_shape(ssb_fused.library(), dev.index,
+                                       len(plan.preds), len(plan.joins),
+                                       plan.n_groups)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"block": ssb_fused.THREADS, "blocks_per_sm": blocks // sms,
+            "warps_per_sm": blocks // sms * ssb_fused.THREADS // 32}
+
+
+def wave_probes(wave_args, n_groups: int, key_widths=None, key_refs=None,
+                pred_widths=None, n_rows=None, probe_groups=None,
+                **_) -> int:
+    """The probes one ``multi_spja`` call makes on this data, modelled on
+    the host from the lowering (the kernel counts nothing): for each probe
+    group in order (``probe_groups``; without it each stream is a group,
+    in stream order, as the kernel before the merged tables probed), the
+    rows on which a live member needs one of its streams; then the
+    members that use a stream that missed die."""
+    from repro_torch.core import blocks as B
+    from repro_torch.kernels import ref
+    pred_cols, bounds, join_keys, tables, mults, use, valid, meas, sel = \
+        wave_args
+    c_n, j_n = len(pred_cols), len(join_keys)
+    bounds, mults, use, valid, sel = ref.wave_params(
+        bounds, mults, use, valid, sel, c_n, j_n, len(meas))
+    pred_widths = ref.stream_widths(pred_widths, c_n)
+    key_widths = ref.stream_widths(key_widths, j_n)
+    key_refs = ref.refs_list(key_refs, j_n)
+    n = meas[0].shape[0] if n_rows is None else int(n_rows)
+    dev = meas[0].device
+    real = [q for q in range(valid.shape[0]) if valid[q]]
+    live = torch.zeros((valid.shape[0], n), dtype=torch.bool, device=dev)
+    live[real] = True
+    for c, (col, w) in enumerate(zip(pred_cols, pred_widths)):
+        vals = ref.decode_stream(col, w, 0, n)
+        for q in real:
+            live[q] &= (vals >= int(bounds[q, c, 0])) & \
+                (vals <= int(bounds[q, c, 1]))
+    groups = probe_groups or [((j,), None) for j in range(j_n)]
+    probes = 0
+    for streams, _ in groups:
+        need = [q for q in real
+                if any(use[q, j] or mults[q, j] for j in streams)]
+        if not need:
+            continue
+        probes += int(live[need].any(0).sum())
+        keys = ref.decode_stream(join_keys[streams[0]],
+                                 key_widths[streams[0]],
+                                 key_refs[streams[0]], n)
+        for j in streams:
+            users = [q for q in need if use[q, j]]
+            if users:
+                found = B.block_lookup(keys, tables[2 * j],
+                                       tables[2 * j + 1])[1] > 0
+                live[users] &= found
+    return probes
 
 
 def call_rows(fn: str, args: tuple) -> int:
@@ -1152,7 +1228,7 @@ def resident_phases() -> dict:
     new_err = {"multi_spja": 0.0, "probe_agg": 0.0, "reduce_sum": 0.0}
     for i, (label, kw) in enumerate(MULTI_SYNTHETIC):
         c = cases.multi_spja_case(5000 + i, **kw)
-        a, k = c.args(dev)
+        a, k = c.args(dev, merged=kw.get("merge", 1) > 1)
         before = mf.LAUNCHES
         got = mf.multi_spja(*a, **k, member_groups=c.member_groups)
         if mf.LAUNCHES != before + 1:
@@ -1311,6 +1387,7 @@ def resident_phases() -> dict:
         need = must_move(a, **k)
         bound_ms = max(need["bytes_ms"], need["ops_ms"])
         return {"query": name, "n_groups": plan.n_groups,
+                **spja_launch_info(ssb_fused, plan, dev),
                 "launches": launched,
                 "groups_nonzero": int(np.count_nonzero(result)),
                 "result_sum": float(result.astype(np.float64).sum()),
@@ -2067,6 +2144,16 @@ def resident_phases() -> dict:
             row["kernel_share"] = row["kernel_ms"] / row["query_ms"]
             row["smem_bytes"] = mf.block_smem(*a, n_groups=n_groups, **k)
             row["blocks_per_sm"] = mf.blocks_per_sm(row["smem_bytes"], dev)
+            row["probe_groups"] = [len(g) for g, _ in k["probe_groups"]]
+            if label == "plain":
+                n_fact = database.lineorder.n_rows
+                # modelled on the host from the lowering, not counted on
+                # the card
+                row["model_probes_per_row"] = wave_probes(
+                    a, n_groups, **k) / n_fact
+                row["model_stream_probes_per_row"] = wave_probes(
+                    a, n_groups, **{x: v for x, v in k.items()
+                                    if x != "probe_groups"}) / n_fact
             if (label, w) == ("plain", "all13"):
                 row["plain_ms"] = event_ms(functools.partial(
                     ref.multi_spja, *a, n_groups=n_groups,
@@ -2344,9 +2431,16 @@ def resident_phases() -> dict:
     print(f"phase10_s {time.perf_counter() - t:.3f}")
     del base, vals, sum_inputs, tables
 
+    launch = ("block", "blocks_per_sm", "warps_per_sm")
+    shapes = {(label, r["query"]): {k: r[k] for k in launch}
+              for label, rs in (("fused", rows), ("packed_fused", prows))
+              for r in rs}
+    shapes["shared", "all13"] = {k: main_wave[k] for k in (
+        "blocks_per_sm", "probe_groups", "model_probes_per_row")}
     return dict(t_all=t_all, card=card, dev=dev, kernels=kernels, db=db,
                 pdb=pdb, cache=cache, queries=queries, oracle=oracle,
                 mods=mods, all13=waves["all13"], pad_to=pads["all13"],
+                shapes=shapes,
                 fused=(first, {r["query"]: r["query_ms"] for r in rows},
                        {r["query"]: r["kernel_ms"] for r in rows}),
                 opat=(opat, opat_ms, {}),
@@ -2372,7 +2466,7 @@ def cuda_tensors() -> list:
 
 
 def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
-                 mods, all13, pad_to, **resident) -> int:
+                 mods, all13, pad_to, shapes, **resident) -> int:
     """Phase 11, then the kernels line and the result line."""
     from repro_torch.kernels import ssb_fused
     from repro_torch.sql import compile as TC
@@ -2549,6 +2643,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                 times.append((time.perf_counter() - t0) * 1e3)
             row = {"strategy": label, "query": name, "morsels": n_morsels,
                    "launches": launched,
+                   "launch_shape": shapes.get((label, name)),
                    "query_ms": statistics.median(times),
                    "resident_query_ms": res_ms[name],
                    "resident_kernel_ms": res_kernel_ms.get(name),

@@ -8,7 +8,8 @@ where there is one.
 (say a ``git archive`` of an earlier commit unpacked under ``build/``),
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
-``--only`` runs the named sections alone (sort, project, probe, sum).
+``--only`` runs the named sections alone (sort, project, probe, sum, spja,
+wave).
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -39,6 +40,19 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    (``--tree``).  Every captured call is held bit-identical to the plain
    version (``ref``) before it is timed.
 5. ``reduce_sum`` of 2^28 random f32 rows in turns with ``torch.sum``.
+6. ``spja`` on the 13 queries' calls (``compile.fused_inputs``, the calls
+   ``chip_smoke.py`` phase 4 times), on the plain database and on
+   ``storage.pack_database`` of it: each call and the 13 back to back,
+   TURN_ROUNDS rounds of ``event_ms`` (KERNEL_REPS calls), each call held
+   bit-identical to the plain version first; with the block size and
+   blocks an SM of each call where the tree picks them.
+7. ``wave``: ``multi_spja`` on the ``chip_smoke.WAVES`` waves' calls
+   (``compile.shared_params``, phase 9's), plain and packed, the same way,
+   with the probe groups and streams of each.
+
+Sections 6 and 7 share one database; no PyTorch call computes either
+kernel's function, so the parent is the other side of the turns
+(``--tree``).
 
 Prints the card's name and power limit first and one JSON object last.
 Exits nonzero without CUDA.
@@ -46,6 +60,7 @@ Exits nonzero without CUDA.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -57,7 +72,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-SECTIONS = ("sort", "project", "probe", "sum")
+SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave")
 # (query, join) of the calls timed alone: the first join of q2.1 and the
 # third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
 PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
@@ -155,6 +170,72 @@ def sum_turns(dev) -> dict:
     return row
 
 
+def fused_turns(db, pdb, dev, sections) -> dict:
+    """Sections 6 and 7: ``spja`` on the 13 queries' calls and
+    ``multi_spja`` on the waves' calls, plain and packed, each held to
+    the plain version first, each call and the whole set timed."""
+    from chip_smoke import WAVES
+    from repro_torch.kernels import multi_fused, ref, ssb_fused
+    from repro_torch.sql import engine, hashtable
+    from repro_torch.sql.compile import fused_inputs, shared_params
+    plans = engine.ssb_queries()
+    cache = hashtable.HashTableCache()
+    report = {}
+    lib = ssb_fused.library()
+    for kind, database in (("plain", db), ("packed", pdb)):
+        calls = []
+        for name, plan in plans.items():
+            a, k = fused_inputs(plan, database, cache, dev)
+            calls.append((name, functools.partial(ssb_fused.spja, *a, **k),
+                          functools.partial(ref.spja, *a, **k), {
+                              "n_groups": plan.n_groups}))
+            if hasattr(ssb_fused, "launch_shape"):
+                _, blocks = ssb_fused.launch_shape(
+                    lib, dev.index, len(a[0]), len(a[2]), plan.n_groups)
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                calls[-1][3].update(block=ssb_fused.THREADS,
+                                    blocks_per_sm=blocks // sms)
+        if "spja" in sections:
+            report[f"spja_{kind}"] = held_and_timed("spja", kind, calls)
+        if "wave" not in sections:
+            continue
+        waves = []
+        for wave, names in WAVES.items():
+            members = [plans[q] for q in (names or plans)]
+            _, a, k, n_groups = shared_params(
+                members, database, cache=cache,
+                pad_to=16 if names is None else None, device=dev)
+            plain_kw = {x: v for x, v in k.items() if x != "member_groups"}
+            info = {"members": len(members), "streams": len(a[2])}
+            if "probe_groups" in k:
+                info["probe_groups"] = [len(g) for g, _ in k["probe_groups"]]
+            waves.append((wave, functools.partial(
+                multi_fused.multi_spja, *a, n_groups=n_groups, **k),
+                functools.partial(ref.multi_spja, *a, n_groups=n_groups,
+                                  **plain_kw), info))
+        report[f"wave_{kind}"] = held_and_timed("multi_spja", kind, waves)
+    return report
+
+
+def held_and_timed(fn: str, kind: str, calls: list) -> dict:
+    """Each call held bit-identical to its plain version, then each call
+    and all of them back to back timed in TURN_ROUNDS rounds."""
+    from chip_smoke import KERNEL_REPS
+    for name, call, plain, _ in calls:
+        if not torch.equal(call(), plain()):
+            raise AssertionError(f"{fn} {kind} {name}: kernel != plain")
+
+    def every():
+        for _, call, _, _ in calls:
+            call()
+    row = {"calls": {name: dict(info, **rounds(call, KERNEL_REPS))
+                     for name, call, _, info in calls},
+           "all": rounds(every, KERNEL_REPS)}
+    print(f"{fn} {kind} " + json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path,
@@ -236,6 +317,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     db.to(dev)
+    if {"spja", "wave"} & set(args.only):
+        from repro_torch.sql import storage
+        pdb = storage.pack_database(db).to(dev)
+        report.update(fused_turns(db, pdb, dev, args.only))
+        del pdb
+        torch.cuda.empty_cache()
     if "project" in args.only:
         # the opat pass's project calls: q4's sub measure on its survivors
         cache = hashtable.HashTableCache()

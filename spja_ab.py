@@ -1,40 +1,43 @@
-"""Time the fused SPJA kernel, or the shared-scan kernel, against another
-build of it, in turns, on one card.
+"""Time the fused SPJA kernel, or the shared-scan kernel, against other
+builds of it, in turns, on one card.
 
-    python3 spja_ab.py --other PATH/ssb_fused.cu [--packed] [--pairs 10]
-                       [--sf 20] [--seed 20]
-    python3 spja_ab.py --kernel multi_spja --other PATH/multi_fused.cu ...
-    python3 spja_ab.py --kernel multi_spja --acc-budget 0 \
-                       [--wave q1.1 --wave q1.1,q1.2,q1.3 ...]
+    python3 spja_ab.py [--other PATH/ssb_fused.cu ...] [--packed]
+                       [--pairs 10] [--sf 20] [--seed 20]
+    python3 spja_ab.py --kernel multi_spja [--other PATH/multi_fused.cu]
+                       [--acc-budget 0] [--wave q1.1 --wave q1.1,q1.2 ...]
 
 Builds the checkout's ``src/repro_torch/kernels/csrc/ssb_fused.cu`` (or
-``multi_fused.cu``) and the other source with the same ``nvcc`` flags (a
-header resolves in the other file's own directory first, then in the
-checkout's ``csrc``), generates the SSB database at ``--sf`` on the card
-and times the kernel's launches: for ``spja`` the 13 queries', the calls
-``compile.fused_inputs`` gives and ``chip_smoke.py`` phase 4 times; for
-``multi_spja`` the waves of ``chip_smoke.WAVES`` (the 13 queries padded
-to 16 members, flight 1, flight 2, flights 2 + 4) or those ``--wave``
-names (one of those, or comma-separated queries), the calls
-``compile.shared_params`` gives and phase 9 times.  Without ``--other``
-the other build is the checkout's own source; ``--acc-budget`` runs the
-other side with ``multi_fused.ACC_BUDGET_BYTES`` set to that many bytes
-(the shared-memory grid of the wave kernel's smallest members).  A round
-is the sum of the calls' means over ``chip_smoke.KERNEL_REPS`` launches
-with one library; pair i runs this build then the other for even i, the other
-first for odd i.  With ``--packed`` the same pairs then run on
+``multi_fused.cu``) and each source named by ``--other`` (a variant of
+the kernel: a header resolves in its own directory first, then in the
+checkout's ``csrc``) with the same ``nvcc`` flags.  Then it generates the
+SSB database at ``--sf`` on the card and times the kernel's launches:
+for ``spja`` the 13 queries', the calls ``compile.fused_inputs`` gives
+and ``chip_smoke.py`` phase 4 times; for ``multi_spja`` the waves of
+``chip_smoke.WAVES`` (the 13 queries padded to 16 members, flight 1,
+flight 2, flights 2 + 4) or those ``--wave`` names (one of those, or
+comma-separated queries), the calls ``compile.shared_params`` gives and
+phase 9 times.  Without ``--other`` the other build is the checkout's
+own source; ``--acc-budget`` runs the other builds with
+``multi_fused.ACC_BUDGET_BYTES`` set to that many bytes (the
+shared-memory grid of the wave kernel's smallest members).  A round is
+the sum of the calls' means over ``chip_smoke.KERNEL_REPS`` launches
+with one library; pair i runs the builds in order for even i and in
+reverse for odd i.  With ``--packed`` the same pairs then run on
 ``storage.pack_database`` of the database.
 
-The other source must take the checkout's C interface or a prefix of it
-(a build from before packed streams reads only the plain fields, so it
-can run the plain database but not ``--packed``).  Before any timing,
-each query's result from the other build must equal this build's and the
+Another source must take the checkout's C interface: ``spja_launch``
+with its arguments by one pointer and ``spja_shape`` (since the ninth
+slice), or ``multi_spja_launch`` with probe groups in its words and
+``multi_spja_shape``.  A source of the interface before (the eighth
+slice's and earlier) is refused with a message and exit code 2: compare
+commits with ``kernel_turns.py --tree`` instead.  Before any timing,
+each query's result from every build must equal this build's and the
 plain version's bit for bit.
 
-Prints the card's name and power limit, both builds' ptxas register
+Prints the card's name and power limit, every build's ptxas register
 lines, every round, and as its last line one JSON object with the
-rounds, the medians and the pairs each build won, in all and per call.
-Exits nonzero without CUDA.
+rounds, the medians and the pairs each build won against this one, in
+all and per call.  Exits nonzero without CUDA.
 """
 from __future__ import annotations
 
@@ -58,9 +61,18 @@ def registers(log: str) -> list:
     return [line.strip() for line in log.splitlines() if "registers" in line]
 
 
-def build_other(build, src: Path, signatures) -> tuple:
+# a symbol of each kernel's C interface since the ninth slice
+INTERFACE = {"spja": "spja_shape", "multi_spja": "multi_spja_shape"}
+
+
+class OldInterface(Exception):
+    """Another source takes the C interface of an earlier slice."""
+
+
+def build_other(build, src: Path, signatures, symbol: str = "") -> tuple:
     """Compile ``src`` as ``build`` compiles the checkout's kernels; the
-    library and its ptxas log."""
+    library and its ptxas log.  Raises ``OldInterface`` when the library
+    lacks ``symbol``."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)) / "other.so"
     res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
@@ -71,6 +83,11 @@ def build_other(build, src: Path, signatures) -> tuple:
         raise RuntimeError(f"{src}: nvcc exited {res.returncode}\n"
                            f"{res.stdout}")
     lib = ctypes.CDLL(str(out))
+    if symbol and not hasattr(lib, symbol):
+        raise OldInterface(f"{src} lacks {symbol}: it takes the C interface "
+                           "of an earlier slice, which this script cannot "
+                           "drive; compare commits with kernel_turns.py "
+                           "--tree")
     sigs = {"kernel_error_string": (ctypes.c_char_p, [ctypes.c_int]),
             **signatures}
     for fn, (restype, argtypes) in sigs.items():
@@ -83,9 +100,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("spja", "multi_spja"),
                     default="spja")
-    ap.add_argument("--other", type=Path,
-                    help="the ssb_fused.cu (or multi_fused.cu) to compare "
-                    "with (default: the checkout's)")
+    ap.add_argument("--other", type=Path, action="append", default=[],
+                    help="an ssb_fused.cu (or multi_fused.cu) to compare "
+                    "with (repeat)")
     ap.add_argument("--acc-budget", type=int,
                     help="multi_spja: the other side's ACC_BUDGET_BYTES")
     ap.add_argument("--wave", action="append",
@@ -115,16 +132,24 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip())
     mod, lib_name = {"spja": (ssb_fused, "ssb_fused"),
                      "multi_spja": (multi_fused, "multi_fused")}[args.kernel]
-    other = args.other or build.CSRC / f"{lib_name}.cu"
+    own = build.CSRC / f"{lib_name}.cu"
+    others = [(str(p), p.resolve()) for p in args.other] or \
+        [(str(own), own)]
     this_log = build.build(lib_name) or "(built earlier)"
-    libs = {"this": mod.library()}
-    libs["other"], other_log = build_other(build, other.resolve(),
-                                           mod._SIGNATURES)
-    print("this", registers(this_log))
-    print("other", other, registers(other_log), flush=True)
-    budgets = {"this": multi_fused.ACC_BUDGET_BYTES,
-               "other": multi_fused.ACC_BUDGET_BYTES
-               if args.acc_budget is None else args.acc_budget}
+    libs, logs = {"this": mod.library()}, {"this": registers(this_log)}
+    print("this", logs["this"])
+    for name, src in others:
+        try:
+            libs[name], log = build_other(build, src, mod._SIGNATURES,
+                                          INTERFACE[args.kernel])
+        except OldInterface as e:
+            print(f"spja_ab: {e}", file=sys.stderr)
+            return 2
+        logs[name] = registers(log)
+        print("other", name, logs[name], flush=True)
+    budgets = {name: multi_fused.ACC_BUDGET_BYTES
+               if name == "this" or args.acc_budget is None
+               else args.acc_budget for name in libs}
 
     def with_lib(name, fn):
         saved = mod.library, multi_fused.ACC_BUDGET_BYTES
@@ -172,11 +197,9 @@ def main() -> int:
                                   **plain_kw)))
         return out
 
-    report = {"kernel": args.kernel, "other": str(other),
+    report = {"kernel": args.kernel, "others": [o[0] for o in others],
               "acc_budget": budgets, "pairs": args.pairs,
-              "kernel_reps": KERNEL_REPS,
-              "this_registers": registers(this_log),
-              "other_registers": registers(other_log)}
+              "kernel_reps": KERNEL_REPS, "registers": logs}
     for kind, database in databases.items():
         calls = (spja_calls if args.kernel == "spja" else
                  wave_calls)(database)
@@ -198,20 +221,24 @@ def main() -> int:
                     "this_wins": sum(t < o for t, o in zip(this_ms,
                                                             other_ms))}
 
-        rounds = {"this": [], "other": []}
+        order = list(libs)
+        rounds = {lib: [] for lib in order}
         for i in range(args.pairs):
-            for lib in ("this", "other") if i % 2 == 0 else ("other", "this"):
+            for lib in order if i % 2 == 0 else order[::-1]:
                 rounds[lib].append(round_ms(lib))
-            print(f"{kind} pair {i}: this {sum(rounds['this'][-1])} "
-                  f"other {sum(rounds['other'][-1])}", flush=True)
-        this_ms = [sum(r) for r in rounds["this"]]
-        other_ms = [sum(r) for r in rounds["other"]]
+            print(f"{kind} pair {i}: " + " ".join(
+                f"{lib} {sum(rounds[lib][-1])}" for lib in order),
+                flush=True)
+        total = {lib: [sum(r) for r in rounds[lib]] for lib in order}
         report[kind] = {
-            "this_ms": this_ms, "other_ms": other_ms,
-            **summary(this_ms, other_ms),
-            "calls": {name: summary([r[i] for r in rounds["this"]],
-                                    [r[i] for r in rounds["other"]])
-                      for i, (name, _, _) in enumerate(calls)}}
+            "ms": total, "median": {lib: statistics.median(total[lib])
+                                    for lib in order},
+            "against_this": {
+                lib: {**summary(total["this"], total[lib]),
+                      "calls": {name: summary([r[i] for r in rounds["this"]],
+                                              [r[i] for r in rounds[lib]])
+                                for i, (name, _, _) in enumerate(calls)}}
+                for lib in order[1:]}}
     print(json.dumps(report))
     return 0
 

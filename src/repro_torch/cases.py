@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.kernels.common import PHYS_WIDTHS
 from repro_torch.sql import storage
-from repro_torch.sql.hashtable import (EMPTY, next_pow2, np_build, np_hash,
+from repro_torch.sql.hashtable import (EMPTY, MERGE_STREAMS, build_merged,
+                                       next_pow2, np_build, np_hash,
                                        pack_partitions)
 
 PACKED_WIDTHS = PHYS_WIDTHS[:-1]        # the widths that pack (below 32)
@@ -598,10 +599,13 @@ class MultiCase:
     # n_rows (see ``multi_spja_case(packed=True)``)
     packed: Optional[dict] = None
 
-    def args(self, device) -> tuple:
+    def args(self, device, merged: bool = False) -> tuple:
         """(positional args, keyword args) with the streams and tables as
         int32 tensors on ``device`` (a join that reuses another's column
-        or table gets the same tensor)."""
+        or table gets the same tensor).  ``merged`` adds ``probe_groups``:
+        the streams that probe one key column are one group (its merged
+        table from ``hashtable.build_merged``) when there are several,
+        up to ``MERGE_STREAMS`` a group."""
         made = {}
 
         def t(a):
@@ -609,12 +613,34 @@ class MultiCase:
                 made[id(a)] = torch.from_numpy(
                     np.ascontiguousarray(a)).to(device)
             return made[id(a)]
+        kw = dict(n_groups=self.n_groups, **(self.packed or {}))
+        if merged:
+            kw["probe_groups"] = self.probe_groups(device)
         return ((
             [t(c) for c in self.pred_cols], self.pred_bounds,
             [t(k) for k in self.join_keys], [t(h) for h in self.join_tables],
             self.join_mults, self.join_use, self.q_valid,
-            [t(m) for m in self.measure_cols], self.measure_sel),
-            dict(n_groups=self.n_groups, **(self.packed or {})))
+            [t(m) for m in self.measure_cols], self.measure_sel), kw)
+
+    def probe_groups(self, device) -> tuple:
+        """The case's probe groups: streams in order of their key column's
+        first use, those of one key column merged (``build_merged``)."""
+        by_col = {}
+        for j, k in enumerate(self.join_keys):
+            by_col.setdefault(id(k), []).append(j)
+        out = []
+        for streams in by_col.values():
+            for lo in range(0, len(streams), MERGE_STREAMS):
+                part = tuple(streams[lo:lo + MERGE_STREAMS])
+                if len(part) == 1:
+                    out.append((part, None))
+                    continue
+                slots, pay = build_merged(
+                    [(self.join_tables[2 * j], self.join_tables[2 * j + 1])
+                     for j in part])
+                out.append((part, (torch.from_numpy(slots).to(device),
+                                   torch.from_numpy(pay).to(device))))
+        return tuple(out)
 
     @property
     def n(self) -> int:
@@ -629,7 +655,8 @@ def multi_spja_case(seed: int, n: int, n_members: int, n_preds: int,
                     empty_join: bool = False, duplicates: bool = False,
                     wrap: bool = False, shared_table: bool = False,
                     small: bool = False, packed: bool = False,
-                    pred_phys: int = 8,
+                    pred_phys: int = 8, merge: int = 1,
+                    use_p: float = 2 / 3,
                     m_offset: int = 100_000) -> MultiCase:
     """A random wave of ``n_members`` SPJA members over C predicate
     columns, J probe streams and ``n_meas`` measure columns, then ``pad``
@@ -637,15 +664,18 @@ def multi_spja_case(seed: int, n: int, n_members: int, n_preds: int,
     wave that lets them add anything is caught.
 
     Each member filters a column with probability 1/2 (else all-pass
-    bounds), uses each join but the last with probability 2/3 (the last
-    join, when J >= 2, is anchor-only: use = mult = 0 for every real
+    bounds), uses each join but the last with probability ``use_p`` (2/3;
+    the last join, when J >= 2, is anchor-only: use = mult = 0 for every real
     member), and groups by its used joins' payloads in mixed radix, the
     last radix one past its table's payloads so a few ids fall past
     n_groups (dropped); with n_groups == 1 every mult is 0.  Member 0,
     when it has an unused join, still takes that join's payload into its
     group id (mult without use: a miss adds 0 and filters nothing).
     ``shared_table`` makes join 1 probe join 0's key column and table
-    (two streams, one build side).  ``empty_join`` empties join 0's
+    (two streams, one build side); ``merge`` = k makes the joins of each
+    run of k probe the first one's key column, each against a build side
+    of its own that shares a random part of the first one's keys (a
+    probe group of k streams).  ``empty_join`` empties join 0's
     table; ``small`` keeps measures small (f32 sums of a few thousand
     rows exact); ``packed`` packs every stream as ``packed_spja_case``
     does."""
@@ -674,6 +704,24 @@ def multi_spja_case(seed: int, n: int, n_members: int, n_preds: int,
             cards[1] = cards[0]
             continue
         rows = 0 if (empty_join and j == 0) else build_rows
+        if j % merge:
+            # a build side of the key column of join j - j % merge: a
+            # random part of its keys and as many others, its own payloads
+            lead = j - j % merge
+            held = tables[2 * lead][tables[2 * lead] != EMPTY]
+            dkeys = np.concatenate([
+                rng.permutation(held)[:int(rng.integers(0, len(held) + 1))],
+                rng.integers(-8 * build_rows, 8 * build_rows, rows // 2,
+                             dtype=np.int32)])
+            if duplicates and len(dkeys):
+                dkeys = np.concatenate([dkeys, dkeys[:max(len(dkeys) // 4,
+                                                          1)]])
+            dvals = rng.integers(0, cards[j], len(dkeys), dtype=np.int32)
+            htk, htv = np_build(dkeys.astype(np.int32), dvals,
+                                next_pow2(max(len(dkeys), 1)))
+            join_keys.append(join_keys[lead])
+            tables.extend([htk, htv])
+            continue
         dkeys, _, htk, htv = _dim_table(rng, rows, cards[j], duplicates,
                                         wrap)
         if len(dkeys):
@@ -685,7 +733,7 @@ def multi_spja_case(seed: int, n: int, n_members: int, n_preds: int,
             fk = rng.integers(-100, 100, n, dtype=np.int32)
         join_keys.append(fk.astype(np.int32))
         tables.extend([htk, htv])
-    use = (rng.random((q, n_joins)) < 2 / 3).astype(np.int32)
+    use = (rng.random((q, n_joins)) < use_p).astype(np.int32)
     if n_joins >= 2:
         use[:n_members, -1] = 0
     mults = np.zeros((q, n_joins), np.int64)

@@ -1,6 +1,7 @@
 // Linear-probe lookup into an open-addressing table, shared by
-// ssb_fused.cu, multi_fused.cu and hash_join.cu (probe), and by
-// lookback.cuh's probe sweep (the run-wide walk below).
+// ssb_fused.cu and multi_fused.cu (home_slot, walk_on: several rows'
+// home slots in flight), hash_join.cu (probe), and lookback.cuh's probe
+// sweep (the run-wide walk below).
 //
 // The rule of src/repro/core/blocks.py::block_lookup per key: start at
 // (uint32(key) * 2654435761) & mask and walk until the key (hit) or an
@@ -15,6 +16,27 @@ namespace {
 
 constexpr int kEmpty = -2147483647 - 1;      // INT32_MIN
 constexpr unsigned kHashMul = 2654435761u;
+
+// The walk past a key's home slot, whose key was neither the key nor
+// EMPTY: slots home + 1, home + 2, ... for the rest of one lap; on a hit
+// *slot is the key's slot.  home_slot's load and then walk_on() read what
+// probe() reads, so a caller can issue the home loads of several rows
+// before it walks any of them.
+__device__ __forceinline__ bool walk_on(const int* __restrict__ htk,
+                                        unsigned mask, int key,
+                                        unsigned* slot) {
+  unsigned s = *slot;
+  for (unsigned long long step = 1; step <= mask; ++step) {
+    s = (s + 1u) & mask;
+    const int k = __ldg(htk + s);
+    if (k == key) {
+      *slot = s;
+      return true;
+    }
+    if (k == kEmpty) return false;
+  }
+  return false;
+}
 
 __device__ __forceinline__ bool probe(const int* __restrict__ htk,
                                       const int* __restrict__ htv,

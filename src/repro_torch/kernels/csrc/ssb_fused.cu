@@ -32,11 +32,18 @@
 //    premise that f32 partial sums of integers are exact fails at SF 20:
 //    q1.1's sum is 2,246,830,080 (chip_smoke.py, seed 20), far past
 //    f32's 2^24.
-//  * n_groups up to 7000 (flight 2) needs 56 KB of shared memory, above
-//    the 48 KB default; the launcher raises the limit per call.  Flight 1
-//    has n_groups == 1: there every thread keeps its own sum in a
-//    register, and one warp-shuffle reduction per warp replaces a shared
-//    atomic per row.
+//  * The group grid does not set the occupancy.  n_groups 7000 (flight 2)
+//    needs 56 KB of shared memory a block: at 256 threads that is 4
+//    blocks, 32 warps an SM, where the registers allow 64.  So a block is
+//    1024 threads, one grid a block: flight 2 runs 2 blocks, 64 warps.
+//    Every plan runs such blocks: the 13 queries took 15.05 ms where
+//    256-thread blocks for all but flight 2 took 16.04 (kernel_turns.py,
+//    H100, in turns; flight 1, which keeps no grid, 0.82 -> 0.79).  The
+//    4 + 4 and no-join instances hold 32 registers a thread
+//    (__launch_bounds__), the most 64 warps an SM allow.  Flight 1 has
+//    n_groups == 1: there every thread keeps its own sum in a register,
+//    and one warp-shuffle reduction per warp replaces a shared atomic per
+//    row.
 //  * Any group count runs.  Up to kMaxSpan groups (the whole 227 KB a
 //    block may have) the grid is wholly in shared memory, as every SSB
 //    query's.  Past it a block keeps groups [0, kSpillSpan) in shared
@@ -44,17 +51,29 @@
 //    in device memory (an atomicAdd that stays in the 50 MB L2), as
 //    multi_fused.cu does; the spilling instance is a template of its own,
 //    so a grid that fits runs the code it ran before.  kSpillSpan keeps
-//    56 KB a block, flight 2's grid, so four blocks share an SM.  The sums
-//    stay exact int64 additions: the same bits in any order.
+//    56 KB a block, flight 2's grid.  The sums stay exact int64
+//    additions: the same bits in any order.
 //  * The output grid may hold a caller's running sums (the morsel fold
 //    passes one grid through every morsel): the kernel only adds to it.
-//  * Coalesced int32 loads: kItems rows per thread, rows of one item
-//    spaced kThreads apart, so a warp reads 128 contiguous bytes per
-//    column.  A grid-stride loop over a grid of as many blocks as fit on
+//  * Two rows in flight a thread.  A thread takes kRows rows a step,
+//    spaced the block's width apart (a warp reads 128 contiguous bytes a
+//    column), and runs them through each stage together: the first
+//    predicate column's loads for every row, then the compares; the next
+//    column's loads for the rows still live; for each join every live
+//    row's key, then every home slot (hash.cuh), then the walk past home
+//    for the rows whose home slot held another key, then the payloads;
+//    then the measures and the sums.  A row already filtered skips its
+//    later loads and probes; each walk stops at its key or an EMPTY slot,
+//    as the reference's lock-step loop does per lane.  Two rows won, held
+//    to 32 registers: on the 13 queries at SF 20 (spja_ab.py, H100, in
+//    turns) they took 16.4 ms, one row 22.1, four rows 23.3 (spilling at
+//    32 registers; 22.1 at 64 registers and half the warps), eight 60.1
+//    (28.6 at 64 registers).  A plan with no join (flight 1) runs an
+//    instance with no join slots: q1.1-q1.3 0.821 / 0.438 / 0.348 ms
+//    where the instance with join slots took 0.936 / 0.527 / 0.433 (there
+//    four rows took 0.986 / 0.502 / 0.362, eight at 64 registers 1.372 /
+//    0.721 / 0.531).  A grid-stride loop over as many blocks as fit on
 //    the SMs at once; the ragged tail is masked.
-//  * Each thread walks its own probe (hash.cuh) until its key or an EMPTY
-//    slot (the reference's lock-step loop gives the same answer per
-//    lane).  A row already filtered skips its later loads and probes.
 //  * A live row whose group id falls outside [0, n_groups) is dropped,
 //    as the reference's scatter drops it.
 //  * Every stream, plain or bit-packed (src/repro_torch/sql/storage.py's
@@ -64,10 +83,11 @@
 //    int32 column is phys 32: lg 0, mask all ones, ref 0.  A warp reads
 //    32 neighbouring rows, 128 * phys / 32 contiguous bytes, so a packed
 //    column moves phys / 32 of a plain one's bytes.  One decode for both
-//    kinds is also the faster code: ptxas gives the 4 + 4 instance 23
-//    registers, where separate plain loads took 30, and plain queries run
-//    faster through it (PERF.md, section 6: chip_smoke.py against the
-//    kernel with plain loads, in turns in one call, H100).
+//    kinds is also the faster code: with one row a thread ptxas gave the
+//    4 + 4 instance 23 registers, where separate plain loads took 30,
+//    and plain queries ran faster through it (PERF.md, section 6:
+//    chip_smoke.py against the kernel with plain loads, in turns in one
+//    call, H100).
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
@@ -83,14 +103,13 @@ constexpr int kMaxJoins = 8;
 // predicate and join slots; with plain int32 loads, 8 + 8 slots took 57
 // registers a thread where 4 + 4 took 32 (ptxas): half the blocks an SM,
 // and 1.45x the 13-query time (chip_smoke.py, H100).  So a plan that fits
-// 4 + 4 runs an instance with 4 + 4 slots.  With the decode below every
-// stream goes through, they take 28 and 23 registers, both full
-// occupancy, and the 8 + 8 instance alone still ran the 13 queries 1.69x
-// slower, plain and packed (spja_ab.py, H100).
+// 4 + 4 runs an instance with 4 + 4 slots, held to 32 registers; the
+// 8 + 8 instance, which serves no SSB query, takes what one block of
+// 1024 threads an SM allows (64).
 constexpr int kNarrow = 4;
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kBlock = 1024;                   // threads a block
+constexpr int kNarrowBlocks = 2;               // an SM: 32 registers
+constexpr int kRows = 2;                       // rows a thread in flight
 constexpr int kMaxSpan = 232448 / 8;           // 227 KB of int64 sums
 constexpr int kSpillSpan = 7168;               // 56 KB
 
@@ -135,56 +154,102 @@ __device__ __forceinline__ int load(const int* col, long long r,
 }
 
 template <int kPreds, int kJoins, bool kSpill>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock, kPreds == kNarrow ? kNarrowBlocks
+                                                            : 1)
 spja_kernel(const SpjaParams p) {
   extern __shared__ unsigned long long acc[];
   const bool scalar = p.n_groups == 1;
   if (!scalar) {
-    for (int g = threadIdx.x; g < p.span; g += kThreads) acc[g] = 0ull;
+    for (int g = threadIdx.x; g < p.span; g += kBlock) acc[g] = 0ull;
   }
   __syncthreads();
 
   long long own = 0;               // this thread's sum when n_groups == 1
-  const long long tile = static_cast<long long>(kThreads) * kItems;
+  const long long tile = static_cast<long long>(kBlock) * kRows;
   const long long stride = tile * gridDim.x;
-  for (long long base = tile * blockIdx.x; base < p.n; base += stride) {
+  for (long long base = tile * blockIdx.x + threadIdx.x; base < p.n;
+       base += stride) {
+    unsigned live = 0u;            // bit i: row base + i * kBlock
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const long long r = base + static_cast<long long>(i) * kThreads +
-                          threadIdx.x;
-      if (r >= p.n) break;
-      bool live = true;
+    for (int i = 0; i < kRows; ++i)
+      if (base + static_cast<long long>(i) * kBlock < p.n) live |= 1u << i;
 #pragma unroll
-      for (int q = 0; q < kPreds; ++q) {
-        if (q < p.n_preds && live) {
-          const int v = load(p.pred_cols[q], r, p.pred_w[q]);
-          live = v >= p.pred_lo[q] && v <= p.pred_hi[q];
-        }
-      }
-      unsigned group = 0u;
+    for (int q = 0; q < kPreds; ++q) {
+      if (q < p.n_preds && live) {
+        int v[kRows];
 #pragma unroll
-      for (int j = 0; j < kJoins; ++j) {
-        if (j < p.n_joins && live) {
-          int payload = 0;
-          live = probe(p.ht_keys[j], p.ht_vals[j], p.ht_mask[j],
-                       load(p.join_keys[j], r, p.key_w[j]),
-                       &payload);
-          group += static_cast<unsigned>(payload) * p.mults[j];
-        }
+        for (int i = 0; i < kRows; ++i)
+          if ((live >> i) & 1u)
+            v[i] = load(p.pred_cols[q], base + i * kBlock, p.pred_w[q]);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if (((live >> i) & 1u) &&
+              (v[i] < p.pred_lo[q] || v[i] > p.pred_hi[q]))
+            live &= ~(1u << i);
       }
-      if (!live || group >= static_cast<unsigned>(p.n_groups)) continue;
-      long long m = load(p.m1, r, p.m_w[0]);
-      if (p.measure_op == 1) {
-        m *= load(p.m2, r, p.m_w[1]);
-      } else if (p.measure_op == 2) {
-        m -= load(p.m2, r, p.m_w[1]);
+    }
+    unsigned group[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) group[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < kJoins; ++j) {
+      if (j < p.n_joins && live) {
+        const int* htk = p.ht_keys[j];
+        const unsigned mask = p.ht_mask[j];
+        int key[kRows], home[kRows];
+        unsigned slot[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if ((live >> i) & 1u)
+            key[i] = load(p.join_keys[j], base + i * kBlock, p.key_w[j]);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if ((live >> i) & 1u) {
+            slot[i] = home_slot(key[i], mask);
+            home[i] = __ldg(htk + slot[i]);
+          }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if (((live >> i) & 1u) && home[i] != key[i] &&
+              (home[i] == kEmpty || !walk_on(htk, mask, key[i], &slot[i])))
+            live &= ~(1u << i);
+        int pay[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if ((live >> i) & 1u) pay[i] = __ldg(p.ht_vals[j] + slot[i]);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          if ((live >> i) & 1u)
+            group[i] += static_cast<unsigned>(pay[i]) * p.mults[j];
       }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (group[i] >= static_cast<unsigned>(p.n_groups)) live &= ~(1u << i);
+    if (!live) continue;
+    long long m[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if ((live >> i) & 1u) m[i] = load(p.m1, base + i * kBlock, p.m_w[0]);
+    if (p.measure_op != 0) {
+      int m2[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if ((live >> i) & 1u) m2[i] = load(p.m2, base + i * kBlock, p.m_w[1]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if ((live >> i) & 1u)
+          m[i] = p.measure_op == 1 ? m[i] * m2[i] : m[i] - m2[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (!((live >> i) & 1u)) continue;
       if (scalar) {
-        own += m;
-      } else if (!kSpill || group < static_cast<unsigned>(p.span)) {
-        atomicAdd(&acc[group], static_cast<unsigned long long>(m));
+        own += m[i];
+      } else if (!kSpill || group[i] < static_cast<unsigned>(p.span)) {
+        atomicAdd(&acc[group[i]], static_cast<unsigned long long>(m[i]));
       } else {
-        atomicAdd(p.out + group, static_cast<unsigned long long>(m));
+        atomicAdd(p.out + group[i], static_cast<unsigned long long>(m[i]));
       }
     }
   }
@@ -200,44 +265,30 @@ spja_kernel(const SpjaParams p) {
     return;
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < p.span; g += kThreads) {
+  for (int g = threadIdx.x; g < p.span; g += kBlock) {
     const unsigned long long v = acc[g];
     if (v != 0ull) atomicAdd(p.out + g, v);
   }
 }
 
-// One launch of the instance with kPreds + kJoins slots: as many blocks as
-// fit on the SMs at once, fewer for a small n.
-template <int kPreds, int kJoins, bool kSpill>
-int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
-  cudaError_t err;
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    err = cudaFuncSetAttribute(spja_kernel<kPreds, kJoins, kSpill>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, spja_kernel<kPreds, kJoins, kSpill>, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+// The instances, by the shape code: bit 0 the 8 + 8 slots, bit 1 the
+// spilling grid; 4 no join (4 predicate slots and no join slot).
+using Kernel = void (*)(SpjaParams);
+constexpr int kShapes = 5;
+Kernel const kInstances[kShapes] = {
+    spja_kernel<kNarrow, kNarrow, false>,
+    spja_kernel<kMaxPreds, kMaxJoins, false>,
+    spja_kernel<kNarrow, kNarrow, true>,
+    spja_kernel<kMaxPreds, kMaxJoins, true>,
+    spja_kernel<kNarrow, 0, false>,
+};
 
-  const long long tile = static_cast<long long>(kThreads) * kItems;
-  long long grid = (p.n + tile - 1) / tile;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  if (grid > resident) grid = resident;
-  spja_kernel<kPreds, kJoins, kSpill>
-      <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+template <int kPreds, int kJoins, bool kSpill>
+void start(const SpjaParams& p, unsigned grid, size_t smem, cudaStream_t s) {
+  spja_kernel<kPreds, kJoins, kSpill><<<grid, kBlock, smem, s>>>(p);
 }
 
-}  // namespace
-
+// spja_launch's arguments, passed by one pointer.
 // ptrs (device addresses): pred_cols[kMaxPreds], join_keys[kMaxJoins],
 //   ht_keys[kMaxJoins], ht_vals[kMaxJoins], m1, m2 — unused slots null.
 // ints: n_preds, n_joins, measure_op, n_groups, pred_lo[kMaxPreds],
@@ -245,24 +296,79 @@ int launch(const SpjaParams& p, size_t smem, cudaStream_t stream) {
 //   pred_phys[kMaxPreds], key_phys[kMaxJoins], m_phys[2],
 //   key_ref[kMaxJoins], m_ref[2] — phys 32 for a plain stream (its ref
 //   is ignored), else the packed width; unused slots phys 32.
-// n: the fact rows (a packed stream holds ceil(n / (32 / phys)) words).
-// out: (n_groups,) int64, zeroed by the caller or holding sums to add to;
-// any n_groups >= 1.  Launches on `stream`,
-// does not synchronise, returns cudaGetLastError().
-extern "C" int spja_launch(const void* const* ptrs, const int* ints,
-                           long long n, void* out, void* stream) {
+constexpr int kPtrs = kMaxPreds + 3 * kMaxJoins + 2;
+constexpr int kInts = 8 + 3 * kMaxPreds + 4 * kMaxJoins;
+struct SpjaArgs {
+  const void* ptrs[kPtrs];
+  int ints[kInts];
+  long long n;              // fact rows (a packed stream holds
+                            // ceil(n / (32 / phys)) words)
+  void* out;                // (n_groups,) int64, zeroed or added to
+  long long blocks;         // spja_shape's for this shape and grid
+  int shape;                // the instance (kInstances' code)
+};
+
+}  // namespace
+
+// The shape code of the instance a plan of n_preds, n_joins and n_groups
+// runs, and the shared-memory bytes of its grid (0 for a scalar sum).
+extern "C" int spja_grid(int n_preds, int n_joins, int n_groups,
+                         int* smem) {
+  const bool spill = n_groups > kMaxSpan;
+  const int span = n_groups == 1 ? 0 : spill ? kSpillSpan : n_groups;
+  *smem = span * static_cast<int>(sizeof(long long));
+  const bool wide = n_preds > kNarrow || n_joins > kNarrow;
+  if (n_joins == 0 && !wide && !spill) return 4;
+  return (wide ? 1 : 0) | (spill ? 2 : 0);
+}
+
+// Blocks of instance `flag >> 20` (a shape code) resident on the current
+// device at `flag & 0xfffff` bytes of dynamic shared memory a block (0
+// when one does not fit); raises the instance's dynamic shared-memory cap
+// to the device's most.  The wrapper asks once per device, shape and size.
+extern "C" int spja_shape(int flag, long long* resident) {
+  *resident = 0;
+  const int shape = flag >> 20, smem = flag & 0xfffff;
+  if (shape < 0 || shape >= kShapes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > optin) return static_cast<int>(cudaSuccess);
+  err = cudaFuncSetAttribute(kInstances[shape],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kInstances[shape], kBlock, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *resident = static_cast<long long>(sms) * per_sm;
+  return static_cast<int>(cudaSuccess);
+}
+
+// args: an SpjaArgs.  Any n_groups >= 1.  Asks the runtime nothing but
+// the launch.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int spja_launch(const void* args, void* stream) {
+  const SpjaArgs& a = *static_cast<const SpjaArgs*>(args);
   SpjaParams p;
   int k = 0;
   for (int q = 0; q < kMaxPreds; ++q)
-    p.pred_cols[q] = static_cast<const int*>(ptrs[k++]);
+    p.pred_cols[q] = static_cast<const int*>(a.ptrs[k++]);
   for (int j = 0; j < kMaxJoins; ++j)
-    p.join_keys[j] = static_cast<const int*>(ptrs[k++]);
+    p.join_keys[j] = static_cast<const int*>(a.ptrs[k++]);
   for (int j = 0; j < kMaxJoins; ++j)
-    p.ht_keys[j] = static_cast<const int*>(ptrs[k++]);
+    p.ht_keys[j] = static_cast<const int*>(a.ptrs[k++]);
   for (int j = 0; j < kMaxJoins; ++j)
-    p.ht_vals[j] = static_cast<const int*>(ptrs[k++]);
-  p.m1 = static_cast<const int*>(ptrs[k++]);
-  p.m2 = static_cast<const int*>(ptrs[k++]);
+    p.ht_vals[j] = static_cast<const int*>(a.ptrs[k++]);
+  p.m1 = static_cast<const int*>(a.ptrs[k++]);
+  p.m2 = static_cast<const int*>(a.ptrs[k++]);
+  const int* ints = a.ints;
   int i = 0;
   p.n_preds = ints[i++];
   p.n_joins = ints[i++];
@@ -284,32 +390,40 @@ extern "C" int spja_launch(const void* const* ptrs, const int* ints,
   };
   for (int q = 0; q < kMaxPreds; ++q) width(&p.pred_w[q]);
   for (int j = 0; j < kMaxJoins; ++j) width(&p.key_w[j]);
-  for (int k = 0; k < 2; ++k) width(&p.m_w[k]);
+  for (int m = 0; m < 2; ++m) width(&p.m_w[m]);
   for (int j = 0; j < kMaxJoins; ++j) {
     const int ref = ints[i++];
     if (p.key_w[j].phys != 32) p.key_w[j].ref = static_cast<unsigned>(ref);
   }
-  for (int k = 0; k < 2; ++k) {
+  for (int m = 0; m < 2; ++m) {
     const int ref = ints[i++];
-    if (p.m_w[k].phys != 32) p.m_w[k].ref = static_cast<unsigned>(ref);
+    if (p.m_w[m].phys != 32) p.m_w[m].ref = static_cast<unsigned>(ref);
   }
-  p.out = static_cast<unsigned long long*>(out);
-  p.n = n;
+  p.out = static_cast<unsigned long long*>(a.out);
+  p.n = a.n;
   if (p.n_preds < 0 || p.n_preds > kMaxPreds || p.n_joins < 0 ||
       p.n_joins > kMaxJoins || p.measure_op < 0 || p.measure_op > 2 ||
-      p.n_groups < 1 || n <= 0 || bad)
+      p.n_groups < 1 || p.n <= 0 || bad || a.blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  if (a.shape != spja_grid(p.n_preds, p.n_joins, p.n_groups, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.span = smem / static_cast<int>(sizeof(long long));
 
-  const bool spill = p.n_groups > kMaxSpan;
-  p.span = p.n_groups == 1 ? 0 : spill ? kSpillSpan : p.n_groups;
-  const size_t smem = static_cast<size_t>(p.span) * sizeof(long long);
+  const long long tile = static_cast<long long>(kBlock) * kRows;
+  long long grid = (p.n + tile - 1) / tile;
+  if (grid > a.blocks) grid = a.blocks;
+  const unsigned blocks = static_cast<unsigned>(grid);
+  const size_t bytes = static_cast<size_t>(smem);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool narrow = p.n_preds <= kNarrow && p.n_joins <= kNarrow;
-  if (spill)
-    return narrow ? launch<kNarrow, kNarrow, true>(p, smem, s)
-                  : launch<kMaxPreds, kMaxJoins, true>(p, smem, s);
-  return narrow ? launch<kNarrow, kNarrow, false>(p, smem, s)
-                : launch<kMaxPreds, kMaxJoins, false>(p, smem, s);
+  switch (a.shape) {
+    case 0: start<kNarrow, kNarrow, false>(p, blocks, bytes, s); break;
+    case 1: start<kMaxPreds, kMaxJoins, false>(p, blocks, bytes, s); break;
+    case 2: start<kNarrow, kNarrow, true>(p, blocks, bytes, s); break;
+    case 3: start<kMaxPreds, kMaxJoins, true>(p, blocks, bytes, s); break;
+    default: start<kNarrow, 0, false>(p, blocks, bytes, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* kernel_error_string(int code) {

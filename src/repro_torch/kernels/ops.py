@@ -62,25 +62,30 @@ def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
                join_use, q_valid, measure_cols, measure_sel,
                n_groups: int = 1, mode: str = "auto", pred_widths=None,
                key_widths=None, key_refs=None, m_widths=None, m_refs=None,
-               n_rows=None, member_groups=None, acc=None):
+               n_rows=None, member_groups=None, acc=None,
+               probe_groups=None):
     """A whole wave of SPJA queries in one fact pass -> (Q, n_groups) f32
     on the streams' device, or ``acc`` (an int64 grid) with the exact sums
     added (arguments as ``ref.multi_spja``).  ``n_rows`` is required when
     the first measure stream is packed (its length is then the word
     count).  ``member_groups`` (each member's reachable groups) only tells
-    the kernel where to take each sum."""
+    the kernel where to take each sum; ``probe_groups`` is the lowering
+    of the joins to one probe a fact key column (``ref.multi_spja``),
+    which both versions follow."""
     if use_kernel(mode, measure_cols[0].device):
         return _multi.multi_spja(
             pred_cols, pred_bounds, join_keys, join_tables, join_mults,
             join_use, q_valid, measure_cols, measure_sel, n_groups=n_groups,
             pred_widths=pred_widths, key_widths=key_widths,
             key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
-            n_rows=n_rows, member_groups=member_groups, acc=acc)
+            n_rows=n_rows, member_groups=member_groups, acc=acc,
+            probe_groups=probe_groups)
     return _ref.multi_spja(
         pred_cols, pred_bounds, join_keys, join_tables, join_mults, join_use,
         q_valid, measure_cols, measure_sel, n_groups=n_groups,
         pred_widths=pred_widths, key_widths=key_widths, key_refs=key_refs,
-        m_widths=m_widths, m_refs=m_refs, n_rows=n_rows, acc=acc)
+        m_widths=m_widths, m_refs=m_refs, n_rows=n_rows, acc=acc,
+        probe_groups=probe_groups)
 
 
 def select_scan(x, y, lo, hi, mode: str = "auto"):

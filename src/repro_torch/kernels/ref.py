@@ -206,13 +206,86 @@ def wave_params(pred_bounds, join_mults, join_use, q_valid, measure_sel,
     return bounds, mults, use, valid, sel
 
 
+# the most streams one probe group serves (bits of a merged slot's mask;
+# hashtable.MERGE_STREAMS)
+GROUP_STREAMS = 32
+
+
+def check_probe_groups(probe_groups, join_keys: Sequence[torch.Tensor],
+                       key_widths, key_refs) -> List[Tuple[Tuple[int, ...],
+                                                           object]]:
+    """A wave's probe groups, checked -> [(streams, merged)] in probe
+    order.  Each group is (the stream indices in bit order, None or the
+    merged ``(slots (S, 4), payloads (k, E))`` int32 tables of
+    ``hashtable.build_merged``); a group of one stream may probe its own
+    table (merged None), a larger one needs a merged table.  Every
+    stream is in one group, and a group's streams probe one key stream
+    (the same tensor, width and reference)."""
+    n_joins = len(join_keys)
+    groups, seen = [], []
+    for entry in probe_groups:
+        streams, merged = entry
+        streams = tuple(int(j) for j in streams)
+        if not 1 <= len(streams) <= GROUP_STREAMS or \
+                any(not 0 <= j < n_joins for j in streams):
+            raise ValueError(f"probe group {streams}: 1..{GROUP_STREAMS} "
+                             f"streams of the {n_joins} joins")
+        first = streams[0]
+        if any(join_keys[j] is not join_keys[first] or
+               key_widths[j] != key_widths[first] or
+               key_refs[j] != key_refs[first] for j in streams):
+            raise ValueError(f"probe group {streams}: its streams probe "
+                             "other key streams")
+        if merged is None:
+            if len(streams) != 1:
+                raise ValueError(f"probe group {streams} needs a merged "
+                                 "table")
+        else:
+            slots, pay = merged
+            s = slots.shape[0] if slots.dim() == 2 else 0
+            if slots.dim() != 2 or slots.shape[1] != 4 or s < 1 or \
+                    s & (s - 1) or pay.dim() != 2 or \
+                    pay.shape[0] != len(streams) or \
+                    slots.dtype != torch.int32 or pay.dtype != torch.int32:
+                raise ValueError(f"probe group {streams}: merged tables "
+                                 "must be (S, 4) int32 slots, S a power of "
+                                 "2, and (k, E) int32 payloads")
+        seen += streams
+        groups.append((streams, merged))
+    if sorted(seen) != list(range(n_joins)):
+        raise ValueError(f"probe groups {[g for g, _ in groups]} do not "
+                         f"cover the {n_joins} joins once each")
+    return groups
+
+
+def merged_lookup(keys: torch.Tensor, slots: torch.Tensor,
+                  pay: torch.Tensor
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """One probe of a merged table -> (payload, found) int32 for each of
+    its streams: a stream finds the key when the key is in the table and
+    the stream's bit is set in its mask, and takes its payload matrix
+    row's entry (0 where it misses)."""
+    slot_of = torch.arange(slots.shape[0], dtype=torch.int32,
+                           device=keys.device)
+    slot, found = B.block_lookup(keys, slots[:, 0].contiguous(), slot_of)
+    at = slot.to(torch.int64)
+    hit = found > 0
+    mask = torch.where(hit, slots[at, 1], 0)
+    entry = torch.where(hit, slots[at, 2], 0).to(torch.int64)
+    out = []
+    for s in range(pay.shape[0]):
+        bit = ((mask >> s) & 1).to(torch.int32)
+        out.append((torch.where(bit > 0, pay[s][entry], 0), bit))
+    return out
+
+
 def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
                join_keys: Sequence[torch.Tensor],
                join_tables: Sequence[torch.Tensor], join_mults, join_use,
                q_valid, measure_cols: Sequence[torch.Tensor], measure_sel,
                n_groups: int = 1, pred_widths=None, key_widths=None,
                key_refs=None, m_widths=None, m_refs=None,
-               n_rows=None, acc=None) -> torch.Tensor:
+               n_rows=None, acc=None, probe_groups=None) -> torch.Tensor:
     """A wave of Q SPJA queries in one pass -> (Q, n_groups) f32.
 
     The streams are the union of the members' columns: each join's table
@@ -228,7 +301,13 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     may be bit-packed as in ``spja`` (``*_widths``, ``key_refs``,
     ``m_refs``; ``n_rows`` required when the first measure is packed).
     ``acc``: a (Q, n_groups) int64 grid the sums are added to and which
-    is returned, as ``spja``'s."""
+    is returned, as ``spja``'s.
+
+    ``probe_groups`` (see ``check_probe_groups``): the kernel's lowering,
+    one probe a group of streams that one key stream probes against one
+    dimension key, through its merged table; each stream's (payload,
+    found) then comes from that one probe, and the result is the same
+    bits as without it (one probe a stream in its own table)."""
     n_preds, n_joins, n_meas = len(pred_cols), len(join_keys), \
         len(measure_cols)
     bounds, mults, use, valid, sel = wave_params(
@@ -248,9 +327,19 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     device = measure_cols[0].device
     cols = [decode_stream(c, w, 0, n) for c, w in zip(pred_cols,
                                                       pred_widths)]
-    probes = [B.block_lookup(decode_stream(k, w, krefs[j], n),
-                             join_tables[2 * j], join_tables[2 * j + 1])
-              for j, (k, w) in enumerate(zip(join_keys, key_widths))]
+    groups = [((j,), None) for j in range(n_joins)] if probe_groups is None \
+        else check_probe_groups(probe_groups, join_keys, key_widths, krefs)
+    probes = [None] * n_joins
+    for streams, merged in groups:
+        first = streams[0]
+        keys = decode_stream(join_keys[first], key_widths[first],
+                             krefs[first], n)
+        if merged is None:
+            probes[first] = B.block_lookup(keys, join_tables[2 * first],
+                                           join_tables[2 * first + 1])
+        else:
+            for j, got in zip(streams, merged_lookup(keys, *merged)):
+                probes[j] = got
     meas = [decode_stream(m, w, r, n)
             for m, w, r in zip(measure_cols, m_widths, mrefs)]
     rows = []

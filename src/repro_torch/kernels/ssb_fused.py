@@ -16,11 +16,21 @@ Any group count runs: a grid past the shared memory a block has sums its
 later groups in device memory (see the source's note).  ``acc=`` hands
 the kernel an int64 grid to add into, the running sums of a morsel fold,
 which is rounded to f32 once at its end.
+
+The launch asks the runtime nothing.  A block is ``THREADS`` threads
+sharing one group grid, so a large grid no longer halves the occupancy;
+``launch_shape`` asks once per device, plan shape and grid size how many
+blocks fit (``build.resident``).  The streams are checked by one cheap
+test each
+(``build.streams_ok``; ``check_stream`` names what is wrong when it
+fails), the arguments cross to C by one pointer, and the launch goes
+through ``build.launch``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -35,13 +45,49 @@ _OP_CODE = {"first": 0, "mul": 1, "sub": 2}
 _I32 = (-(1 << 31), (1 << 31) - 1)
 
 
-_SIGNATURES = {"spja_launch": (ctypes.c_int, [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_void_p])}
+THREADS = 1024                  # kBlock
+
+_N_PTRS = MAX_PREDS + 3 * MAX_JOINS + 2
+_N_INTS = 8 + 3 * MAX_PREDS + 4 * MAX_JOINS
+
+
+class _Args(ctypes.Structure):
+    """``spja_launch``'s arguments (``csrc/ssb_fused.cu``'s ``SpjaArgs``),
+    passed by one pointer."""
+    _fields_ = [("ptrs", ctypes.c_void_p * _N_PTRS),
+                ("ints", ctypes.c_int * _N_INTS),
+                ("n", ctypes.c_longlong), ("out", ctypes.c_void_p),
+                ("blocks", ctypes.c_longlong), ("shape", ctypes.c_int)]
+
+
+_SIGNATURES = {
+    "spja_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+    "spja_grid": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int)]),
+    "spja_shape": (ctypes.c_int, [ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_longlong)]),
+}
 
 
 def library() -> ctypes.CDLL:
     return build.load("ssb_fused", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(lib: ctypes.CDLL, device: int, n_preds: int, n_joins: int,
+                 n_groups: int) -> Tuple[int, int]:
+    """(shape code, resident blocks) of a launch on card ``device``: the
+    instance the plan needs (8 + 8 slots past 4 + 4, the spilling grid
+    past a block's shared memory, the no-join instance) and the blocks
+    that fit at its grid's shared memory, asked once."""
+    smem = ctypes.c_int(0)
+    shape = lib.spja_grid(n_preds, n_joins, n_groups, ctypes.byref(smem))
+    blocks = build.resident(lib, "spja_shape", device,
+                            (shape << 20) | smem.value)
+    if blocks < 1:
+        raise RuntimeError(f"spja: a grid of {n_groups} groups does not fit "
+                           "an SM")
+    return shape, blocks
 
 
 def _check_i32(vals, what: str) -> None:
@@ -79,9 +125,9 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     tensor on the streams' device; the sums are added to it and it is
     returned, not rounded."""
     global LAUNCHES
-    if m1.device.type != "cuda":
+    if not m1.is_cuda:
         raise ValueError(f"spja: no kernel for device {m1.device}")
-    device = m1.device
+    device, index = m1.device, m1.get_device()
     n_preds, n_joins = len(pred_cols), len(join_keys)
     if measure_op not in _OP_CODE:
         raise ValueError(f"measure_op {measure_op!r} not in {tuple(_OP_CODE)}")
@@ -112,19 +158,21 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     _check_i32([v for b in bounds for v in b], "pred_bounds")
     _check_i32(mults, "group_mults")
     _check_i32(krefs + mrefs, "key_refs/m_refs")
-    for i, (c, w) in enumerate(zip(pred_cols, pred_widths)):
-        _check_width(c, f"pred_cols[{i}]", w, n, device)
-    for j, (k, w) in enumerate(zip(join_keys, key_widths)):
-        _check_width(k, f"join_keys[{j}]", w, n, device)
-    _check_width(m1, "m1", m_widths[0], n, device)
-    if two:
-        _check_width(m2, "m2", m_widths[1], n, device)
+    streams = [(c, f"pred_cols[{i}]", w)
+               for i, (c, w) in enumerate(zip(pred_cols, pred_widths))] + \
+        [(k, f"join_keys[{j}]", w)
+         for j, (k, w) in enumerate(zip(join_keys, key_widths))] + \
+        [(m1, "m1", m_widths[0])] + ([(m2, "m2", m_widths[1])] if two else [])
+    for t, what, w in streams:
+        if not build.streams_ok(-(-n // (32 // w)), index, torch.int32, t):
+            _check_width(t, what, w, n, device)
     masks = []
     for j in range(n_joins):
         htk, htv = join_tables[2 * j], join_tables[2 * j + 1]
         s = htk.shape[0]
-        build.check_stream(htk, f"join_tables[{2 * j}]", s, device)
-        build.check_stream(htv, f"join_tables[{2 * j + 1}]", s, device)
+        if not build.streams_ok(s, index, torch.int32, htk, htv):
+            build.check_stream(htk, f"join_tables[{2 * j}]", s, device)
+            build.check_stream(htv, f"join_tables[{2 * j + 1}]", s, device)
         if s < 1 or s & (s - 1) or s > 1 << 32:
             raise ValueError(f"join {j}: slot count {s} is not a power of 2 "
                              "up to 2^32")
@@ -141,27 +189,28 @@ def spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
     def pad(xs, k, fill=0):
         return list(xs) + [fill] * (k - len(xs))
 
-    ptrs = (ctypes.c_void_p * (MAX_PREDS + 3 * MAX_JOINS + 2))(
-        *pad([c.data_ptr() for c in pred_cols], MAX_PREDS),
-        *pad([k.data_ptr() for k in join_keys], MAX_JOINS),
-        *pad([join_tables[2 * j].data_ptr() for j in range(n_joins)],
-             MAX_JOINS),
-        *pad([join_tables[2 * j + 1].data_ptr() for j in range(n_joins)],
-             MAX_JOINS),
-        m1.data_ptr(), m2.data_ptr() if two else 0)
-    ints = (ctypes.c_int * (8 + 3 * MAX_PREDS + 4 * MAX_JOINS))(
-        n_preds, n_joins, _OP_CODE[measure_op], n_groups,
-        *pad([lo for lo, _ in bounds], MAX_PREDS),
-        *pad([hi for _, hi in bounds], MAX_PREDS),
-        *pad(masks, MAX_JOINS), *pad(mults, MAX_JOINS),
-        *pad(list(pred_widths), MAX_PREDS, 32),
-        *pad(list(key_widths), MAX_JOINS, 32), *pad(list(m_widths), 2, 32),
-        *pad(krefs, MAX_JOINS), *pad(mrefs, 2))
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.spja_launch(ctypes.addressof(ptrs), ctypes.addressof(ints),
-                             n, out.data_ptr(), stream)
-    build.check(lib, rc, "spja")
+    shape, blocks = launch_shape(lib, index, n_preds, n_joins, n_groups)
+    args = _Args(
+        (ctypes.c_void_p * _N_PTRS)(
+            *pad([c.data_ptr() for c in pred_cols], MAX_PREDS),
+            *pad([k.data_ptr() for k in join_keys], MAX_JOINS),
+            *pad([join_tables[2 * j].data_ptr() for j in range(n_joins)],
+                 MAX_JOINS),
+            *pad([join_tables[2 * j + 1].data_ptr() for j in range(n_joins)],
+                 MAX_JOINS),
+            m1.data_ptr(), m2.data_ptr() if two else 0),
+        (ctypes.c_int * _N_INTS)(
+            n_preds, n_joins, _OP_CODE[measure_op], n_groups,
+            *pad([lo for lo, _ in bounds], MAX_PREDS),
+            *pad([hi for _, hi in bounds], MAX_PREDS),
+            *pad(masks, MAX_JOINS), *pad(mults, MAX_JOINS),
+            *pad(list(pred_widths), MAX_PREDS, 32),
+            *pad(list(key_widths), MAX_JOINS, 32),
+            *pad(list(m_widths), 2, 32),
+            *pad(krefs, MAX_JOINS), *pad(mrefs, 2)),
+        n, out.data_ptr(), blocks, shape)
+    build.launch(lib, lib.spja_launch, device, "spja",
+                 ctypes.addressof(args))
     LAUNCHES += 1
     return out if acc is not None else out.to(torch.float32)

@@ -358,6 +358,64 @@ def shared_footprint(plans: List[P.Plan]):
     return col_ix, join_nodes, mcol_ix
 
 
+def _wave_streams(foot: List[P.Plan], anchored: bool):
+    """:func:`shared_footprint` in the order the wave loads its streams:
+    sorted (joins by ``repr(shared_join_key)``) under an anchor, so any
+    member subset of the pool lowers to the same streams."""
+    col_ix, join_nodes, mcol_ix = shared_footprint(foot)
+    if anchored:
+        col_ix = {c: i for i, c in enumerate(sorted(col_ix))}
+        join_nodes = sorted(join_nodes,
+                            key=lambda j: repr(shared_join_key(j)))
+        mcol_ix = {c: i for i, c in enumerate(sorted(mcol_ix))}
+    return col_ix, join_nodes, mcol_ix
+
+
+def _hit_rate(db: ssb.Database, join: P.HashJoin,
+              cache: Optional[HT.HashTableCache]) -> float:
+    """The share of a join's dimension rows its build side keeps."""
+    held = cache.get_build_count(db, join) if cache is not None else \
+        len(HT.filtered_build_side(db, join)[0])
+    return held / max(getattr(db, join.dim).n_rows, 1)
+
+
+def probe_groups(join_nodes: List[P.HashJoin], db: ssb.Database,
+                 cache: Optional[HT.HashTableCache],
+                 tables: Dict[Tuple, Tuple], device: torch.device
+                 ) -> Tuple[Tuple[Tuple[int, ...], Optional[Tuple]], ...]:
+    """The wave's probe groups, the ``probe_groups`` of ``multi_spja``:
+    the join streams that probe one fact key column against one
+    dimension key (up to ``HT.MERGE_STREAMS`` of them) are one group,
+    probed once a row through their merged table (``HT.build_merged``,
+    from ``cache`` when given); a group of one stream probes its own
+    table.  ``tables`` maps :func:`shared_join_key` to each stream's own
+    ``(htk, htv)``.  Groups run in ascending order of the lowest hit
+    rate among their streams (keys held over dimension rows), ties by
+    ``repr(shared_join_key)``: a function of the build sides alone, so
+    any member subset of an anchored pool lowers to the same groups in
+    the same order."""
+    by_key: Dict[Tuple, List[int]] = {}
+    for ji, j in enumerate(join_nodes):
+        by_key.setdefault((j.fact_col, j.dim, j.key_col), []).append(ji)
+    groups = [streams[lo:lo + HT.MERGE_STREAMS]
+              for streams in by_key.values()
+              for lo in range(0, len(streams), HT.MERGE_STREAMS)]
+    groups.sort(key=lambda g: (
+        min(_hit_rate(db, join_nodes[ji], cache) for ji in g),
+        min(repr(shared_join_key(join_nodes[ji])) for ji in g)))
+    out = []
+    for g in groups:
+        if len(g) == 1:
+            out.append((tuple(g), None))
+            continue
+        joins = [join_nodes[ji] for ji in g]
+        own = [tables[shared_join_key(j)] for j in joins]
+        merged = (cache.get_or_build_merged(db, joins, own, device)
+                  if cache is not None else HT.merged_table(own, device))
+        out.append((tuple(g), merged))
+    return tuple(out)
+
+
 def validate_wave(plans: List[P.Plan]) -> None:
     """Raise ``ValueError`` unless ``plans`` form a legal shared wave:
     non-empty, all scanning the same fact table, every member
@@ -381,7 +439,7 @@ def shared_params(plans: List[P.Plan], db: ssb.Database,
                   pad_to: Optional[int] = None,
                   prebuilt: Optional[Dict[Tuple, Tuple]] = None,
                   fact=None, anchor: Optional[List[P.Plan]] = None,
-                  device=None):
+                  device=None, groups=None):
     """Lower a group of shareable plans over one fact table to the
     arguments of ``ops.multi_spja`` -> ``(fact, args, kwargs, n_groups)``.
 
@@ -403,7 +461,10 @@ def shared_params(plans: List[P.Plan], db: ssb.Database,
     and the streams are sorted (joins by ``repr(shared_join_key)``) so any
     member subset lowers to the same stream order.  ``prebuilt`` maps
     :func:`shared_join_key` to an already built ``(htk, htv)`` pair,
-    which is not fetched again."""
+    which is not fetched again.  ``kwargs["probe_groups"]`` is the
+    kernel's lowering of the joins (:func:`probe_groups`: one probe a
+    row for the streams of one fact key column and dimension key);
+    ``groups`` passes it in when the caller lowered it once."""
     validate_wave(plans)
     device = resolve(device)
     if fact is None:
@@ -411,12 +472,7 @@ def shared_params(plans: List[P.Plan], db: ssb.Database,
     q_n = len(plans)
     q_pad = max(q_n, pad_to or q_n)
     foot = list(plans) + list(anchor or [])
-    col_ix, join_nodes, mcol_ix = shared_footprint(foot)
-    if anchor:
-        col_ix = {c: i for i, c in enumerate(sorted(col_ix))}
-        join_nodes = sorted(join_nodes,
-                            key=lambda j: repr(shared_join_key(j)))
-        mcol_ix = {c: i for i, c in enumerate(sorted(mcol_ix))}
+    col_ix, join_nodes, mcol_ix = _wave_streams(foot, bool(anchor))
     join_ix = {shared_join_key(j): ji for ji, j in enumerate(join_nodes)}
 
     bounds = np.empty((q_pad, len(col_ix), 2), np.int64)
@@ -442,13 +498,10 @@ def shared_params(plans: List[P.Plan], db: ssb.Database,
             mults[qi, ji] += j.mult
     key_streams = [ST.column_stream(fact, j.fact_col, device)
                    for j in join_nodes]
-    join_tables: List[torch.Tensor] = []
-    for j in join_nodes:
-        k = shared_join_key(j)
-        if prebuilt is not None and k in prebuilt:
-            join_tables.extend(prebuilt[k])
-        else:
-            join_tables.extend(_join_tables(db, j, cache, device))
+    tables = _shared_prebuilt(foot, db, cache, prebuilt, device)
+    join_tables = [t for j in join_nodes for t in tables[shared_join_key(j)]]
+    if groups is None:
+        groups = probe_groups(join_nodes, db, cache, tables, device)
 
     msel = np.zeros((q_pad, 3), np.int32)
     for qi, plan in enumerate(plans):
@@ -473,7 +526,8 @@ def shared_params(plans: List[P.Plan], db: ssb.Database,
                   key_refs=np.array([s[2] for s in key_streams], np.int32),
                   m_widths=tuple(s[1] for s in m_streams),
                   m_refs=np.array([s[2] for s in m_streams], np.int32),
-                  n_rows=fact.n_rows, member_groups=member_groups)
+                  n_rows=fact.n_rows, member_groups=member_groups,
+                  probe_groups=groups)
     return fact, args, kwargs, n_groups
 
 
@@ -525,8 +579,9 @@ def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
     device = resolve(device)
     anchor = anchor_for(plans, anchor)
     foot = list(plans) + list(anchor or [])
-    col_ix, join_nodes, mcol_ix = shared_footprint(foot)
+    col_ix, join_nodes, mcol_ix = _wave_streams(foot, bool(anchor))
     tables = _shared_prebuilt(foot, db, cache, prebuilt, device)
+    groups = probe_groups(join_nodes, db, cache, tables, device)
     # each fact column once, however many build sides probe it
     cols = [*col_ix, *(j.fact_col for j in join_nodes), *mcol_ix]
     stream = MS.MorselStream(getattr(db, plans[0].scan.table), morsel_bytes,
@@ -541,7 +596,7 @@ def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
     def run(m):
         _, args, kwargs, n_groups = shared_params(
             plans, db, pad_to=pad_to, prebuilt=tables, fact=m.table,
-            anchor=anchor, device=device)
+            anchor=anchor, device=device, groups=groups)
         faults.maybe_fault("kernel")
         return ops.multi_spja(*args, n_groups=n_groups, mode=mode, acc=acc,
                               **kwargs)

@@ -12,6 +12,12 @@ build side — (dim table, key column, filter fingerprint, payload
 fingerprint) — plus the device, so a warm cache serves every query that
 shares a build side without a rebuild or an upload.
 
+A wave's merged table (``build_merged``) serves every build side that one
+fact key column probes against one dimension key: one probe of the
+union of their keys says which build sides hold the key (a stream mask)
+and where each one's payload is (an entry of a payload matrix), as each
+build side's own table would answer.
+
 The partitioned build (``build_dim_partitions``) buckets the build side
 by the key's low bits and builds one table per partition with the same
 ``np_build``, as the reference does: a list of tables sized each to its
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +73,78 @@ def np_build(keys: np.ndarray, vals: np.ndarray, n_slots: int
     return htk, htv
 
 
+def np_lookup(htk: np.ndarray, htv: np.ndarray, keys: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """The probe of ``kernels/csrc/hash.cuh`` in numpy -> (payload int32,
+    found bool) per key: walk from the key's home slot until the key (a
+    hit) or EMPTY (a miss), one lap at most.  A probe key equal to EMPTY
+    stops at the first EMPTY slot of its walk as a hit, as the kernels'
+    probe does."""
+    keys = np.asarray(keys, np.int32)
+    n_slots = len(htk)
+    payload = np.zeros(len(keys), np.int32)
+    found = np.zeros(len(keys), bool)
+    slot = np_hash(keys, n_slots)
+    pending = np.arange(len(keys))
+    for _ in range(n_slots):
+        if not len(pending):
+            break
+        k = htk[slot[pending]]
+        hit = k == keys[pending]
+        payload[pending[hit]] = htv[slot[pending[hit]]]
+        found[pending[hit]] = True
+        pending = pending[~(hit | (k == EMPTY))]
+        slot[pending] = (slot[pending] + 1) & (n_slots - 1)
+    return payload, found
+
+
+# the most build sides one merged table serves (bits of its stream mask)
+MERGE_STREAMS = 32
+
+
+def build_merged(tables: Sequence[Tuple[np.ndarray, np.ndarray]]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """One table for k <= ``MERGE_STREAMS`` build sides probed by one fact
+    key column -> (slots (S, 4) int32, payloads (k, E) int32).
+
+    A slot holds a key of the union of the tables' keys, the mask of the
+    tables that find it (bit s for ``tables[s]``), its entry, and 0; the
+    slot count follows ``build_dim_table``'s fill rule over the union, and
+    the keys are placed by ``np_build``.  Row s of the payload matrix holds
+    what ``tables[s]`` returns for each entry's key (0 where it misses),
+    found by looking the key up in that table itself (``np_lookup``), so
+    duplicate keys, the first row's win and negative keys agree with it
+    by construction.  The last entry answers a probe of the key EMPTY,
+    which stops at the first EMPTY slot of its walk in every table."""
+    k = len(tables)
+    if not 1 <= k <= MERGE_STREAMS:
+        raise ValueError(f"a merged table serves 1..{MERGE_STREAMS} build "
+                         f"sides, got {k}")
+    held = [htk[htk != EMPTY] for htk, _ in tables]
+    keys = np.unique(np.concatenate(held)).astype(np.int32)
+    n_slots = next_pow2(max(len(keys), 1))
+    entries = np.arange(len(keys) + 1, dtype=np.int32)
+    slot_keys, slot_entry = np_build(keys, entries[:-1], n_slots)
+    probe = np.append(keys, np.int32(EMPTY))
+    pay = np.zeros((k, len(probe)), np.int32)
+    mask = np.zeros(len(probe), np.uint32)
+    for s, (htk, htv) in enumerate(tables):
+        payload, found = np_lookup(htk, htv, probe)
+        pay[s] = np.where(found, payload, 0)
+        mask |= found.astype(np.uint32) << np.uint32(s)
+    slots = np.zeros((n_slots, 4), np.int32)
+    slots[:, 0] = slot_keys
+    filled = slot_keys != EMPTY
+    slots[filled, 1] = mask[slot_entry[filled]].view(np.int32)
+    slots[filled, 2] = slot_entry[filled]
+    stop = int(np_hash(np.array([EMPTY], np.int32), n_slots)[0])
+    while slot_keys[stop] != EMPTY:     # at most half full: it ends
+        stop = (stop + 1) & (n_slots - 1)
+    slots[stop, 1] = mask[-1].view(np.int32)
+    slots[stop, 2] = entries[-1]
+    return slots, pay
+
+
 def next_pow2(n: int) -> int:
     return 1 << max(4, int(np.ceil(np.log2(max(n * 2, 2)))))
 
@@ -105,6 +183,16 @@ def build_dim_table(db: ssb.Database, join: P.HashJoin, device=None
     n_slots = next_pow2(max(len(keys), 1))
     htk, htv = np_build(keys, vals, n_slots)
     return torch.from_numpy(htk).to(device), torch.from_numpy(htv).to(device)
+
+
+def merged_table(tables: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``build_merged`` of the (htk, htv) tensor pairs, uploaded once to
+    ``device`` -> (slots (S, 4), payloads (k, E)) int32 tensors."""
+    slots, pay = build_merged([(htk.cpu().numpy(), htv.cpu().numpy())
+                               for htk, htv in tables])
+    device = resolve(device)
+    return torch.from_numpy(slots).to(device), torch.from_numpy(pay).to(device)
 
 
 @dataclass(frozen=True)
@@ -315,6 +403,32 @@ class HashTableCache:
         if _cacheable(key):
             self.tables[key] = built
             self._dims.add(join.dim)
+            self._touch(key)
+        return built
+
+    def get_or_build_merged(self, db: ssb.Database,
+                            joins: Sequence[P.HashJoin],
+                            tables: Sequence[Tuple[torch.Tensor,
+                                                   torch.Tensor]],
+                            device=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The merged table (``build_merged``) of ``joins``' build sides,
+        whose own tables are ``tables``, on ``device``: cached under the
+        ordered build-side keys and the device, so a warm wave builds
+        nothing.  Kept apart from the hit and miss counts, which count
+        the build sides' own tables."""
+        device = resolve(device)
+        self._bind(db)
+        key = ("merged", tuple(join_cache_key(j) for j in joins),
+               str(device))
+        hit = self.tables.get(key)
+        if hit is not None:
+            self._touch(key)
+            return hit
+        built = merged_table(tables, device)
+        if _cacheable(key):
+            self.tables[key] = built
+            self._dims.update(j.dim for j in joins)
             self._touch(key)
         return built
 

@@ -10,6 +10,8 @@ Tolerance: bit-identical, except two cases that say why.  The fused
 kernel sums exactly in int64 and the compactions are ordered by tile
 offsets, so block order cannot change a result.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,60 @@ def test_spja_wrapper_rejects_bad_inputs(cuda):
     bad[5] = bad[5].to(torch.int64)
     with pytest.raises(ValueError, match="int32"):
         ssb_fused.spja(*bad, **kw)
+
+
+# rows at the edges of a step: R - 1 (R = 2) and a tile (1024 threads x R)
+# +- 1, and ragged tails
+SPJA_ROWS_N = [1, 7, 511, 512, 513, 2047, 2048, 2049, 8191, 8192, 8193,
+               100_003]
+SPJA_GROUPS = [1, 2, 3584, 7000, 7168, 29_056, 33_750]
+
+
+@pytest.mark.parametrize("n_groups", SPJA_GROUPS)
+@pytest.mark.parametrize("n", SPJA_ROWS_N)
+def test_spja_rows_in_flight_and_block_sizes(cuda, n, n_groups):
+    """Ragged tails of a thread's rows in flight and of a block's tile, at
+    every grid size (a scalar sum, grids in shared memory, the spilling
+    grid): the plain version's bits, twice."""
+    c = cases.spja_case(2000 + n % 97, n, 2, 3, "sub", n_groups,
+                        build_rows=3000, duplicates=True, wrap=True)
+    args, kw = c.args(cuda)
+    got = _launched(ssb_fused, "spja", *args, **kw)
+    assert torch.equal(got, ref.spja(*args, **kw))
+    assert torch.equal(ssb_fused.spja(*args, **kw), got)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2, 7000])
+@pytest.mark.parametrize("n", SPJA_ROWS_N)
+def test_spja_no_join_instance(cuda, n, n_groups):
+    """Plans with no join run the instance with no join slots."""
+    c = cases.spja_case(2200 + n % 89, n, 3, 0, "mul", n_groups)
+    args, kw = c.args(cuda)
+    got = _launched(ssb_fused, "spja", *args, **kw)
+    assert torch.equal(got, ref.spja(*args, **kw))
+    assert torch.equal(ssb_fused.spja(*args, **kw), got)
+
+
+@pytest.mark.parametrize("n_groups", [1, 7000])
+@pytest.mark.parametrize("wide", [False, True])
+def test_spja_packed_and_wide_instances(cuda, n_groups, wide):
+    """The packed decode and the 8 + 8 instance, with and without a group
+    grid."""
+    c = cases.packed_spja_case(2100 + n_groups, 40_009, 6 if wide else 2,
+                               5 if wide else 2, "mul", n_groups,
+                               pred_phys=4, duplicates=True)
+    args, kw = c.args(cuda)
+    got = _launched(ssb_fused, "spja", *args, **kw)
+    assert torch.equal(got, ref.spja(*args, **kw))
+    assert torch.equal(ssb_fused.spja(*args, **kw), got)
+
+
+def test_spja_flight2_grid_runs_64_warps_an_sm(cuda):
+    """A 7000-group grid launches 1024-thread blocks, two an SM."""
+    lib = ssb_fused.library()
+    _, blocks = ssb_fused.launch_shape(lib, cuda.index, 0, 3, 7000)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ssb_fused.THREADS == 1024 and blocks == 2 * sms
 
 
 @pytest.mark.parametrize("n_groups", [1, 800, 33_750])
@@ -629,6 +685,148 @@ def test_multi_spja_kernel_bit_identical_to_plain(cuda, i, monkeypatch):
         monkeypatch.setattr(multi_fused, "ACC_BUDGET_BYTES", budget)
         again = multi_fused.multi_spja(*args, **kw)
         assert torch.equal(again, got)
+
+
+# (n, members, preds, joins, n_groups, padding, extra): merged probe
+# groups of 2 to 33 streams (split at 32), one stream a group beside them,
+# 1 to 64 members, padding, packed streams, an empty build side
+MERGED_CASES = [
+    (1, 1, 1, 2, 4, 0, dict(merge=2)),
+    (37, 3, 2, 4, 1, 1, dict(merge=2)),
+    (100_003, 13, 3, 6, 7000, 3, dict(merge=3, duplicates=True, wrap=True)),
+    (65_537, 16, 2, 5, 33_750, 0, dict(merge=5, duplicates=True)),
+    (50_001, 8, 2, 4, 100, 8, dict(merge=4, empty_join=True)),
+    (80_000, 13, 3, 6, 800, 3, dict(merge=3, packed=True, pred_phys=4,
+                                     duplicates=True)),
+    (40_009, 64, 1, 7, 9, 0, dict(merge=7, build_rows=50)),
+    (30_011, 4, 1, 34, 4, 0, dict(merge=33, build_rows=50, use_p=0.05)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(MERGED_CASES)))
+def test_multi_spja_merged_groups_bit_identical_to_plain(cuda, i):
+    """One probe a group through merged tables: the plain version's bits
+    on the same lowering and on one probe a stream, twice, and added into
+    a running grid across two calls."""
+    n, q, c, j, g, pad, extra = MERGED_CASES[i]
+    case = cases.multi_spja_case(4100 + i, n, q, c, j, g, pad=pad, **extra)
+    args, kw = case.args(cuda, merged=True)
+    assert any(m is not None for _, m in kw["probe_groups"])
+    got = _launched(multi_fused, "multi_spja", *args, **kw,
+                    member_groups=case.member_groups)
+    want = ref.multi_spja(*args, **kw)
+    plain = ref.multi_spja(*case.args(cuda)[0], **case.args(cuda)[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(want, plain)
+    assert torch.equal(multi_fused.multi_spja(*args, **kw), got)
+    assert not got[q:].any()
+    acc = torch.zeros((q + pad, g), dtype=torch.int64, device=cuda)
+    for _ in range(2):
+        assert multi_fused.multi_spja(*args, **kw, acc=acc) is acc
+    assert torch.equal(acc, 2 * ref.multi_spja(
+        *args, **kw, acc=torch.zeros_like(acc)))
+
+
+@pytest.mark.parametrize("wave", ["all13", "flight1", "flight2",
+                                  "flights2_4"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_ssb_waves_on_card_match_plain_and_oracle(cuda, wave, packed):
+    """``chip_smoke.WAVES`` at SF 0.05: one launch, the merged lowering's
+    plain version and the oracle, bit for bit; the 13-query wave probes 4
+    groups, one per fact key column."""
+    names = {"all13": None, "flight1": ("q1.1", "q1.2", "q1.3"),
+             "flight2": ("q2.1", "q2.2", "q2.3"),
+             "flights2_4": ("q2.1", "q2.2", "q2.3", "q4.1", "q4.2",
+                            "q4.3")}[wave]
+    db = _ssb_db(cuda, packed)
+    queries = engine.ssb_queries()
+    plans = [queries[q] for q in (names or queries)]
+    cache = hashtable.HashTableCache()
+    _, a, k, n_groups = compile_.shared_params(
+        plans, db, cache=cache, pad_to=16 if names is None else None,
+        device=cuda)
+    if names is None:
+        assert len(k["probe_groups"]) == 4
+    got = _launched(multi_fused, "multi_spja", *a, n_groups=n_groups, **k)
+    plain_kw = {x: v for x, v in k.items() if x != "member_groups"}
+    want = ref.multi_spja(*a, n_groups=n_groups, **plain_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(multi_fused.multi_spja(*a, n_groups=n_groups, **k),
+                       got)
+    for qi, plan in enumerate(plans):
+        np.testing.assert_array_equal(
+            got[qi, :plan.n_groups].cpu().numpy(),
+            engine.run_query_oracle(db, plan), err_msg=plan.name)
+
+
+_SSB_DBS = {}
+
+
+def _ssb_db(cuda, packed: bool):
+    """SF 0.05 (seed 11) on the card, plain or packed, made once."""
+    if packed not in _SSB_DBS:
+        db = ssb.generate(sf=0.05, seed=11)
+        _SSB_DBS[packed] = (storage.pack_database(db) if packed
+                            else db).to(cuda)
+    return _SSB_DBS[packed]
+
+
+def test_multi_spja_refuses_malformed_words(cuda):
+    """The launcher refuses words whose probe groups do not hold together:
+    a group's streams past the stream count, a group of several streams
+    with no payload matrix, a pair's bit past its group."""
+    case = cases.multi_spja_case(5, 1000, 2, 1, 4, 4, merge=2)
+    args, kw = case.args(cuda, merged=True)
+    lib = multi_fused.library()
+    device, n, q, ptrs, chunks = multi_fused._lower(
+        *args, kw["n_groups"], None, None, None, None, None, None, None,
+        kw["probe_groups"])
+    words = chunks[0][1]
+    head, c, g = 10, int(words[1]), int(words[2])
+    groups = head + 5 * c + 2 * c * q
+    n_pairs = int(words[7])
+    pairs = len(words) - 3 * n_pairs
+    ptr_words = np.array(ptrs, np.uint64).view(np.int64)
+    for at, value in ((groups + 6, 3),            # k past the streams
+                      (groups + 7, 0),            # no payload matrix
+                      (pairs + 1, 2)):            # bit past its group
+        if at >= len(words) or (at == pairs + 1 and not n_pairs):
+            continue
+        bad = words.copy()
+        bad[at] = value
+        params = torch.from_numpy(np.concatenate([
+            ptr_words, np.resize(bad, (bad.size + 1) & ~1).view(
+                np.int64)])).to(device)
+        out = torch.zeros((q, kw["n_groups"]), dtype=torch.int64,
+                          device=device)
+        # held in a name: the launcher reads the struct through its address
+        launch_args = multi_fused._Args(bad.ctypes.data, bad.size,
+                                        params.data_ptr(), n,
+                                        out.data_ptr(), 1)
+        rc = lib.multi_spja_launch(ctypes.addressof(launch_args),
+                                   torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, at
+
+
+@pytest.mark.parametrize("which", ["spja", "multi_spja"])
+def test_launch_asks_the_runtime_nothing(cuda, which):
+    """One kernel a call (its count), and a repeated call asks for no
+    launch shape (``build.resident`` answers from its cache)."""
+    if which == "spja":
+        c = cases.spja_case(9, 50_001, 2, 3, "sub", 7000, build_rows=5000)
+        args, kw = c.args(cuda)
+        mod = ssb_fused
+    else:
+        c = cases.multi_spja_case(9, 50_001, 5, 2, 4, 700, merge=2)
+        args, kw = c.args(cuda, merged=True)
+        mod = multi_fused
+    _launched(mod, which, *args, **kw)
+    info = build.resident.cache_info()
+    shape = ssb_fused.launch_shape.cache_info()
+    _launched(mod, which, *args, **kw)
+    assert build.resident.cache_info().misses == info.misses
+    assert ssb_fused.launch_shape.cache_info().misses == shape.misses
 
 
 def test_multi_spja_past_64_members_runs_64_a_launch(cuda):

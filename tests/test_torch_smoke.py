@@ -10,7 +10,7 @@ import torch
 
 from repro_torch import cases
 from repro_torch.kernels import ref
-from repro_torch.sql import storage
+from repro_torch.sql import hashtable, storage
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -441,3 +441,41 @@ def test_wave_need_counts_what_the_wave_kernel_touches(kw):
     assert {k: got[k] for k in want} == want
     assert got["bytes_ms"] == want["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
     assert got["ops_ms"] == want["ops"] / smoke.INT32_OPS_PER_S * 1e3
+
+
+def _probes_brute(c, groups) -> int:
+    """Rows probed a group, row by row: a group is probed while a live
+    member uses or takes one of its streams, then the members that use a
+    stream that missed die."""
+    real = [q for q in range(len(c.q_valid)) if c.q_valid[q]]
+    every = (-(1 << 31), (1 << 31) - 1)
+    probes = 0
+    for r in range(c.n):
+        lv = {q for q in real if all(
+            tuple(c.pred_bounds[q, ci]) == every or
+            c.pred_bounds[q, ci, 0] <= col[r] <= c.pred_bounds[q, ci, 1]
+            for ci, col in enumerate(c.pred_cols))}
+        for streams in groups:
+            if not any(c.join_use[q, j] or c.join_mults[q, j]
+                       for q in lv for j in streams):
+                continue
+            probes += 1
+            for j in streams:
+                htk, htv = c.join_tables[2 * j], c.join_tables[2 * j + 1]
+                _, found = hashtable.np_lookup(
+                    htk, htv, np.array([c.join_keys[j][r]], np.int32))
+                if not found[0]:
+                    lv -= {q for q in lv if c.join_use[q, j]}
+    return probes
+
+
+@pytest.mark.parametrize("merge", [1, 2, 3])
+def test_wave_probes_counts_one_probe_a_group_a_row(merge):
+    c = cases.multi_spja_case(501, 300, 4, 2, 6, 40, pad=1, merge=merge,
+                              duplicates=True, build_rows=40)
+    args, akw = c.args("cpu", merged=True)
+    groups = [s for s, _ in akw["probe_groups"]]
+    assert smoke.wave_probes(args, **akw) == _probes_brute(c, groups)
+    plain = {k: v for k, v in akw.items() if k != "probe_groups"}
+    assert smoke.wave_probes(args, **plain) == \
+        _probes_brute(c, [(j,) for j in range(6)])
