@@ -230,8 +230,11 @@ WAVES = {"all13": None, "flight1": ("q1.1", "q1.2", "q1.3"),
          "flights2_4": ("q2.1", "q2.2", "q2.3", "q4.1", "q4.2", "q4.3")}
 # spin kernels before a profiled run, for the profiler to lose in its
 # place (on an H100 it lost about one for every 15 s the process had
-# run: profiler_check.py)
+# run: profiler_check.py), and the longer heads of the profiles taken
+# again when one still lost a record of the run (once a profile of one
+# fill, after 256 spin kernels, kept no record of the fill)
 PROFILE_HEAD = 256
+PROFILE_RETRY_HEADS = (2048, 16384)
 # phase 9's one-member waves: compile_plan(q, "shared")
 SINGLES = ("q1.1", "q2.1")
 # phase 10: probe rows and the table sizes of the L2 step (8 bytes a slot,
@@ -877,14 +880,35 @@ def profiled(run, expect=()) -> dict:
     first device records of a profile, more of them the longer the
     process had run, whatever they were (``profiler_check.py``).  So
     ``PROFILE_HEAD`` tiny spin kernels run first inside the window, to be
-    lost in the run's place, and are left out of the result.  Raises
-    unless the profile holds a device kernel for every other kernel
-    launch the host recorded and every kind in ``expect``."""
+    lost in the run's place, and are left out of the result.  A profile
+    that still lacks a device kernel for some other kernel launch the
+    host recorded, or a kind in ``expect``, is taken again, ``run`` and
+    all, after each longer head of ``PROFILE_RETRY_HEADS``; ``lost``
+    gives each profile dropped so (its head, the spin kernels and the
+    run's kernels it kept, the run's launches).  Raises if the last one
+    lost records too."""
+    lost = []
+    for head in (PROFILE_HEAD, *PROFILE_RETRY_HEADS):
+        prof = profile_once(run, head)
+        if prof["kernels_kept"] and prof["kernels_kept"] >= prof["launches"] \
+                and set(expect) <= set(prof["device_ms"]):
+            return dict(prof, lost=lost)
+        lost.append({k: prof[k] for k in ("head", "spins_kept",
+                                          "kernels_kept", "launches")})
+    raise AssertionError(
+        f"the profile lost device records in every try: {lost}, kinds "
+        f"{sorted(prof['device_ms'])}, expected {sorted(expect)}")
+
+
+def profile_once(run, head: int) -> dict:
+    """One profile of ``run`` after ``head`` spin kernels, as ``profiled``
+    gives it, with the spin kernels and the run's kernels it kept."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_HEAD):
+        for _ in range(head):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -893,10 +917,13 @@ def profiled(run, expect=()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = list(prof.events())
     launches = sum(e.device_type != cuda and "LaunchKernel" in e.name
-                   for e in events) - PROFILE_HEAD
-    kinds, names, kernels = {}, {}, 0
+                   for e in events) - head
+    kinds, names, kernels, spins = {}, {}, 0, 0
     for e in events:
-        if e.device_type != cuda or "spin_kernel" in e.name:
+        if e.device_type != cuda:
+            continue
+        if "spin_kernel" in e.name:
+            spins += 1
             continue
         kernels += not e.name.startswith(("Memcpy", "Memset"))
         kind = device_kind(e.name)
@@ -904,17 +931,14 @@ def profiled(run, expect=()) -> dict:
         kinds[kind] = kinds.get(kind, 0.0) + ms
         calls, total = names.setdefault(kind, {}).get(e.name[:96], (0, 0.0))
         names[kind][e.name[:96]] = (calls + 1, total + ms)
-    if not kernels or kernels < launches or not set(expect) <= set(kinds):
-        raise AssertionError(
-            f"the profile lost device records: {kernels} kernels for "
-            f"{launches} launches, kinds {sorted(kinds)}")
     busy = sum(kinds.values())
     return {"device_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
             "kernels": {kind: sorted(([name, *v] for name, v in by.items()),
                                      key=lambda r: -r[2])[:3]
                         for kind, by in names.items()},
             "busy_ms": busy, "wall_ms": wall_ms, "busy_share": busy / wall_ms,
-            "launches": launches}
+            "launches": launches, "head": head, "spins_kept": spins,
+            "kernels_kept": kernels}
 
 
 def one_call(fn: str, run, n: int, count: int, lib) -> dict:

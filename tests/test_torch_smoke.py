@@ -309,6 +309,44 @@ def test_device_kinds_file_each_kernel_under_its_wrapper(name, kind):
     assert smoke.device_kind(name) == kind
 
 
+def _profile(head, kept, launches, kinds):
+    return {"device_ms": dict.fromkeys(kinds, 1.0), "kernels": {},
+            "busy_ms": 1.0, "wall_ms": 1.0, "busy_share": 1.0,
+            "launches": launches, "head": head, "spins_kept": head // 2,
+            "kernels_kept": kept}
+
+
+@pytest.mark.parametrize("lost_tries", [0, 1, 2, 3])
+def test_profiled_takes_a_profile_again_after_a_longer_head(monkeypatch,
+                                                            lost_tries):
+    """A profile that lost a record of the run (fewer kernels than
+    launches, none at all, or an expected kind missing) is taken again
+    after each longer head; the first whole one is kept with the lost
+    ones listed, and a run lost in every try raises."""
+    heads = (smoke.PROFILE_HEAD, *smoke.PROFILE_RETRY_HEADS)
+    bad = [(0, 1, []), (1, 2, ["spja"]), (2, 2, ["torch zeros"])]
+    calls = []
+
+    def once(run, head):
+        run()
+        calls.append(head)
+        i = len(calls) - 1
+        return _profile(head, *(bad[i] if i < lost_tries
+                                else (2, 2, ["spja", "torch zeros"])))
+
+    monkeypatch.setattr(smoke, "profile_once", once)
+    ran = []
+    if lost_tries == len(heads):
+        with pytest.raises(AssertionError, match="every try"):
+            smoke.profiled(lambda: ran.append(1), ("spja",))
+        assert calls == list(heads)
+        return
+    prof = smoke.profiled(lambda: ran.append(1), ("spja",))
+    assert calls == list(heads[:lost_tries + 1]) and len(ran) == len(calls)
+    assert prof["head"] == heads[lost_tries]
+    assert [x["head"] for x in prof["lost"]] == list(heads[:lost_tries])
+
+
 @pytest.mark.parametrize("bits", [0, 1, 4])
 def test_mean_probe_walks_each_key_from_its_home(bits):
     """The mean walk of a hit: each build key's chain walked slot by slot
