@@ -40,9 +40,11 @@ exits non-zero without printing a result:
            card; then per-query times beside fused (the fig17 analogue)
            and each kernel's time over one pass beside its bound
            (``project``, whose calls there are their fixed cost, in
-           turns with ``torch.sub``; each ``probe_join`` call run twice
-           with the same bits, beside a fill of its zero tail), and one
-           ``probe_join`` call profiled: one sweep kernel and one memset;
+           turns with ``torch.sub``; each ``probe_join`` and
+           ``select_scan`` call run twice with the same bits, beside a
+           fill of its zero tail), and one ``probe_join`` and one
+           ``select_scan`` call of each size profiled: one sweep kernel
+           and one memset;
 6. packed storage: phase 4's database packed (``storage.pack_database``)
            and resident on the card, the 13 queries ``fused`` (``spja`` on
            packed streams) and ``opat`` (the leading filter through
@@ -51,7 +53,8 @@ exits non-zero without printing a result:
            and fused results, a second pass and the plain versions on
            the card, launches checked against the plans; per-query
            packed times beside phase 4's plain ones and the packed bound;
-           ``select_scan_packed`` over one pass and ``unpack`` of every
+           ``select_scan_packed`` over one pass (each call run twice, one
+           call profiled as in phase 5) and ``unpack`` of every
            packed column (bit-identical to the resident plain column)
            beside their bounds;
 7. partitioned join: the 13 queries through ``compile_plan(plan,
@@ -212,7 +215,7 @@ MORSEL_REPS = 3
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
 # the one-sweep compactions (csrc/lookback.cuh): a call is one memset and
 # one kernel, each timed call run twice
-SWEEPS = ("probe_join", "part_probe")
+SWEEPS = ("probe_join", "part_probe", "select_scan", "select_scan_packed")
 SMALL_ROWS = 10_000             # a call this small is its fixed cost
 # phase 3: radix_sort's keys (cases.sort_case kinds) and the passes of
 # four that move rows
@@ -346,7 +349,12 @@ OPAT_SYNTHETIC = {
          False)
         for n, sel, dtype in ((BIG, "mid", "int32"), (BIG, "none", "int32"),
                               (BIG, "all", "int32"),
-                              (BIG, "mid", "float32"), (37, "mid", "int32"))],
+                              (BIG, "mid", "float32"), (37, "mid", "int32"),
+                              (BIG, "nan", "float32"),
+                              ((1 << 24) + 5, "first_tile", "int32"),
+                              ((1 << 24) + 5, "last_tile", "int32"),
+                              (4096, "all", "int32"),
+                              (4097, "mid", "float32"))],
     "probe_join": [
         (f"{kind}, n={n}", "probe_case", (n, n, kind), (), False)
         for n, kind in ((BIG, "duplicate_wrap"), (1_000_003, "empty"),
@@ -851,10 +859,10 @@ def check_against_plain(fn: str, label: str, got, want, again=None,
 
 # device kernels by name: the port's own (by the wrapper that launches
 # them) and PyTorch's glue around them; first match wins
-DEVICE_KINDS = [("select_count", "select_scan"),
-                ("select_scatter", "select_scan"),
+DEVICE_KINDS = [("select_packed_sweep", "select_scan_packed"),
+                ("select_sweep", "select_scan"),
                 ("part_probe", "part_probe"), ("probe_join", "probe_join"),
-                ("scan_tiles", "select_scan tile scan"),
+                ("scan_tiles", "select_scan_sparse"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
@@ -941,25 +949,30 @@ def profile_once(run, head: int) -> dict:
             "kernels_kept": kernels}
 
 
-def one_call(fn: str, run, n: int, count: int, lib) -> dict:
+def one_call(fn: str, run, n: int, count: int, lib, columns: int = 2,
+             shape: tuple = None) -> dict:
     """The device work of one call of a one-sweep compaction wrapper
-    (``probe_join``, ``part_probe``), from the profile: raises unless it
-    is one kernel of the wrapper's kind and one memset (the status words
-    and the ticket).  Beside them, the sweep's resident blocks an SM
-    (``lib``'s ``<fn>_shape``) and the device time of a fill of the
-    2·(n − count) zeros the sweep writes past the count, as one
-    ``torch.zeros`` (what the sweep's zero tail would cost alone)."""
+    (``probe_join``, ``part_probe``: two output columns; ``select_scan``,
+    ``select_scan_packed``: one), from the profile: raises unless it is
+    one kernel of the wrapper's kind and one memset (the status words and
+    the ticket).  Beside them, the sweep's resident blocks an SM
+    (``lib``'s ``shape`` = (function, flag), by default ``<fn>_shape``
+    and 0) and the device time of a fill of the columns·(n − count) zeros
+    the sweep writes past the count, as one ``torch.zeros`` (what the
+    sweep's zero tail would cost alone)."""
     prof = profiled(run, (fn,))
     calls = {kind: sum(c for _, c, _ in rows)
              for kind, rows in prof["kernels"].items()}
     if calls != {fn: 1, "memset": 1}:
         raise AssertionError(f"{fn}: one call launched {calls}, not one "
                              "sweep and one memset")
-    fill = profiled(lambda: torch.zeros((2, n - count), dtype=torch.int32,
-                                        device="cuda")) if count < n else {}
+    fill = profiled(lambda: torch.zeros(
+        (columns, n - count), dtype=torch.int32,
+        device="cuda")) if count < n else {}
     from repro_torch.kernels import build
     dev = torch.cuda.current_device()
-    blocks = build.resident(lib, f"{fn}_shape", dev, 0)
+    shape_fn, flag = shape or (f"{fn}_shape", 0)
+    blocks = build.resident(lib, shape_fn, dev, flag)
     return {"fn": fn, "n": n, "count": count,
             "blocks_per_sm": blocks / torch.cuda.get_device_properties(
                 dev).multi_processor_count,
@@ -1060,7 +1073,8 @@ class Timed:
                        zip(outputs(out), outputs(self.kernel(*args)))):
                 raise AssertionError(f"{self.fn}: two runs of a pass's call "
                                      "differ")
-            zeros = 2 * (call_rows(self.fn, args) - int(out[2]))
+            zeros = (len(out) - 1) * (call_rows(self.fn, args) -
+                                      int(out[-1]))
             row["zero_tail_ms"] = event_ms(lambda: torch.zeros(
                 (zeros,), dtype=torch.int32, device=out[0].device),
                 CALL_REPS)
@@ -1524,6 +1538,14 @@ def resident_phases() -> dict:
         print("one call " + json.dumps(one_call(
             "probe_join", lambda: hj.probe_join(*args), n_pin, count,
             hj.library())), flush=True)
+    sel = mods["select_scan"]
+    for n_pin in (BIG, 37):
+        args = cases.tensors(cases.select_case(3301, n_pin), dev)
+        count = int(sel.select_scan(*args)[1])
+        print("one call " + json.dumps(one_call(
+            "select_scan", lambda: sel.select_scan(*args), n_pin, count,
+            sel.library(), columns=1, shape=("select_scan_shape", 32))),
+            flush=True)
     n = db.lineorder.n_rows     # the chain's first positions vector, alone
     arange_ms = event_ms(lambda: torch.arange(n, dtype=torch.int32,
                                               device=dev), KERNEL_REPS)
@@ -1694,6 +1716,12 @@ def resident_phases() -> dict:
                                  "differs")
     kernels.append(kernel_entry(fn, src, replaces, popat_launches[0],
                                 max(opat_err[fn], timer.err), timer.rows))
+    pargs = cases.tensors(cases.select_packed_case(3302, BIG, 4), dev)
+    count = int(sel_mod.select_scan_packed(*pargs)[1])
+    print("one call " + json.dumps(one_call(
+        fn, lambda: sel_mod.select_scan_packed(*pargs), BIG, count,
+        sel_mod.library(), columns=1, shape=("select_scan_shape", 4))),
+        flush=True)
 
     unp = mods[um]
     packed_cols = [(col, pc.encoding)

@@ -1,6 +1,6 @@
-"""Time the port's radix sort, projection, probe and sum kernels on one
-card, in turns beside the PyTorch call that computes the same function
-where there is one.
+"""Time the port's radix sort, projection, probe, sum, fused and select
+kernels on one card, in turns beside the PyTorch call that computes the
+same function where there is one.
 
     python3 kernel_turns.py [--tree PATH] [--only SECTION ...]
 
@@ -9,7 +9,7 @@ where there is one.
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
 ``--only`` runs the named sections alone (sort, project, probe, sum, spja,
-wave).
+wave, select).
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -50,9 +50,19 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    (``compile.shared_params``, phase 9's), plain and packed, the same way,
    with the probe groups and streams of each.
 
-Sections 6 and 7 share one database; no PyTorch call computes either
-kernel's function, so the parent is the other side of the turns
-(``--tree``).
+8. ``select``: ``select_scan`` on the calls captured from one opat pass of
+   the 13 queries and ``select_scan_packed`` on those of one opat pass on
+   ``storage.pack_database`` of the database (``capture``), each captured
+   call held bit-identical to the plain version first; each call and each
+   pass timed alone, TURN_ROUNDS rounds of ``event_ms`` (TURN_CALLS calls,
+   TURN_ROUNDS passes), beside each call's bound (``chip_smoke.opat_need``)
+   and, as a yardstick only (no one PyTorch call computes the function),
+   ``torch.nonzero((x >= lo) & (x <= hi))`` followed by the gather of y on
+   the same calls (a packed call's x decoded once first).
+
+Sections 6, 7 and 8 share one database and its packing; no PyTorch call
+computes those kernels' functions, so the parent is the other side of the
+turns (``--tree``).
 
 Prints the card's name and power limit first and one JSON object last.
 Exits nonzero without CUDA.
@@ -72,7 +82,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave")
+SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave", "select")
 # (query, join) of the calls timed alone: the first join of q2.1 and the
 # third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
 PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
@@ -148,6 +158,62 @@ def probe_turns(db) -> dict:
                          if args[0].shape[0] < SMALL_ROWS]}
         report[f"{fn}_{strategy}"] = row
         print(f"{fn} {strategy} " + json.dumps(row), flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return report
+
+
+def select_turns(db, pdb) -> dict:
+    """Section 8: ``select_scan`` on the opat pass's calls,
+    ``select_scan_packed`` on the packed opat pass's; each captured call
+    held to the plain version first, then each call and the pass timed,
+    beside the nonzero-and-gather yardstick."""
+    from chip_smoke import TURN_CALLS, opat_need
+    from repro_torch.kernels import ref, select_scan
+    from repro_torch.sql import hashtable
+    cache = hashtable.HashTableCache()
+    report = {}
+    for kind, database, fn in (("plain", db, "select_scan"),
+                               ("packed", pdb, "select_scan_packed")):
+        calls = capture(select_scan, fn, "opat", database, cache)
+        kernel, plain = getattr(select_scan, fn), getattr(ref, fn)
+        for query, k, args in calls:
+            for got, want in zip(kernel(*args), plain(*args)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{fn} {query} call {k}: kernel "
+                                         "!= plain")
+
+        def yardstick(args):
+            x, y, lo, hi = args[:4]
+            if fn == "select_scan_packed":
+                x = ref.decode_words(x, args[4])[:y.shape[0]]
+            return lambda: y[torch.nonzero((x >= lo) & (x <= hi))
+                             .squeeze(1)]
+
+        def timed(args):
+            out = kernel(*args)
+            need = opat_need(fn, args, out)
+            return dict(n=int(args[1].shape[0]), count=int(out[1]),
+                        **rounds(lambda: kernel(*args), TURN_CALLS),
+                        bound_ms=max(need["bytes_ms"], need["ops_ms"]),
+                        nonzero_gather=rounds(yardstick(args),
+                                              TURN_CALLS)["median"])
+
+        def whole_pass():
+            for _, _, args in calls:
+                kernel(*args)
+        row = {"fn": fn, "calls": len(calls),
+               "rows": sum(int(a[1].shape[0]) for _, _, a in calls),
+               "pass": rounds(whole_pass, 5),
+               "each": {f"{q} call {k}": timed(args)
+                        for q, k, args in calls}}
+        row["sum_of_medians"] = sum(c["median"]
+                                    for c in row["each"].values())
+        row["bound_ms"] = sum(c["bound_ms"] for c in row["each"].values())
+        row["nonzero_gather_ms"] = sum(c["nonzero_gather"]
+                                       for c in row["each"].values())
+        report[fn] = row
+        print(f"{fn} " + json.dumps(row), flush=True)
         del calls
         torch.cuda.empty_cache()
     return report
@@ -317,10 +383,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     db.to(dev)
-    if {"spja", "wave"} & set(args.only):
+    if {"spja", "wave", "select"} & set(args.only):
         from repro_torch.sql import storage
         pdb = storage.pack_database(db).to(dev)
-        report.update(fused_turns(db, pdb, dev, args.only))
+        if {"spja", "wave"} & set(args.only):
+            report.update(fused_turns(db, pdb, dev, args.only))
+        if "select" in args.only:
+            report.update(select_turns(db, pdb))
         del pdb
         torch.cuda.empty_cache()
     if "project" in args.only:

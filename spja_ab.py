@@ -1,10 +1,12 @@
-"""Time the fused SPJA kernel, or the shared-scan kernel, against other
-builds of it, in turns, on one card.
+"""Time the fused SPJA kernel, the shared-scan kernel or the select
+sweep against other builds of it, in turns, on one card.
 
     python3 spja_ab.py [--other PATH/ssb_fused.cu ...] [--packed]
                        [--pairs 10] [--sf 20] [--seed 20]
     python3 spja_ab.py --kernel multi_spja [--other PATH/multi_fused.cu]
                        [--acc-budget 0] [--wave q1.1 --wave q1.1,q1.2 ...]
+    python3 spja_ab.py --kernel select_scan [--other PATH/select_scan.cu]
+                       [--packed]
 
 Builds the checkout's ``src/repro_torch/kernels/csrc/ssb_fused.cu`` (or
 ``multi_fused.cu``) and each source named by ``--other`` (a variant of
@@ -16,7 +18,11 @@ and ``chip_smoke.py`` phase 4 times; for ``multi_spja`` the waves of
 ``chip_smoke.WAVES`` (the 13 queries padded to 16 members, flight 1,
 flight 2, flights 2 + 4) or those ``--wave`` names (one of those, or
 comma-separated queries), the calls ``compile.shared_params`` gives and
-phase 9 times.  Without ``--other`` the other build is the checkout's
+phase 9 times; for ``select_scan`` the calls of one opat pass of the 13
+queries (``kernel_turns.capture``), and with ``--packed`` the
+``select_scan_packed`` calls of one opat pass on the packed database in
+place of the plain calls.  Without ``--other`` the other build is the
+checkout's
 own source; ``--acc-budget`` runs the other builds with
 ``multi_fused.ACC_BUDGET_BYTES`` set to that many bytes (the
 shared-memory grid of the wave kernel's smallest members).  A round is
@@ -27,8 +33,9 @@ reverse for odd i.  With ``--packed`` the same pairs then run on
 
 Another source must take the checkout's C interface: ``spja_launch``
 with its arguments by one pointer and ``spja_shape`` (since the ninth
-slice), or ``multi_spja_launch`` with probe groups in its words and
-``multi_spja_shape``.  A source of the interface before (the eighth
+slice), ``multi_spja_launch`` with probe groups in its words and
+``multi_spja_shape``, or ``select_scan_launch`` with its arguments by one
+pointer and ``select_scan_shape`` (since the tenth).  A source of the interface before (the eighth
 slice's and earlier) is refused with a message and exit code 2: compare
 commits with ``kernel_turns.py --tree`` instead.  Before any timing,
 each query's result from every build must equal this build's and the
@@ -62,7 +69,8 @@ def registers(log: str) -> list:
 
 
 # a symbol of each kernel's C interface since the ninth slice
-INTERFACE = {"spja": "spja_shape", "multi_spja": "multi_spja_shape"}
+INTERFACE = {"spja": "spja_shape", "multi_spja": "multi_spja_shape",
+             "select_scan": "select_scan_shape"}
 
 
 class OldInterface(Exception):
@@ -98,7 +106,8 @@ def build_other(build, src: Path, signatures, symbol: str = "") -> tuple:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("spja", "multi_spja"),
+    ap.add_argument("--kernel", choices=("spja", "multi_spja",
+                                         "select_scan"),
                     default="spja")
     ap.add_argument("--other", type=Path, action="append", default=[],
                     help="an ssb_fused.cu (or multi_fused.cu) to compare "
@@ -119,8 +128,10 @@ def main() -> int:
         print("spja_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from chip_smoke import KERNEL_REPS, WAVES, event_ms
-    from repro_torch.kernels import build, multi_fused, ref, ssb_fused
+    from chip_smoke import KERNEL_REPS, WAVES, event_ms, outputs
+    from kernel_turns import capture
+    from repro_torch.kernels import (build, multi_fused, ref, select_scan,
+                                     ssb_fused)
     from repro_torch.sql import engine, hashtable, ssb, storage
     from repro_torch.sql.compile import fused_inputs, shared_params
 
@@ -131,7 +142,9 @@ def main() -> int:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
     mod, lib_name = {"spja": (ssb_fused, "ssb_fused"),
-                     "multi_spja": (multi_fused, "multi_fused")}[args.kernel]
+                     "multi_spja": (multi_fused, "multi_fused"),
+                     "select_scan": (select_scan, "select_scan")
+                     }[args.kernel]
     own = build.CSRC / f"{lib_name}.cu"
     others = [(str(p), p.resolve()) for p in args.other] or \
         [(str(own), own)]
@@ -168,6 +181,8 @@ def main() -> int:
     databases = {"plain": db}
     if args.packed:
         databases["packed"] = storage.pack_database(db).to(dev)
+        if args.kernel == "select_scan":
+            del databases["plain"]
     print(f"setup_s {time.perf_counter() - t0:.3f}", flush=True)
 
     def spja_calls(database):
@@ -197,17 +212,28 @@ def main() -> int:
                                   **plain_kw)))
         return out
 
+    def select_calls(database):
+        """(name, the kernel's call, its plain version's) per captured
+        call of one opat pass."""
+        fn = "select_scan_packed" if database is not db else "select_scan"
+        return [(f"{q} call {k}",
+                 functools.partial(getattr(select_scan, fn), *a),
+                 functools.partial(getattr(ref, fn), *a))
+                for q, k, a in capture(select_scan, fn, "opat", database,
+                                       cache)]
+
     report = {"kernel": args.kernel, "others": [o[0] for o in others],
               "acc_budget": budgets, "pairs": args.pairs,
               "kernel_reps": KERNEL_REPS, "registers": logs}
     for kind, database in databases.items():
-        calls = (spja_calls if args.kernel == "spja" else
-                 wave_calls)(database)
+        calls = {"spja": spja_calls, "multi_spja": wave_calls,
+                 "select_scan": select_calls}[args.kernel](database)
         for name, call, plain in calls:
             want = plain()
             for lib in libs:
                 got = with_lib(lib, call)
-                if not torch.equal(got, want):
+                if not all(torch.equal(g, w) for g, w in
+                           zip(outputs(got), outputs(want))):
                     raise AssertionError(f"{kind} {name}: the {lib} build "
                                          "differs from the plain version")
 

@@ -235,19 +235,37 @@ def tensors(case: tuple, device) -> tuple:
                  for a in case)
 
 
+# the select sweep's tile (csrc/select_scan.cu's kSelectTile): the
+# "first_tile" and "last_tile" selectivities place their matches by it
+SELECT_TILE = 4096
+SELECT_KINDS = ("mid", "none", "all", "first_tile", "last_tile", "nan")
+
+
 def select_case(seed: int, n: int, selectivity: str = "mid",
                 dtype: str = "int32") -> tuple:
     """(x, y, lo, hi) for ``select_scan``: x int32 or f32 in [0, 100),
     y int32 row tags; ``selectivity`` "mid" keeps about half the rows,
-    "none" none, "all" all."""
+    "none" none, "all" all, "first_tile" / "last_tile" about half of the
+    rows of the first / last ``SELECT_TILE``-row tile and none elsewhere,
+    "nan" (f32 only) every row but the tenth of them that are NaN, with
+    bounds -inf and inf."""
     rng = np.random.default_rng(seed)
     if dtype == "float32":
         x = (rng.random(n) * 100).astype(np.float32)
     else:
         x = rng.integers(0, 100, n, dtype=np.int32)
     y = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int32)
-    lo, hi = {"mid": (20, 69), "none": (1000, 2000),
-              "all": (0, 100)}[selectivity]
+    if selectivity == "nan":
+        if dtype != "float32":
+            raise ValueError("NaN needs a float32 x")
+        x[rng.random(n) < 0.1] = np.nan
+        return x, y, float("-inf"), float("inf")
+    if selectivity == "first_tile":
+        x[SELECT_TILE:] = 500
+    elif selectivity == "last_tile":
+        x[:(n - 1) // SELECT_TILE * SELECT_TILE] = 500
+    lo, hi = {"none": (1000, 2000),
+              "all": (0, 100)}.get(selectivity, (20, 69))
     if dtype == "float32":
         lo, hi = lo + 0.5, hi + 0.25
     return x, y, lo, hi

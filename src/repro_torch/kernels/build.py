@@ -168,15 +168,28 @@ def check_stream(t: torch.Tensor, what: str, n: int, device: torch.device,
         raise ValueError(f"{what} has {t.shape[0]} rows, expected {n}")
 
 
-def sweep_buffers(n: int, words: int, device: torch.device
+def sweep_words(n: int, words: int, rows: int = 2) -> int:
+    """int32 words of ``sweep_buffers(n, words, rows=rows)``'s buffer:
+    ``rows`` output rows of n, a pad word where that is odd, the count
+    (two words) and the scratch."""
+    return rows * n + (rows * n & 1) + 2 + words
+
+
+def sweep_buffers(n: int, words: int, device: torch.device, rows: int = 2,
+                  dtype: torch.dtype = torch.int32
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """One allocation for a one-sweep compaction (``csrc/lookback.cuh``)
-    of n rows -> (out (2, n) int32, count 0-d int64, the address of
-    ``words`` int32 scratch words).  The kernel writes all of ``out`` and
-    the count, and its launcher clears the scratch."""
-    buf = torch.empty((2 * n + 2 + words,), dtype=torch.int32, device=device)
-    count = buf[2 * n:2 * n + 2].view(torch.int64)[0]   # 8-byte aligned
-    return buf[:2 * n].view(2, n), count, buf.data_ptr() + 4 * (2 * n + 2)
+    of n rows -> (out (rows, n) of ``dtype``, a 4-byte type; count 0-d
+    int64, 8-byte aligned; the address of ``words`` int32 scratch words).
+    The kernel writes all of ``out`` and the count, and its launcher
+    clears the scratch."""
+    buf = torch.empty((sweep_words(n, words, rows),), dtype=torch.int32,
+                      device=device)
+    at = rows * n + (rows * n & 1)
+    count = buf[at:at + 2].view(torch.int64)[0]
+    out = buf[:rows * n].view(rows, n)
+    return (out if dtype == torch.int32 else out.view(dtype)), count, \
+        buf.data_ptr() + 4 * (at + 2)
 
 
 def streams_ok(n: int, index: int, dtype: torch.dtype,

@@ -281,7 +281,7 @@ struct JoinProbe {
 };
 
 template <int W>
-__global__ void __launch_bounds__(kProbeThreads, kProbeBlocks)
+__global__ void __launch_bounds__(kSweepThreads, kProbeBlocks)
 probe_join_sweep(const JoinProbe op, unsigned* status, long long* count) {
   const unsigned n = static_cast<unsigned>(op.n);
   probe_sweep<W>(op, n, status, status + (n + kProbeTile - 1) / kProbeTile,
@@ -335,19 +335,19 @@ extern "C" int probe_join_launch(const void* args, void* stream) {
       tiles < a.blocks ? tiles : a.blocks);
   switch (run_slots(a.mask, a.htk)) {
     case 8:
-      probe_join_sweep<8><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      probe_join_sweep<8><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     case 4:
-      probe_join_sweep<4><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      probe_join_sweep<4><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     case 2:
-      probe_join_sweep<2><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      probe_join_sweep<2><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     default:
-      probe_join_sweep<1><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      probe_join_sweep<1><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,31 +1,38 @@
-// One-sweep stable compaction of probe hits with decoupled look-back,
-// shared by hash_join.cu (probe_join) and part_probe.cu.
+// One-sweep stable compaction with decoupled look-back, shared by
+// hash_join.cu (probe_join), part_probe.cu and select_scan.cu
+// (select_scan, select_scan_packed).
 //
 // The Pallas kernels these replace (src/repro/kernels/hash_join.py::
-// probe_join, part_probe.py::part_probe) probe a tile, compact its hits
-// and carry the running output offset in SMEM across a grid that runs in
-// order.  Hopper blocks run in any order, so here the carried offset is a
-// tile's exclusive prefix found by decoupled look-back.  One launch of
-// resident blocks (kProbeBlocks an SM); each block loops:
+// probe_join, part_probe.py::part_probe, select_scan.py::select_scan and
+// select_scan_packed) find a tile's matches, compact them and carry the
+// running output offset in SMEM across a grid that runs in order.  Hopper
+// blocks run in any order, so here the carried offset is a tile's
+// exclusive prefix found by decoupled look-back.  One launch of resident
+// blocks; each block loops (`sweep`):
 //
-//   1. take a tile of kProbeTile rows from a ticket counter (not
-//      blockIdx: every tile a block waits on then belongs to a block
-//      already running, so the look-back cannot deadlock);
-//   2. load kProbeItems rows a thread (a warp holds 32 neighbouring rows
-//      a step, so loads are coalesced) and walk every row's probe once:
-//      the home slot of every row at once, then the runs past it for the
-//      rows still walking, kProbeGroup rows' runs at a time (hash.cuh's
-//      home_slot / load_run / read_run).  A hit's slot goes to the row's
-//      place in shared memory, not to a register;
-//   3. load every hit's payload and row data at once, then write the
-//      warp's hits in row order (a ballot a row step) into its region of
-//      the block's stash, and publish the tile's count in its status word;
-//   4. finish the block's previous tile: its prefix by look-back over the
+//   1. take a tile from a ticket counter (not blockIdx: every tile a
+//      block waits on then belongs to a block already running, so the
+//      look-back cannot deadlock);
+//   2. the stage finds the tile's matches and writes each warp's in row
+//      order into its region of the block's stash (the warp's rows are
+//      neighbours, so a warp's matches follow the warps' before it), and
+//      the tile's count is published in its status word;
+//   3. finish the block's previous tile: its prefix by look-back over the
 //      status words of the tiles before it (they had this tile's time to
-//      publish, so the walk seldom waits), each warp's hits copied from
+//      publish, so the walk seldom waits), each warp's matches copied from
 //      the other stash to prefix + the counts of the warps before it +
 //      rank (neighbouring threads write neighbouring places), and its
 //      misses' share of the zeros past the count.
+//
+// Two stages: the probe (`ProbeTile`, below) and the selection
+// (select_scan.cu's `SelectTile`).  The probe stage loads kProbeItems rows
+// a thread (a warp holds 32 neighbouring rows a step, so loads are
+// coalesced) and walks every row's probe once: the home slot of every row
+// at once, then the runs past it for the rows still walking, kProbeGroup
+// rows' runs at a time (hash.cuh's home_slot / load_run / read_run).  A
+// hit's slot goes to the row's place in shared memory, not to a
+// register; then every hit's payload and row data load at once, and the
+// warp's hits go to its region in row order (a ballot a row step).
 //
 // A row's output place depends only on the data, so the output is stable
 // and the same bits on every run, whatever order blocks run in.  The zero
@@ -33,13 +40,13 @@
 // prefix) fill [n - that, n) between them, so its own misses take the
 // span just below, and the spans cover [count, n) once.
 //
-// The shape (8 rows a thread, 2 rows' runs in flight, 4 blocks an SM at
-// 64 registers, 32-byte runs) was chosen by timing shapes on an H100:
-// more rows or runs in flight a thread cost registers, and the spills and
-// the lost blocks cost more than the latency they hide.
+// The probe's shape (8 rows a thread, 2 rows' runs in flight, 4 blocks an
+// SM at 64 registers, 32-byte runs) was chosen by timing shapes on an
+// H100: more rows or runs in flight a thread cost registers, and the
+// spills and the lost blocks cost more than the latency they hide.
 //
 // Status words: one 32-bit word a tile, 0 = not yet published; an
-// aggregate is the tile's count + 1 (a tile holds at most kProbeTile
+// aggregate is the tile's count + 1 (a tile holds far fewer than 2^31
 // rows, so bit 31 is clear); an inclusive prefix is bit 31 | the prefix
 // (n < 2^31, so it fits in 31 bits).  The launcher clears the words and
 // the ticket behind them with one cudaMemsetAsync.
@@ -53,13 +60,13 @@
 
 namespace {
 
-constexpr int kProbeThreads = 256;
-constexpr int kProbeWarps = kProbeThreads / 32;
+constexpr int kSweepThreads = 256;
+constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kProbeItems = 8;              // rows a thread
 constexpr int kProbeGroup = 2;              // rows whose runs load at once
 constexpr int kProbeBlocks = 4;             // blocks an SM (64 registers)
 constexpr long long kProbeTile =
-    static_cast<long long>(kProbeThreads) * kProbeItems;
+    static_cast<long long>(kSweepThreads) * kProbeItems;
 constexpr unsigned kLanes = 0xffffffffu;
 constexpr unsigned kPrefixFlag = 0x80000000u;   // status: inclusive prefix
 static_assert(kProbeItems % kProbeGroup == 0, "whole groups of rows");
@@ -134,49 +141,115 @@ int sweep_blocks(Kernel kernel, long long* resident) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kProbeThreads, 0);
+                                                      kSweepThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *resident = static_cast<long long>(sms) * per_sm;
   return static_cast<int>(cudaSuccess);
 }
 
-// The block's tile before this one, finished: each warp's hits (in rank
-// order in its region of the stash, `counts` of them) to before + the
-// hits of the warps before it + rank, the tile's misses' zeros, and the
-// count of all the hits if it is the last tile.
-template <typename Op>
-__device__ __forceinline__ void finish_tile(const Op& op, unsigned n,
+// The block's tile before this one, finished: each warp's matches (in
+// rank order in its region of the stash, `counts` of them) to before + the
+// matches of the warps before it + rank, the tile's misses' zeros, and the
+// count of all the matches if it is the last tile.  `stage.put(p, v)`
+// writes output place p.
+template <long long Tile, typename Stage, typename V>
+__device__ __forceinline__ void finish_tile(const Stage& stage, unsigned n,
                                             unsigned tiles, unsigned tile,
-                                            unsigned before,
-                                            const int2* stash,
+                                            unsigned before, const V* stash,
                                             const int* counts,
                                             long long* total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   unsigned at = before, count = 0;
 #pragma unroll
-  for (int w = 0; w < kProbeWarps; ++w) {
+  for (int w = 0; w < kSweepWarps; ++w) {
     at += w < warp ? counts[w] : 0;
     count += counts[w];
   }
-  const int2* mine = stash + warp * 32 * kProbeItems;
-  for (int k = lane; k < counts[warp]; k += 32) {
-    const int2 v = mine[k];
-    op.out_a[at + k] = v.x;
-    op.out_b[at + k] = v.y;
-  }
-  const unsigned first = tile * static_cast<unsigned>(kProbeTile);
-  const unsigned rows = n - first < kProbeTile ? n - first : kProbeTile;
+  const V* mine = stash + warp * static_cast<int>(Tile / kSweepWarps);
+  for (int k = lane; k < counts[warp]; k += 32) stage.put(at + k, mine[k]);
+  const unsigned first = tile * static_cast<unsigned>(Tile);
+  const unsigned rows = n - first < Tile ? n - first : Tile;
   const unsigned end = n - (first - before);
   for (unsigned p = end - (rows - count) + threadIdx.x; p < end;
-       p += kProbeThreads) {
-    op.out_a[p] = 0;
-    op.out_b[p] = 0;
-  }
+       p += kSweepThreads)
+    stage.put(p, V{});
   if (threadIdx.x == 0 && tile == tiles - 1) *total = before + count;
 }
 
-// The sweep of one block over the tiles it takes.  `Op` names the probe:
+// Sums a block's per-warp counts.
+__device__ __forceinline__ unsigned warps_total(const int* counts) {
+  unsigned count = 0;
+#pragma unroll
+  for (int w = 0; w < kSweepWarps; ++w) count += counts[w];
+  return count;
+}
+
+// The sweep of one block over the tiles it takes, `Tile` rows each.
+// `Stage` finds a tile's matches:
+//   stage(tile, mine)   writes this warp's matches of tile `tile`, in row
+//                       order, to mine[0..) (Tile / kSweepWarps places)
+//                       and returns how many (the same in every lane);
+//                       the rows of warp w precede those of warp w + 1
+//   put(p, v)           writes output place p (V{} for a zero)
+// `total`: the matches of all tiles, written by the block that finishes
+// the last tile.  Two stashes: a tile's matches go into one while the
+// tile before is copied out of the other.
+template <long long Tile, typename V, typename Stage>
+__device__ __forceinline__ void sweep(const Stage& stage, unsigned n,
+                                      unsigned* status, unsigned* ticket,
+                                      long long* total) {
+  constexpr int kRegion = static_cast<int>(Tile / kSweepWarps);
+  __shared__ V stash[2][Tile];
+  __shared__ int warp_counts[2][kSweepWarps];
+  __shared__ unsigned s_tile, s_before;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned tiles = (n + Tile - 1) / Tile;
+  unsigned prev = tiles;                        // none yet
+  int buf = 0;                                  // the stash this tile fills
+  while (true) {
+    // 1. the next tile
+    if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const unsigned tile = s_tile;
+    if (tile >= tiles) break;                   // uniform over the block
+
+    // 2. the warp's matches into its region of the stash; the tile's
+    // count published
+    const int matches = stage(tile, stash[buf] + warp * kRegion);
+    if (lane == 0) warp_counts[buf][warp] = matches;
+    __syncthreads();
+
+    // 3. the block's previous tile finished: its prefix by look-back
+    if (warp == 0) {
+      if (lane == 0) publish(status, tile, warps_total(warp_counts[buf]));
+      if (prev < tiles) {
+        const unsigned before = tile_prefix(
+            status, prev, warps_total(warp_counts[buf ^ 1]));
+        if (lane == 0) s_before = before;
+      }
+    }
+    __syncthreads();
+    if (prev < tiles)
+      finish_tile<Tile>(stage, n, tiles, prev, s_before, stash[buf ^ 1],
+                        warp_counts[buf ^ 1], total);
+    prev = tile;
+    buf ^= 1;
+  }
+  if (prev < tiles) {                           // the last tile taken
+    if (warp == 0) {
+      const unsigned before = tile_prefix(status, prev,
+                                          warps_total(warp_counts[buf ^ 1]));
+      if (lane == 0) s_before = before;
+    }
+    __syncthreads();
+    finish_tile<Tile>(stage, n, tiles, prev, s_before, stash[buf ^ 1],
+                      warp_counts[buf ^ 1], total);
+  }
+}
+
+// The probe stage of a sweep.  `Op` names the probe:
 //   limit()             rows at or past it never match (read once a block)
 //   load(r, &key)       load row r's key; false when the row never matches
 //   keys_of(key)        the table row the key probes
@@ -186,43 +259,29 @@ __device__ __forceinline__ void finish_tile(const Op& op, unsigned n,
 //                       (an Op::Extra)
 //   result(p, e)        a hit's two outputs: p its payload, e its fetch
 //   out_a, out_b        the two output columns
-// W: slots a run step reads (hash.cuh).  `total`: the hits of all tiles,
-// written by the block that finishes the last tile.  Two stashes: a
-// tile's hits go into one while the tile before is copied out of the
-// other.
+// W: slots a run step reads (hash.cuh).  `limit`: op.limit() cut to
+// [0, n], in shared memory.
 template <int W, typename Op>
-__device__ __forceinline__ void probe_sweep(const Op& op, unsigned n,
-                                            unsigned* status,
-                                            unsigned* ticket,
-                                            long long* total) {
-  constexpr int kWarpRows = 32 * kProbeItems;
-  __shared__ int2 stash[2][kProbeTile];
-  __shared__ int warp_counts[2][kProbeWarps];
-  __shared__ unsigned s_tile, s_limit, s_before;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned tiles = (n + kProbeTile - 1) / kProbeTile;
-  const unsigned mask = op.mask;
-  if (threadIdx.x == 0) {
-    const long long lim = op.limit();
-    s_limit = static_cast<unsigned>(lim < 0 ? 0 : lim < n ? lim : n);
-  }
-  unsigned prev = tiles;                        // none yet
-  int buf = 0;                                  // the stash this tile fills
-  while (true) {
-    // 1. the next tile
-    if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
-    __syncthreads();
-    const unsigned tile = s_tile;
-    if (tile >= tiles) break;                   // uniform over the block
-    const unsigned lim = s_limit;
-    const unsigned first = tile * static_cast<unsigned>(kProbeTile) +
-                           warp * kWarpRows + lane;
+struct ProbeTile {
+  const Op& op;
+  const unsigned* limit;
 
-    // 2. every row's key, then its home slot, then the runs past it; a
-    // hit's slot goes to the row's place in the stash (its payload is
-    // loaded with the rest of its outputs in 3.)
-    int2* mine = stash[buf] + warp * kWarpRows;
+  __device__ __forceinline__ void put(unsigned p, int2 v) const {
+    op.out_a[p] = v.x;
+    op.out_b[p] = v.y;
+  }
+
+  __device__ __forceinline__ int operator()(unsigned tile, int2* mine) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const unsigned mask = op.mask;
+    const unsigned lim = *limit;
+    const unsigned first = tile * static_cast<unsigned>(kProbeTile) +
+                           warp * 32 * kProbeItems + lane;
+
+    // every row's key, then its home slot, then the runs past it; a hit's
+    // slot goes to the row's place in the stash (its payload is loaded
+    // with the rest of its outputs below)
     int key[kProbeItems];
     unsigned pending = 0u;
 #pragma unroll
@@ -276,9 +335,8 @@ __device__ __forceinline__ void probe_sweep(const Op& op, unsigned n,
       }
     }
 
-    // 3. the warp's hits in row order into its region of the stash (a
-    // ballot a row step), their payloads and row data loaded first, all in
-    // flight at once; the tile's count published
+    // the warp's hits in row order into its region (a ballot a row step),
+    // their payloads and row data loaded first, all in flight at once
     int payload[kProbeItems];
     typename Op::Extra extra[kProbeItems];
 #pragma unroll
@@ -299,44 +357,23 @@ __device__ __forceinline__ void probe_sweep(const Op& op, unsigned n,
         mine[rank + __popc(ballot & below)] = op.result(payload[i], extra[i]);
       rank += __popc(ballot);
     }
-    if (lane == 0) warp_counts[buf][warp] = rank;
-    __syncthreads();
-    unsigned count = 0;
-#pragma unroll
-    for (int w = 0; w < kProbeWarps; ++w) count += warp_counts[buf][w];
+    return rank;
+  }
+};
 
-    // 4. the block's previous tile finished: its prefix by look-back
-    if (warp == 0) {
-      if (lane == 0) publish(status, tile, count);
-      if (prev < tiles) {
-        unsigned prev_count = 0;
-#pragma unroll
-        for (int w = 0; w < kProbeWarps; ++w)
-          prev_count += warp_counts[buf ^ 1][w];
-        const unsigned before = tile_prefix(status, prev, prev_count);
-        if (lane == 0) s_before = before;
-      }
-    }
-    __syncthreads();
-    if (prev < tiles)
-      finish_tile(op, n, tiles, prev, s_before, stash[buf ^ 1],
-                  warp_counts[buf ^ 1], total);
-    prev = tile;
-    buf ^= 1;
+// The probe sweep of one block (`ProbeTile`'s Op, W).
+template <int W, typename Op>
+__device__ __forceinline__ void probe_sweep(const Op& op, unsigned n,
+                                            unsigned* status,
+                                            unsigned* ticket,
+                                            long long* total) {
+  __shared__ unsigned s_limit;
+  if (threadIdx.x == 0) {
+    const long long lim = op.limit();
+    s_limit = static_cast<unsigned>(lim < 0 ? 0 : lim < n ? lim : n);
   }
-  if (prev < tiles) {                           // the last tile taken
-    if (warp == 0) {
-      unsigned prev_count = 0;
-#pragma unroll
-      for (int w = 0; w < kProbeWarps; ++w)
-        prev_count += warp_counts[buf ^ 1][w];
-      const unsigned before = tile_prefix(status, prev, prev_count);
-      if (lane == 0) s_before = before;
-    }
-    __syncthreads();
-    finish_tile(op, n, tiles, prev, s_before, stash[buf ^ 1],
-                warp_counts[buf ^ 1], total);
-  }
+  sweep<kProbeTile, int2>(ProbeTile<W, Op>{op, &s_limit}, n, status, ticket,
+                          total);
 }
 
 }  // namespace

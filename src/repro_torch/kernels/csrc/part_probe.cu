@@ -91,7 +91,7 @@ struct PartProbe {
 };
 
 template <int W>
-__global__ void __launch_bounds__(kProbeThreads, kProbeBlocks)
+__global__ void __launch_bounds__(kSweepThreads, kProbeBlocks)
 part_probe_sweep(const PartProbe op, unsigned* status, long long* count) {
   const unsigned n = static_cast<unsigned>(op.n);
   probe_sweep<W>(op, n, status, status + (n + kProbeTile - 1) / kProbeTile,
@@ -154,19 +154,19 @@ extern "C" int part_probe_launch(const void* args, void* stream) {
       tiles < a.blocks ? tiles : a.blocks);
   switch (run_slots(a.slot_mask, a.htk)) {
     case 8:
-      part_probe_sweep<8><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      part_probe_sweep<8><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     case 4:
-      part_probe_sweep<4><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      part_probe_sweep<4><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     case 2:
-      part_probe_sweep<2><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      part_probe_sweep<2><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
       break;
     default:
-      part_probe_sweep<1><<<grid, kProbeThreads, 0, s>>>(op, a.status,
+      part_probe_sweep<1><<<grid, kSweepThreads, 0, s>>>(op, a.status,
                                                           a.count);
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,6 +11,14 @@ tiles that hold a match).  Same contract as ``ref.select_scan``,
 count), the selected entries in row order and zeros past the count, bit
 for bit — the sparse scan's output is ``select_scan``'s.
 
+``select_scan`` and ``select_scan_packed`` are one sweep of the card
+(``csrc/lookback.cuh``): a call is one allocation (the output, the count
+and the kernel's status words), one memset and one kernel, which also
+writes the zeros past the count; the tensors are checked by one cheap
+test (``build.streams_ok``) and the launch goes through ``build.launch``,
+as the opat pass's later filters run on few rows, where the fixed cost is
+the time.
+
 The wrappers launch the kernel on CUDA tensors or raise; the choice of the
 plain version for a CPU tensor is ``ops``' alone.  ``LAUNCHES`` counts the
 plain kernel's launches of this process, ``PACKED_LAUNCHES`` the packed
@@ -33,22 +41,30 @@ SPARSE_LAUNCHES = 0
 
 _X_TYPES = (torch.int32, torch.float32)
 _Y_TYPES = (torch.int32, torch.float32, torch.uint32)
+
+
+class _SelectArgs(ctypes.Structure):
+    """``select_scan_launch``'s arguments (``csrc/select_scan.cu``'s
+    ``SelectArgs``), passed by one pointer."""
+    _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("lo", ctypes.c_int),
+                ("hi", ctypes.c_int), ("phys", ctypes.c_int),
+                ("is_float", ctypes.c_int), ("out", ctypes.c_void_p),
+                ("count", ctypes.c_void_p), ("status", ctypes.c_void_p),
+                ("blocks", ctypes.c_longlong)]
+
+
 _SIGNATURES = {
-    "select_scan_launch": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
-    "select_scan_packed_launch": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "select_scan_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+    "select_scan_shape": (ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]),
+    "select_scan_status_words": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "select_scan_tile_rows": (ctypes.c_longlong, []),
     "select_scan_sparse_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]),
     "select_scan_sparse_scratch_bytes": (ctypes.c_longlong,
                                          [ctypes.c_longlong]),
-    "select_scan_tile_rows": (ctypes.c_longlong, []),
 }
 
 
@@ -66,35 +82,51 @@ def bound_bits(v, dtype: torch.dtype) -> int:
     return int(v)
 
 
+def _sweep(x: torch.Tensor, y: torch.Tensor, n: int, lo_bits: int,
+           hi_bits: int, phys: int, is_float: int, what: str
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sweep call: (out (n,) of y's type, count) from one allocation,
+    one memset and one kernel on y's device."""
+    lib = library()
+    out, count, status = build.sweep_buffers(
+        n, lib.select_scan_status_words(n), y.device, rows=1, dtype=y.dtype)
+    args = _SelectArgs(x.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits, phys,
+                       is_float, out.data_ptr(), count.data_ptr(), status,
+                       build.resident(lib, "select_scan_shape",
+                                      y.get_device(), phys | is_float << 6))
+    build.launch(lib, lib.select_scan_launch, y.device, what,
+                 ctypes.addressof(args))
+    return out[0], count
+
+
+def _empty(device: torch.device, dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.zeros((0,), dtype=dtype, device=device),
+            torch.zeros((), dtype=torch.int64, device=device))
+
+
 def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SELECT y WHERE lo <= x <= hi -> (out (n,), count 0-d int64), both
     on x's device.  x: (n,) int32 or f32; y: (n,) 4-byte."""
     global LAUNCHES
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"select_scan: no kernel for device {x.device}")
-    n = x.shape[0]
-    build.check_stream(x, "x", n, x.device, _X_TYPES)
-    build.check_stream(y, "y", n, x.device, _Y_TYPES)
+    n, index = x.shape[0], x.get_device()
+    if not (x.dtype in _X_TYPES and y.dtype in _Y_TYPES and
+            build.streams_ok(n, index, x.dtype, x) and
+            build.streams_ok(n, index, y.dtype, y)):
+        build.check_stream(x, "x", n, x.device, _X_TYPES)
+        build.check_stream(y, "y", n, x.device, _Y_TYPES)
     if n >= 1 << 31:
         raise ValueError(f"select_scan takes under 2^31 rows, got {n}")
     lo_bits, hi_bits = bound_bits(lo, x.dtype), bound_bits(hi, x.dtype)
-    out = torch.zeros_like(y)
-    count = torch.zeros((), dtype=torch.int64, device=x.device)
     if n == 0:
-        return out, count
-    lib = library()
-    tiles = -(-n // lib.select_scan_tile_rows())
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.select_scan_launch(
-            x.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits,
-            int(x.dtype == torch.float32), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), out.data_ptr(), count.data_ptr(), stream)
-    build.check(lib, rc, "select_scan")
+        return _empty(x.device, y.dtype)
+    got = _sweep(x, y, n, lo_bits, hi_bits, 32, int(x.dtype is torch.float32),
+                 "select_scan")
     LAUNCHES += 1
-    return out, count
+    return got
 
 
 def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi
@@ -135,33 +167,27 @@ def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
     """SELECT y WHERE lo <= decode(x) <= hi -> (out (n,), count 0-d
     int64), n = y.shape[0].  words: the packed int32 word stream of x at
     ``phys`` bits, ceil(n / (32 / phys)) words; lo, hi: int32 bounds in
-    the encoded domain; y: (n,) 4-byte."""
+    the encoded domain; y: (n,) 4-byte.  At phys 32 the words are a plain
+    int32 x."""
     global PACKED_LAUNCHES
-    if words.device.type != "cuda":
+    if not words.is_cuda:
         raise ValueError(f"select_scan_packed: no kernel for device "
                          f"{words.device}")
     if phys not in PHYS_WIDTHS:
         raise ValueError(f"phys {phys} not in {PHYS_WIDTHS}")
-    n = y.shape[0]
-    build.check_stream(words, "words", -(-n // (32 // phys)), words.device)
-    build.check_stream(y, "y", n, words.device, _Y_TYPES)
+    n, index = y.shape[0], words.get_device()
+    n_words = -(-n // (32 // phys))
+    if not (y.dtype in _Y_TYPES and
+            build.streams_ok(n_words, index, torch.int32, words) and
+            build.streams_ok(n, index, y.dtype, y)):
+        build.check_stream(words, "words", n_words, words.device)
+        build.check_stream(y, "y", n, words.device, _Y_TYPES)
     if n >= 1 << 31:
         raise ValueError(f"select_scan_packed takes under 2^31 rows, got {n}")
     lo_bits = bound_bits(lo, torch.int32)
     hi_bits = bound_bits(hi, torch.int32)
-    out = torch.zeros_like(y)
-    count = torch.zeros((), dtype=torch.int64, device=y.device)
     if n == 0:
-        return out, count
-    lib = library()
-    tiles = -(-n // lib.select_scan_tile_rows())
-    scratch = torch.empty((2, tiles), dtype=torch.int32, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.select_scan_packed_launch(
-            words.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits, phys,
-            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
-            count.data_ptr(), stream)
-    build.check(lib, rc, "select_scan_packed")
+        return _empty(y.device, y.dtype)
+    got = _sweep(words, y, n, lo_bits, hi_bits, phys, 0, "select_scan_packed")
     PACKED_LAUNCHES += 1
-    return out, count
+    return got

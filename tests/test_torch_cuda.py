@@ -207,15 +207,112 @@ def _launched(mod, fn, *args, counter="LAUNCHES", **kw):
     return out
 
 
-@pytest.mark.parametrize("n", [1, 37, 2048, 100_003])
+# the select sweep's tile edges (cases.SELECT_TILE rows) and, with
+# MANY_TILES below, tickets past one wave of resident blocks
+SELECT_EDGES = [cases.SELECT_TILE - 1, cases.SELECT_TILE,
+                cases.SELECT_TILE + 1, 3 * cases.SELECT_TILE + 17]
+
+
+@pytest.mark.parametrize("n", [1, 37, 2048, 100_003] + SELECT_EDGES +
+                         [3_000_017, (1 << 24) + 5])
 @pytest.mark.parametrize("sel,dtype", [("mid", "int32"), ("none", "int32"),
                                        ("all", "int32"),
-                                       ("mid", "float32")])
+                                       ("mid", "float32"),
+                                       ("first_tile", "int32"),
+                                       ("last_tile", "float32"),
+                                       ("nan", "float32")])
 def test_select_scan_kernel_bit_identical_to_plain(cuda, n, sel, dtype):
+    """Each call twice with the same bits: block order cannot change one."""
     args = _on(cases.select_case(n, n, sel, dtype), cuda)
     out, cnt = _launched(select_scan, "select_scan", *args)
     want, want_cnt = ref.select_scan(*args)
     assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+    again, again_cnt = _launched(select_scan, "select_scan", *args)
+    assert torch.equal(again_cnt, cnt) and torch.equal(again, out)
+    assert out.dtype == args[1].dtype and out.shape == (n,)
+
+
+def test_select_scan_tile_is_the_cases_tile(cuda):
+    assert select_scan.library().select_scan_tile_rows() == cases.SELECT_TILE
+
+
+@pytest.mark.parametrize("y_type", [torch.float32, torch.uint32])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_select_scan_unaligned_and_typed_columns(cuda, y_type, offset):
+    """x and y views that start off a 16-byte boundary are read a row at
+    a time, with the same bits; y of any 4-byte type moves as raw bits."""
+    x, y, lo, hi = _on(cases.select_case(8, 100_003, "mid"), cuda)
+    xs = torch.empty(x.shape[0] + offset, dtype=x.dtype, device=cuda)
+    ys = torch.empty(y.shape[0] + offset, dtype=y_type, device=cuda)
+    xs[offset:].copy_(x)
+    ys[offset:].copy_(y.view(y_type))
+    out, cnt = _launched(select_scan, "select_scan", xs[offset:],
+                         ys[offset:], lo, hi)
+    want, want_cnt = ref.select_scan(x, y, lo, hi)
+    assert out.dtype == y_type and torch.equal(cnt, want_cnt)
+    assert torch.equal(out.view(torch.int32), want)     # the bits
+
+
+def _dirty(n: int) -> None:
+    """Leave the caching allocator a freed block of the select sweep's
+    buffer for n rows, every byte 0xFF, so the next call's torch.empty
+    returns it and the zero tail and count must come from the kernel."""
+    words = build.sweep_words(
+        n, select_scan.library().select_scan_status_words(n), rows=1)
+    junk = torch.full((words,), -1, dtype=torch.int32, device="cuda")
+    del junk
+    probe = torch.empty((words,), dtype=torch.int32, device="cuda")
+    assert bool((probe == -1).all())           # the block came back dirty
+    del probe
+
+
+@pytest.mark.parametrize("n", [1, 37, cases.SELECT_TILE + 1, 3_000_017])
+@pytest.mark.parametrize("sel", ["mid", "none", "first_tile"])
+def test_select_scan_writes_a_dirty_buffer_whole(cuda, n, sel):
+    args = _on(cases.select_case(11, n, sel), cuda)
+    want, want_cnt = ref.select_scan(*args)
+    torch.cuda.synchronize()
+    _dirty(n)
+    out, cnt = _launched(select_scan, "select_scan", *args)
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("phys", cases.PACKED_WIDTHS)
+@pytest.mark.parametrize("n", [33, 3_000_017])
+def test_select_scan_packed_writes_a_dirty_buffer_whole(cuda, phys, n):
+    args = _on(cases.select_packed_case(n + phys, n, phys, "mid"), cuda)
+    want, want_cnt = ref.select_scan_packed(*args)
+    torch.cuda.synchronize()
+    _dirty(n)
+    out, cnt = _launched(select_scan, "select_scan_packed", *args,
+                         counter="PACKED_LAUNCHES")
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n", [37, 3_000_017])
+def test_select_scan_call_is_one_memset_and_one_sweep(cuda, packed, n):
+    """The profile of one call shows one sweep kernel of the wrapper's
+    kind and one memset, and nothing else (chip_smoke.one_call)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if packed:
+        args = _on(cases.select_packed_case(12, n, 4), cuda)
+        fn, counter, flag = "select_scan_packed", "PACKED_LAUNCHES", 4
+    else:
+        args = _on(cases.select_case(12, n), cuda)
+        fn, counter, flag = "select_scan", "LAUNCHES", 32
+    count = int(_launched(select_scan, fn, *args, counter=counter)[1])
+    before = getattr(select_scan, counter)
+    got = smoke.one_call(fn, lambda: getattr(select_scan, fn)(*args), n,
+                         count, select_scan.library(), columns=1,
+                         shape=("select_scan_shape", flag))
+    assert getattr(select_scan, counter) > before
+    assert got["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("n", [1, 37, 100_003])
@@ -362,17 +459,38 @@ def test_spja_packed_kernel_bit_identical_to_plain(cuda, phys, i):
         assert bool(got.any())
 
 
-@pytest.mark.parametrize("n", [1, 37, 2048, 100_003])
+@pytest.mark.parametrize("n", [1, 37, 2048, 100_003] + SELECT_EDGES +
+                         [3_000_017, (1 << 24) + 5])
 @pytest.mark.parametrize("phys", cases.PACKED_WIDTHS)
 @pytest.mark.parametrize("sel", ["mid", "none", "all"])
 def test_select_scan_packed_kernel_bit_identical_to_plain(cuda, n, phys,
                                                           sel):
+    """Ragged n (not a multiple of the values a word holds) leaves padding
+    lanes in the last word; each call twice with the same bits."""
     args = _on(cases.select_packed_case(n + phys, n, phys, sel), cuda)
     out, cnt = _launched(select_scan, "select_scan_packed", *args,
                          counter="PACKED_LAUNCHES")
     want, want_cnt = ref.select_scan_packed(*args)
     assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
     assert int(cnt) == {"none": 0, "all": n}.get(sel, int(cnt))
+    again, again_cnt = _launched(select_scan, "select_scan_packed", *args,
+                                 counter="PACKED_LAUNCHES")
+    assert torch.equal(again_cnt, cnt) and torch.equal(again, out)
+
+
+@pytest.mark.parametrize("phys", [4, 8, 16])
+def test_select_scan_packed_unaligned_words(cuda, phys):
+    """Words that start off the 8- or 16-byte boundary of a vector load
+    are read a word at a time, with the same bits."""
+    words, y, lo, hi, _ = _on(cases.select_packed_case(9, 100_003, phys),
+                              cuda)
+    shifted = torch.empty(words.shape[0] + 1, dtype=words.dtype,
+                          device=cuda)
+    shifted[1:].copy_(words)
+    out, cnt = _launched(select_scan, "select_scan_packed", shifted[1:], y,
+                         lo, hi, phys, counter="PACKED_LAUNCHES")
+    want, want_cnt = ref.select_scan_packed(words, y, lo, hi, phys)
+    assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
 
 
 def test_select_scan_packed_counts_its_own_launches(cuda):

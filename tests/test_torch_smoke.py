@@ -297,7 +297,15 @@ def test_part_probe_need_walks_each_partition_table(kind, bits):
     ("void (anonymous namespace)::probe_join_sweep<8>((anonymous namespace)"
      "::JoinProbe, unsigned int*, long long*)", "probe_join"),
     ("void (anonymous namespace)::scan_tiles(int const*, int*, int, long "
-     "long*)", "select_scan tile scan"),
+     "long*)", "select_scan_sparse"),
+    ("void (anonymous namespace)::select_sweep<(anonymous namespace)::"
+     "PlainX<float> >((anonymous namespace)::SelectTile<(anonymous "
+     "namespace)::PlainX<float> >, unsigned int*, long long*)",
+     "select_scan"),
+    ("void (anonymous namespace)::select_packed_sweep<(anonymous namespace)"
+     "::PackedX<4> >((anonymous namespace)::SelectTile<(anonymous "
+     "namespace)::PackedX<4> >, unsigned int*, long long*)",
+     "select_scan_packed"),
     ("void (anonymous namespace)::probe_agg_partials<int, unsigned long "
      "long>(int const*, int const*, long long, int const*, int const*, "
      "unsigned int, unsigned long long*)", "other"),
@@ -307,6 +315,18 @@ def test_device_kinds_file_each_kernel_under_its_wrapper(name, kind):
     """The profile files the partitioned probe under ``part_probe``, not
     under the ``probe_join`` its name also resembles."""
     assert smoke.device_kind(name) == kind
+
+
+def test_device_kinds_name_the_select_sweep_alone():
+    """The select scans are one sweep kernel each: the profile names no
+    count or scatter kernel of the three-launch design before it, and
+    its tile scan serves only ``select_scan_sparse``."""
+    subs = [sub for sub, _ in smoke.DEVICE_KINDS]
+    assert not {"select_count", "select_scatter"} & set(subs)
+    assert dict(smoke.DEVICE_KINDS)["select_sweep"] == "select_scan"
+    assert dict(smoke.DEVICE_KINDS)["select_packed_sweep"] == \
+        "select_scan_packed"
+    assert set(smoke.SWEEPS) >= {"select_scan", "select_scan_packed"}
 
 
 def _profile(head, kept, launches, kinds):
