@@ -94,16 +94,21 @@ exits non-zero without printing a result:
            its shared memory a block and blocks an SM; the 13-query wave
            profiled (the device busy share);
 10. join microbenchmark and streaming sum: ``probe_agg`` of 2^28 probe
-           rows against tables of 8 KB to 256 MB (across the 50 MB L2),
+           rows against tables of 8 KB to 256 MB (across the 50 MB L2;
+           each through the table's copy as 8-byte slots),
            ``reduce_sum`` of a 2^28-row int32 column and its f32 copy, each
            bit-identical to its plain version and to numpy, timed beside
-           its bound (and ``torch.sum``); the hash ``build`` of those
+           its bound (``agg_need``: past the L2 a sector a probe at the
+           share the L2 cannot hold; and ``torch.sum``), one call of the
+           256 MB table profiled; the hash ``build`` of those
            tables (50 % fill) from their keys, byte-identical to its plain
            version, its tables probed to the sums of the host build's,
            timed beside the host ``np_build``; ``select_scan_sparse`` of
            2^28 rows at selectivities 1e-5 to 0.5, x uniform and sorted,
            equal to ``select_scan`` and timed beside it, with the share of
-           32-row tiles that hold a match; ``project`` of 2^28 rows, with
+           32-row tiles that hold a match, beside ``sparse_need``'s bound
+           (out written whole), one call profiled: one sweep of its own
+           name and one memset; ``project`` of 2^28 rows, with
            and without the sigmoid, in turns with ``torch.sub``, beside
            its bound;
 11. morsels: phase 4's database no longer resident, the 13 queries
@@ -144,6 +149,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory, published peak
 SEGMENT = 64                    # bytes of one device-memory access
+SECTOR = 32                     # bytes of one L2 sector
 F32_OPS_PER_S = 67e12           # published float32 rate outside tensor cores
 # int32 ALU peak of an H100 SXM: 132 SMs x 64 int32 lanes x 1.98 GHz =
 # 16.7 TOP/s, a quarter of the published 67 TFLOP/s float32 rate (128
@@ -480,6 +486,48 @@ def mean_probe(htk: torch.Tensor) -> float:
     at = torch.arange(n_slots, device=rows.device)
     walk = ((at - blocks.hash_fn(rows, n_slots)) & (n_slots - 1)) + 1
     return float(walk[used].double().mean())
+
+
+def agg_need(keys: torch.Tensor, htk: torch.Tensor, l2_bytes: int) -> dict:
+    """What one ``probe_agg`` call needs on this data, for its bound: the
+    keys and vals read once (8 bytes a row), the 64-byte segments of the
+    table's keys its probes visit and of its payloads they hit, and the
+    4-byte result.  For a table whose slots (8 bytes each, key and
+    payload) are more than the L2's ``l2_bytes``, those segments count
+    only at the share ``l2_bytes / table bytes`` the L2 can hold (read
+    once), and one 32-byte sector a probe counts at the share ``1 -
+    l2_bytes / table bytes`` it cannot, which any layout of the table
+    reads from device memory.  Operations: 4 a probe step, 2 a hit."""
+    n = keys.shape[0]
+    slot, visited, steps = probe_walk(keys, htk)
+    hits = torch.zeros_like(visited)
+    hits[slot[slot >= 0]] = True
+    found = int((slot >= 0).sum())
+    table = 8 * htk.shape[0]
+    held = min(1.0, l2_bytes / table)
+    table_read = (segment_bytes(visited) + segment_bytes(hits)) * held
+    past_l2 = n * SECTOR * (1 - held)
+    moved = 8 * n + table_read + 4 + past_l2
+    ops = 4 * steps + 2 * found
+    return {"bytes": moved, "ops": ops, "table_bytes": table,
+            "table_read_bytes": table_read, "past_l2_bytes": past_l2,
+            "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / INT32_OPS_PER_S * 1e3}
+
+
+def sparse_need(x: torch.Tensor, lo, hi) -> dict:
+    """What one ``select_scan_sparse`` call needs on this data, for its
+    bound: x read once (4n), the 64-byte segments of y (16 rows each)
+    that hold a selected row, and out written whole (4n: the selected
+    entries and the zeros past the count, as the contract asks).
+    Operations: 2 compares a row."""
+    n = x.shape[0]
+    hit = (x >= lo) & (x <= hi)
+    y_bytes = segment_bytes(hit)
+    moved = 4 * n + y_bytes + 4 * n
+    return {"bytes": moved, "ops": 2 * n, "count": int(hit.sum()),
+            "y_bytes": y_bytes, "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": 2 * n / INT32_OPS_PER_S * 1e3}
 
 
 def must_move(spja_args, n_groups: int, pred_widths=None, key_widths=None,
@@ -860,13 +908,14 @@ def check_against_plain(fn: str, label: str, got, want, again=None,
 # device kernels by name: the port's own (by the wrapper that launches
 # them) and PyTorch's glue around them; first match wins
 DEVICE_KINDS = [("select_packed_sweep", "select_scan_packed"),
+                ("select_sparse_sweep", "select_scan_sparse"),
                 ("select_sweep", "select_scan"),
                 ("part_probe", "part_probe"), ("probe_join", "probe_join"),
-                ("scan_tiles", "select_scan_sparse"),
+                ("probe_agg_sweep", "probe_agg"), ("pair_slots", "probe_agg"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
-                ("sparse_", "select_scan_sparse"), ("build_", "build"),
+                ("build_", "build"),
                 ("arange", "torch arange"), ("index", "torch gather"),
                 ("copy", "torch copy/cast"), ("Fill", "torch zeros"),
                 ("Memcpy HtoD", "copy to device"),
@@ -2280,16 +2329,11 @@ def resident_phases() -> dict:
           "plain version on the card and to numpy", flush=True)
 
     join_calls = []
+    l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
     for kb, htk, htv, n_build in tables:
         htk, htv = (torch.from_numpy(x).to(dev) for x in (htk, htv))
         keys = torch.remainder(base, n_build)
-        slot, visited, steps = probe_walk(keys, htk)
-        hits = torch.zeros_like(visited)
-        hits[slot[slot >= 0]] = True
-        moved = 8 * JOIN_ROWS + segment_bytes(visited) + \
-            segment_bytes(hits) + 4
-        ops = 4 * steps + 2 * int((slot >= 0).sum())
-        del slot, visited, hits
+        need = agg_need(keys, htk, l2_bytes)
         row = {"table_KB": kb, "table_MB": (htk.numel() * 8) / 1e6,
                "n_build": n_build, "rows": JOIN_ROWS,
                "mean_probe": mean_probe(htk),
@@ -2297,14 +2341,19 @@ def resident_phases() -> dict:
                               KERNEL_REPS),
                "plain_ms": event_ms(lambda: ref.probe_agg(keys, vals, htk,
                                                           htv), 1),
-               "bytes": moved, "ops": ops,
-               "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
-               "ops_ms": ops / INT32_OPS_PER_S * 1e3, "library_ms": None}
+               "l2_bytes": l2_bytes, **need, "library_ms": None}
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["Gprobes_per_s"] = JOIN_ROWS / row["ms"] / 1e6
         join_calls.append(row)
         print("probe_agg " + json.dumps(row), flush=True)
+        if kb == JOIN_TABLE_KB[-1]:
+            # one call is its kernels and nothing else: the copy as 8-byte
+            # slots, the sweep and the partials' sum
+            prof = profiled(lambda: hj.probe_agg(keys, vals, htk, htv),
+                            ("probe_agg",))
+            print("probe_agg one call " + json.dumps(
+                {k: prof[k] for k in ("device_ms", "kernels")}), flush=True)
         del keys, htk, htv
     sum_calls = []
     for x in sum_inputs:
@@ -2412,29 +2461,28 @@ def resident_phases() -> dict:
     for order, x in xs.items():
         for selectivity in SPARSE_SELECTIVITY:
             hi = int(selectivity * (1 << 30)) - 1
-            hit = (x >= 0) & (x <= hi)
-            count = int(hit.sum())
-            marked = int(hit.view(-1, ref.SKIP_ROWS).any(1).sum())
-            del hit
-            moved = 4 * SPARSE_ROWS + 4 * ref.SKIP_ROWS * marked + 4 * count
+            need = sparse_need(x, 0, hi)
             row = {"order": order, "selectivity": selectivity,
-                   "rows": SPARSE_ROWS, "count": count,
-                   "marked_share": marked * ref.SKIP_ROWS / SPARSE_ROWS,
+                   "rows": SPARSE_ROWS,
+                   "y_share": need["y_bytes"] / (4 * SPARSE_ROWS),
                    "ms": event_ms(lambda: sel.select_scan_sparse(x, y, 0, hi),
                                   KERNEL_REPS),
                    "select_scan_ms": event_ms(
                        lambda: sel.select_scan(x, y, 0, hi), KERNEL_REPS),
                    "plain_ms": event_ms(
                        lambda: ref.select_scan_sparse(x, y, 0, hi), 1),
-                   "bytes": moved, "ops": 2 * SPARSE_ROWS,
-                   "bytes_ms": moved / HBM_BYTES_PER_S * 1e3,
-                   "ops_ms": 2 * SPARSE_ROWS / INT32_OPS_PER_S * 1e3,
-                   "library_ms": None}
+                   **need, "library_ms": None}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             row["bound_share"] = row["bound_ms"] / row["ms"]
             row["sparse_over_dense"] = row["select_scan_ms"] / row["ms"]
             sparse_calls.append(row)
             print("select_scan_sparse " + json.dumps(row), flush=True)
+    hi = int(SPARSE_SELECTIVITY[2] * (1 << 30)) - 1
+    print("one call " + json.dumps(one_call(
+        "select_scan_sparse",
+        lambda: sel.select_scan_sparse(x_uniform, y, 0, hi), SPARSE_ROWS,
+        int(sel.select_scan_sparse(x_uniform, y, 0, hi)[1]), sel.library(),
+        columns=1, shape=("select_scan_shape", 32 | 128))), flush=True)
     del xs, x_uniform, y
     for (m, fn, _, src, replaces), calls in zip(
             LAST, (build_calls, sparse_calls)):

@@ -1,6 +1,6 @@
-"""Time the port's radix sort, projection, probe, sum, fused and select
-kernels on one card, in turns beside the PyTorch call that computes the
-same function where there is one.
+"""Time the port's radix sort, projection, probe, sum, fused, select and
+join-microbenchmark kernels on one card, in turns beside the PyTorch call
+that computes the same function where there is one.
 
     python3 kernel_turns.py [--tree PATH] [--only SECTION ...]
 
@@ -9,7 +9,7 @@ same function where there is one.
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
 ``--only`` runs the named sections alone (sort, project, probe, sum, spja,
-wave, select).
+wave, select, join, sparse); sum, join and sparse need no database.
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -60,9 +60,22 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    ``torch.nonzero((x >= lo) & (x <= hi))`` followed by the gather of y on
    the same calls (a packed call's x decoded once first).
 
+9. ``join``: ``probe_agg`` of 2^28 rows against ``chip_smoke.py`` phase
+   10's six tables (8 KB to 256 MB) on its data, each call held
+   bit-identical to the plain version first, then timed in TURN_ROUNDS
+   rounds of ``event_ms`` (KERNEL_REPS calls) beside the yardstick
+   ``torch.take(htk, home)`` (one random 4-byte gather a probe at the
+   probes' home slots, precomputed).
+10. ``sparse``: ``select_scan_sparse`` on phase 10's 12 cases (2^28 rows,
+   x uniform and sorted, six selectivities), each held bit-identical to
+   the plain version and ``select_scan`` first, then in turns with
+   ``select_scan`` on the same call, beside ``chip_smoke.sparse_need``'s
+   bound.
+
 Sections 6, 7 and 8 share one database and its packing; no PyTorch call
-computes those kernels' functions, so the parent is the other side of the
-turns (``--tree``).
+computes those kernels' functions, nor ``probe_agg``'s or
+``select_scan_sparse``'s, so the parent is the other side of the turns
+(``--tree``).
 
 Prints the card's name and power limit first and one JSON object last.
 Exits nonzero without CUDA.
@@ -82,7 +95,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave", "select")
+SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave", "select",
+            "join", "sparse")
+# the sections that read the SSB database
+DB_SECTIONS = {"sort", "project", "probe", "spja", "wave", "select"}
 # (query, join) of the calls timed alone: the first join of q2.1 and the
 # third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
 PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
@@ -219,6 +235,101 @@ def select_turns(db, pdb) -> dict:
     return report
 
 
+def join_turns(dev) -> dict:
+    """Section 9: ``probe_agg`` of ``chip_smoke.JOIN_ROWS`` rows against
+    phase 10's six tables, on phase 10's data (the host build of
+    ``cases.join_bench_keys``, payload = key; the probe keys every found),
+    each call held bit-identical to its plain version first, then timed
+    in TURN_ROUNDS rounds of ``event_ms`` (KERNEL_REPS calls) beside the
+    yardstick ``torch.take(htk, home)``: one random 4-byte gather a probe
+    at the probes' home slots, precomputed, what a design with one access
+    a probe can reach (no one PyTorch call computes the function)."""
+    from chip_smoke import JOIN_ROWS, JOIN_TABLE_KB, KERNEL_REPS, SEED
+    from repro_torch import cases
+    from repro_torch.core import blocks
+    from repro_torch.kernels import hash_join, ref
+    from repro_torch.sql import hashtable
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    base = torch.randint(0, 1 << 30, (JOIN_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    vals = torch.randint(0, 100, (JOIN_ROWS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    report = {}
+    for kb in JOIN_TABLE_KB:
+        bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
+        htk, htv = (torch.from_numpy(a).to(dev)
+                    for a in hashtable.np_build(bkeys, bkeys, n_slots))
+        keys = torch.remainder(base, len(bkeys))
+        got = hash_join.probe_agg(keys, vals, htk, htv)
+        if not torch.equal(got, ref.probe_agg(keys, vals, htk, htv)):
+            raise AssertionError(f"probe_agg {kb} KB: kernel != plain")
+        home = blocks.hash_fn(keys, n_slots)
+        row = {"table_KB": kb, "n_slots": n_slots,
+               **rounds(lambda: hash_join.probe_agg(keys, vals, htk, htv),
+                        KERNEL_REPS),
+               "take_ms": rounds(lambda: torch.take(htk, home),
+                                 KERNEL_REPS)["median"]}
+        report[f"{kb}KB"] = row
+        print(f"probe_agg {kb} KB " + json.dumps(row), flush=True)
+        del keys, home, htk, htv
+        torch.cuda.empty_cache()
+    report["all_medians"] = sum(r["median"] for k, r in report.items())
+    print("probe_agg six tables " + json.dumps(report["all_medians"]),
+          flush=True)
+    return report
+
+
+def sparse_turns(dev) -> dict:
+    """Section 10: ``select_scan_sparse`` on phase 10's 12 cases
+    (``chip_smoke.SPARSE_ROWS`` rows, x uniform and sorted, the
+    ``SPARSE_SELECTIVITY`` selectivities, y phase 10's), each call held
+    bit-identical to its plain version and to ``select_scan`` first, then
+    in turns with ``select_scan`` on the same call (``chip_smoke.turns``:
+    sparse, dense, dense, sparse; KERNEL_REPS calls a side), beside the
+    bound of ``chip_smoke.sparse_need``."""
+    from chip_smoke import (JOIN_ROWS, KERNEL_REPS, SEED, SPARSE_ROWS,
+                            SPARSE_SELECTIVITY, sparse_need, turns)
+    from repro_torch.kernels import ref, select_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    y = torch.randint(0, 1 << 30, (JOIN_ROWS,), generator=gen, device=dev,
+                      dtype=torch.int32)[:SPARSE_ROWS]
+    torch.randint(0, 100, (JOIN_ROWS,), generator=gen, device=dev,
+                  dtype=torch.int32)        # phase 10's vals: the same x
+    x_uniform = torch.randint(0, 1 << 30, (SPARSE_ROWS,), generator=gen,
+                              device=dev, dtype=torch.int32)
+    report = {"cases": []}
+    for order, x in (("uniform", x_uniform),
+                     ("sorted", torch.sort(x_uniform).values)):
+        for selectivity in SPARSE_SELECTIVITY:
+            hi = int(selectivity * (1 << 30)) - 1
+            got = select_scan.select_scan_sparse(x, y, 0, hi)
+            for other in (select_scan.select_scan(x, y, 0, hi),
+                          ref.select_scan_sparse(x, y, 0, hi)):
+                if not all(torch.equal(g, w) for g, w in zip(got, other)):
+                    raise AssertionError(f"select_scan_sparse {order} "
+                                         f"{selectivity}: != select_scan "
+                                         "or plain")
+            del got, other
+            need = sparse_need(x, 0, hi)
+            row = turns(lambda: select_scan.select_scan_sparse(x, y, 0, hi),
+                        lambda: select_scan.select_scan(x, y, 0, hi),
+                        calls=KERNEL_REPS)
+            row.update(order=order, selectivity=selectivity,
+                       count=need["count"],
+                       bound_ms=max(need["bytes_ms"], need["ops_ms"]))
+            row["bound_share"] = row["bound_ms"] / row["kernel_median"]
+            report["cases"].append(row)
+            print(f"select_scan_sparse {order} {selectivity} " +
+                  json.dumps(row), flush=True)
+    for side in ("kernel_median", "library_median", "bound_ms"):
+        report[side] = sum(r[side] for r in report["cases"])
+    print("select_scan_sparse 12 cases " + json.dumps(
+        {k: v for k, v in report.items() if k != "cases"}), flush=True)
+    return report
+
+
 def sum_turns(dev) -> dict:
     """Section 5: ``reduce_sum`` of 2^28 random f32 rows in turns with
     ``torch.sum``, beside the 4n-byte bound."""
@@ -332,6 +443,15 @@ def main() -> int:
     report = {"card": card, "tree": str(args.tree or ROOT),
               "one_sweep": hasattr(radix, "digit_counts")}
 
+    if "join" in args.only:
+        report["probe_agg"] = join_turns(dev)
+    if "sparse" in args.only:
+        report["select_scan_sparse"] = sparse_turns(dev)
+    if "sum" in args.only:
+        report["reduce_sum_f32"] = sum_turns(dev)
+    if not DB_SECTIONS & set(args.only):
+        print(json.dumps(report))
+        return 0
     t0 = time.perf_counter()
     db = ssb.generate(sf=SF, seed=SEED)
     n = db.lineorder.n_rows
@@ -453,8 +573,6 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "probe" in args.only:
         report.update(probe_turns(db))
-    if "sum" in args.only:
-        report["reduce_sum_f32"] = sum_turns(dev)
     print(json.dumps(report))
     return 0
 

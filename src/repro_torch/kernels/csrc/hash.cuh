@@ -1,7 +1,7 @@
 // Linear-probe lookup into an open-addressing table, shared by
 // ssb_fused.cu and multi_fused.cu (home_slot, walk_on: several rows'
-// home slots in flight), hash_join.cu (probe), and lookback.cuh's probe
-// sweep (the run-wide walk below).
+// home slots in flight), and hash_join.cu's probe_agg and lookback.cuh's
+// probe sweep (the run-wide walk below).
 //
 // The rule of src/repro/core/blocks.py::block_lookup per key: start at
 // (uint32(key) * 2654435761) & mask and walk until the key (hit) or an
@@ -19,9 +19,9 @@ constexpr unsigned kHashMul = 2654435761u;
 
 // The walk past a key's home slot, whose key was neither the key nor
 // EMPTY: slots home + 1, home + 2, ... for the rest of one lap; on a hit
-// *slot is the key's slot.  home_slot's load and then walk_on() read what
-// probe() reads, so a caller can issue the home loads of several rows
-// before it walks any of them.
+// *slot is the key's slot.  home_slot's load and then walk_on() are the
+// walk of block_lookup's rule in two parts, so a caller can issue the
+// home loads of several rows before it walks any of them.
 __device__ __forceinline__ bool walk_on(const int* __restrict__ htk,
                                         unsigned mask, int key,
                                         unsigned* slot) {
@@ -38,31 +38,15 @@ __device__ __forceinline__ bool walk_on(const int* __restrict__ htk,
   return false;
 }
 
-__device__ __forceinline__ bool probe(const int* __restrict__ htk,
-                                      const int* __restrict__ htv,
-                                      unsigned mask, int key, int* payload) {
-  unsigned slot = (static_cast<unsigned>(key) * kHashMul) & mask;
-  for (unsigned long long step = 0; step <= mask; ++step) {
-    const int k = __ldg(htk + slot);
-    if (k == key) {
-      *payload = __ldg(htv + slot);
-      return true;
-    }
-    if (k == kEmpty) return false;
-    slot = (slot + 1u) & mask;
-  }
-  return false;
-}
-
-// The same walk in two parts.  The home slot alone first (home_slot):
+// The same walk a run at a time.  The home slot alone first (home_slot):
 // on an SSB dimension table most walks end there.  Then the walk past it
 // a run of W slots a step (W = 1, 2, 4 or 8; W * 4 bytes, one or two
 // vector loads; the table row's address a multiple of W * 4 bytes and its
 // slot count of W): step s reads aligned run s from the one that holds
 // the home slot, wrapping at the row's end, and the first slot of the
 // run, in probe order, that holds the key (hit) or EMPTY (miss) ends the
-// walk, found in registers, so a step reads one run where probe() reads
-// one slot.  The answer is probe()'s: step 0 reads the home run from the
+// walk, found in registers, so a step reads one run where walk_on() reads
+// one slot.  The answer is walk_on()'s: step 0 reads the home run from the
 // slot after home, and step S / W (the home run again) the slots before
 // home, after which a walk that met neither is a miss (one lap).
 __device__ __forceinline__ unsigned home_slot(int key, unsigned mask) {

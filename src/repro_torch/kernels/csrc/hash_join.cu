@@ -31,15 +31,26 @@
 // paper's join microbenchmark, SELECT SUM(A.v + B.v) FROM A, B WHERE
 // A.k = B.k).  Replaces src/repro/kernels/hash_join.py::probe_agg
 // (_probe_agg_kernel), which adds each tile into one scalar across a grid
-// that runs in order; here each block sums its rows and reduce.cuh's
-// finish_sum adds the blocks' partials in a fixed order.  int32 vals: each
-// payload + v and the sum wrap as the reference's int32 adds (summed in
-// 64 bits, cut once); f32 vals: payload + v rounded to f32 as the
-// reference's add, summed in f64, rounded once.  What bounds it: the keys
-// read once and vals read per hit (8 bytes a row when all hit) and the
-// table segments the probes visit; while the table fits the 50 MB L2 the
-// probes are L2 reads, past it each probe is a device-memory access of its
-// own.  Each thread walks four rows' probes at once.
+// that runs in order; here each resident block sums its tiles and
+// reduce.cuh's finish_sum adds the blocks' partials in a fixed order.
+// int32 vals: each payload + v and the sum wrap as the reference's int32
+// adds (summed in 64 bits, cut once); f32 vals: payload + v rounded to
+// f32 as the reference's add, summed in f64, rounded once.  What bounds
+// it: the keys and vals read once (8 bytes a row) and the table segments
+// the probes visit; for a table past the 50 MB L2, those segments at the
+// share of the table the L2 holds and a sector a probe from device memory
+// at the share it cannot.  A probe
+// is a chain of dependent reads: the key, its home slot, the runs past
+// it, the payload.  What the design does about it: a thread's 8 rows load
+// their keys and vals together, then issue every home slot's key and
+// payload load at once (the payload's address does not wait on the key
+// read, so a hit at home is one round trip); only the rows still walking
+// go on, a 32-byte run a step (hash.cuh).  The table is first copied as
+// 8-byte slots, each key beside its payload (pair_slots, one read and one
+// write of the table, in the call), so that a probe reads one sector
+// where the two arrays cost two: the sectors, from the L2 as much as from
+// device memory, are what a probe waits on, and on an H100 the copy won
+// at every table from 8 KB to 256 MB (2^28 probes).
 //
 // build: the open-addressing linear-probe table of (key, val) rows.
 // Replaces src/repro/kernels/hash_join.py::build (_build_kernel), which
@@ -68,59 +79,249 @@
 
 namespace {
 
-constexpr int kAggItems = 4;       // rows a thread probes at once
+// probe_agg's shape: rows a thread holds (their keys, vals, home keys and
+// home payloads all in flight at once), rows whose walk runs load at once,
+// and the blocks an SM the kernel is built for (64 registers a thread; 48
+// used, no spills).  Chosen by timing shapes on an H100: 2 rows' runs at
+// once spilled, 4 or 16 rows a thread and 3 or 8 blocks an SM were no
+// faster over the six tables of the join microbenchmark.
+constexpr int kAggItems = 8;
+constexpr int kAggGroup = 1;
+constexpr int kAggBlocks = 4;
+constexpr long long kAggTile =
+    static_cast<long long>(kSumThreads) * kAggItems;
+constexpr int kPairThreads = 256;
+static_assert(kAggItems % kAggGroup == 0, "whole groups of rows");
+static_assert(kAggItems <= 32, "a row's flags are the bits of a word");
 
-__device__ __forceinline__ void add_hit(int payload, const int* vals,
-                                        long long r, unsigned long long* s) {
-  *s += static_cast<unsigned long long>(static_cast<long long>(payload) +
-                                        __ldg(vals + r));
+__device__ __forceinline__ void add_hit(int payload, int v,
+                                        unsigned long long* s) {
+  *s += static_cast<unsigned long long>(static_cast<long long>(payload) + v);
 }
 
-__device__ __forceinline__ void add_hit(int payload, const float* vals,
-                                        long long r, double* s) {
-  *s += static_cast<double>(__fadd_rn(__int2float_rn(payload),
-                                      __ldg(vals + r)));
+__device__ __forceinline__ void add_hit(int payload, float v, double* s) {
+  *s += static_cast<double>(__fadd_rn(__int2float_rn(payload), v));
 }
 
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kSumThreads)
-probe_agg_partials(const int* __restrict__ keys, const T* __restrict__ vals,
-                   long long n, const int* __restrict__ htk,
-                   const int* __restrict__ htv, unsigned mask,
-                   Acc* __restrict__ partials) {
-  const long long tile = static_cast<long long>(kSumThreads) * kAggItems;
-  const long long stride = tile * gridDim.x;
+// A walk step's run of W 8-byte slots, each key beside its payload (32
+// bytes, one sector, for W = 4): a hit's payload is in the registers of
+// the run that found it.
+template <int W>
+struct PairRun {
+  SlotRun<W> keys;
+  int vals[W];
+};
+
+template <int W>
+__device__ __forceinline__ PairRun<W> load_pairs(
+    const int2* __restrict__ slots, unsigned base) {
+  static_assert(W == 1 || W == 2 || W == 4, "a run of 1-4 pairs");
+  PairRun<W> run;
+  if constexpr (W == 1) {
+    const int2 p = __ldg(slots + base);
+    run.keys.k[0] = p.x;
+    run.vals[0] = p.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < W; h += 2) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(slots + base + h));
+      run.keys.k[h] = q.x;
+      run.vals[h] = q.y;
+      run.keys.k[h + 1] = q.z;
+      run.vals[h + 1] = q.w;
+    }
+  }
+  return run;
+}
+
+// The payload at the run's place `at` (slot - base), picked without
+// indexing the array, which would put it in local memory.
+template <int W>
+__device__ __forceinline__ int run_payload(const PairRun<W>& run,
+                                           unsigned at) {
+  int p = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    if (at == static_cast<unsigned>(j)) p = run.vals[j];
+  return p;
+}
+
+// One block's share of probe_agg: tiles of kAggTile rows, blockIdx.x,
+// then every gridDim.x-th.  A thread's kAggItems rows (32 neighbours a
+// warp a step, so loads coalesce) load their keys and vals, then the key
+// and payload of every row's home slot at once; the rows whose home held
+// neither their key nor EMPTY walk on a run a step (hash.cuh's run_base /
+// read_run over the 8-byte slots), kAggGroup rows' runs loaded at once.
+// The block's sum goes to partials[blockIdx.x] in a fixed order
+// (reduce.cuh).
+template <int W, typename T, typename Acc>
+__global__ void __launch_bounds__(kSumThreads, kAggBlocks)
+probe_agg_sweep(const int* __restrict__ keys, const T* __restrict__ vals,
+                long long n, const int2* __restrict__ slots, unsigned mask,
+                Acc* __restrict__ partials) {
+  const long long stride = kAggTile * gridDim.x;
   Acc s = Acc(0);
-  for (long long base = tile * blockIdx.x; base < n; base += stride) {
+  for (long long base = kAggTile * blockIdx.x; base < n; base += stride) {
     int key[kAggItems];
+    T v[kAggItems];
+    unsigned live = 0u;
 #pragma unroll
     for (int i = 0; i < kAggItems; ++i) {
       const long long r = base + static_cast<long long>(i) * kSumThreads +
                           threadIdx.x;
-      key[i] = r < n ? __ldg(keys + r) : 0;
+      key[i] = 0;
+      v[i] = T(0);
+      if (r < n) {
+        key[i] = __ldg(keys + r);
+        v[i] = __ldg(vals + r);
+        live |= 1u << i;
+      }
+    }
+    // every home slot's key and payload at once: a hit at home is one
+    // round trip
+    int payload[kAggItems];
+    unsigned hit = 0u, pending = 0u;
+    {
+      int at_home[kAggItems];
+#pragma unroll
+      for (int i = 0; i < kAggItems; ++i) {
+        at_home[i] = kEmpty;
+        payload[i] = 0;
+        if (live & (1u << i)) {
+          const int2 h = __ldg(slots + home_slot(key[i], mask));
+          at_home[i] = h.x;
+          payload[i] = h.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kAggItems; ++i) {
+        if (at_home[i] == key[i] && (live & (1u << i))) hit |= 1u << i;
+        else if (at_home[i] != kEmpty) pending |= 1u << i;
+      }
+    }
+    for (unsigned step = 0; pending; ++step) {
+#pragma unroll
+      for (int g = 0; g < kAggItems; g += kAggGroup) {
+        if (!(pending & (((1u << kAggGroup) - 1u) << g))) continue;
+        PairRun<W> run[kAggGroup];
+#pragma unroll
+        for (int j = 0; j < kAggGroup; ++j)
+          if (pending & (1u << (g + j)))
+            run[j] = load_pairs<W>(slots,
+                                   run_base<W>(key[g + j], mask, step));
+#pragma unroll
+        for (int j = 0; j < kAggGroup; ++j) {
+          const int i = g + j;
+          if (!(pending & (1u << i))) continue;
+          unsigned slot;
+          const int res = read_run<W>(run[j].keys, key[i], mask, step,
+                                      &slot);
+          if (res == kWalkOn) continue;
+          pending &= ~(1u << i);
+          if (res == kHit) {
+            hit |= 1u << i;
+            payload[i] = run_payload<W>(
+                run[j], slot - run_base<W>(key[i], mask, step));
+          }
+        }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kAggItems; ++i) {
-      const long long r = base + static_cast<long long>(i) * kSumThreads +
-                          threadIdx.x;
-      int payload = 0;
-      if (r < n && probe(htk, htv, mask, key[i], &payload))
-        add_hit(payload, vals, r, &s);
-    }
+    for (int i = 0; i < kAggItems; ++i)
+      if (hit & (1u << i)) add_hit(payload[i], v[i], &s);
   }
   s = block_total(s);
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
+// The table as 8-byte slots: slots[s] = (htk[s], htv[s]).
+__global__ void __launch_bounds__(kPairThreads)
+pair_slots(const int* __restrict__ htk, const int* __restrict__ htv,
+           long long n_slots, int2* __restrict__ slots) {
+  const long long stride = static_cast<long long>(gridDim.x) * kPairThreads;
+  for (long long s = static_cast<long long>(blockIdx.x) * kPairThreads +
+                     threadIdx.x;
+       s < n_slots; s += stride)
+    slots[s] = make_int2(__ldg(htk + s), __ldg(htv + s));
+}
+
+// probe_agg_launch's arguments, passed by one pointer (a ctypes call
+// pays for each argument it converts).
+struct AggArgs {
+  const int* keys;
+  const void* vals;                             // int32, or f32 (is_float)
+  long long n;
+  int is_float;
+  const int* htk;
+  const int* htv;
+  unsigned mask;
+  int2* pairs;                  // (mask + 1,) 8-byte slots, filled here
+  void* partials;                               // `blocks` int64 or f64
+  void* out;                                    // one int32 or f32
+  long long blocks;
+};
+
+template <int W, typename T, typename Acc, typename Out>
+int launch_agg(const AggArgs& a, cudaStream_t s) {
+  probe_agg_sweep<W, T, Acc>
+      <<<static_cast<unsigned>(a.blocks), kSumThreads, 0, s>>>(
+          a.keys, static_cast<const T*>(a.vals), a.n, a.pairs, a.mask,
+          static_cast<Acc*>(a.partials));
+  finish_sum<<<1, kFinishThreads, 0, s>>>(
+      static_cast<const Acc*>(a.partials), static_cast<int>(a.blocks),
+      static_cast<Out*>(a.out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copy, then the sweep, whose walk step reads 4 slots (32 bytes), or
+// the whole of a smaller table, and the partials' sum.
+template <typename T, typename Acc, typename Out>
+int launch_typed(const AggArgs& a, cudaStream_t s) {
+  const long long n_slots = static_cast<long long>(a.mask) + 1;
+  long long grid = (n_slots + kPairThreads - 1) / kPairThreads;
+  if (grid > 65536) grid = 65536;
+  pair_slots<<<static_cast<unsigned>(grid), kPairThreads, 0, s>>>(
+      a.htk, a.htv, n_slots, a.pairs);
+  if (n_slots >= 4) return launch_agg<4, T, Acc, Out>(a, s);
+  if (n_slots == 2) return launch_agg<2, T, Acc, Out>(a, s);
+  return launch_agg<1, T, Acc, Out>(a, s);
+}
+
 }  // namespace
 
-// Blocks of probe_agg's partial kernel resident on the card (its grid is
-// the rows over 1024, up to this).
-extern "C" int probe_agg_shape(int is_float, long long* resident) {
-  if (is_float)
-    return resident_blocks(probe_agg_partials<float, double>, resident);
-  return resident_blocks(probe_agg_partials<int, unsigned long long>,
-                         resident);
+// Blocks of probe_agg's sweep resident on the card (its grid is the tiles
+// up to this): which = is_float.
+extern "C" int probe_agg_shape(int which, long long* resident) {
+  switch (which) {
+    case 0:
+      return resident_blocks(probe_agg_sweep<4, int, unsigned long long>,
+                             resident);
+    case 1:
+      return resident_blocks(probe_agg_sweep<4, float, double>, resident);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Rows of probe_agg's tile.
+extern "C" long long probe_agg_tile_rows() { return kAggTile; }
+
+// args: an AggArgs (void here, so the entry keeps external linkage).
+// keys: (n,) int32; vals: (n,) int32 (is_float 0) or f32; htk, htv:
+// (mask + 1,) int32, mask + 1 a power of two; pairs: mask + 1 8-byte
+// slots of scratch, 16-byte aligned, which the call fills from htk and
+// htv and probes through; partials: `blocks` 8-byte scratch (int64 or
+// f64); out: one int32 or f32.  1 <= blocks < 2^31.  Launches the copy,
+// the sweep and finish_sum on `stream`, asks the runtime nothing else,
+// does not synchronise, returns cudaGetLastError().
+extern "C" int probe_agg_launch(const void* args, void* stream) {
+  const AggArgs& a = *static_cast<const AggArgs*>(args);
+  if (a.n <= 0 || a.blocks < 1 || a.blocks > 2147483647LL ||
+      (a.mask & (a.mask + 1u)) != 0u || a.pairs == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.is_float) return launch_typed<float, double, float>(a, s);
+  return launch_typed<int, unsigned long long, int>(a, s);
 }
 
 namespace {
@@ -181,46 +382,6 @@ build_emit(const int* __restrict__ rows, const int* __restrict__ keys,
 }
 
 }  // namespace
-
-extern "C" long long probe_agg_tile_rows() {
-  return static_cast<long long>(kSumThreads) * kAggItems;
-}
-
-// keys: (n,) int32; vals: (n,) int32 (is_float 0) or f32; htk, htv:
-// (mask + 1,) int32, mask + 1 a power of two; partials: `blocks` 8-byte
-// scratch (int64 or f64); out: one int32 or f32.  Launches the partial
-// kernel and finish_sum on `stream`, does not synchronise, returns
-// cudaGetLastError().
-extern "C" int probe_agg_launch(const void* keys, const void* vals,
-                                long long n, int is_float, const void* htk,
-                                const void* htv, unsigned mask,
-                                long long blocks, void* partials, void* out,
-                                void* stream) {
-  if (n <= 0 || blocks < 1 || blocks > 2147483647LL ||
-      (mask & (mask + 1u)) != 0u)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(blocks);
-  const int* k = static_cast<const int*>(keys);
-  const int* tk = static_cast<const int*>(htk);
-  const int* tv = static_cast<const int*>(htv);
-  if (is_float) {
-    probe_agg_partials<float, double><<<grid, kSumThreads, 0, s>>>(
-        k, static_cast<const float*>(vals), n, tk, tv, mask,
-        static_cast<double*>(partials));
-    finish_sum<<<1, kFinishThreads, 0, s>>>(
-        static_cast<const double*>(partials), static_cast<int>(blocks),
-        static_cast<float*>(out));
-  } else {
-    probe_agg_partials<int, unsigned long long><<<grid, kSumThreads, 0, s>>>(
-        k, static_cast<const int*>(vals), n, tk, tv, mask,
-        static_cast<unsigned long long*>(partials));
-    finish_sum<<<1, kFinishThreads, 0, s>>>(
-        static_cast<const unsigned long long*>(partials),
-        static_cast<int>(blocks), static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // keys, vals: (n,) int32, no key EMPTY; rows: (mask + 1,) int32 scratch;
 // htk, htv: (mask + 1,) int32 outputs, mask + 1 a power of two >= n.

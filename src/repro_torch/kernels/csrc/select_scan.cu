@@ -43,32 +43,15 @@
 //
 // select_scan_sparse replaces src/repro/kernels/select_scan.py::
 // select_scan_sparse (_select_sparse_kernel), the paper's selective load
-// (§5.3): phase 1 reads x alone and marks the tiles that hold a match;
-// phase 2 compacts only the marked tiles, so y is read only there.  The
-// TPU kernel keeps all its grid steps and leaves trimming them to a
-// dynamic grid bound; here phase 2 is sized by the marked tiles on the
-// device, with no host round trip between the phases.  The skip unit is
-// kUnit = 32 rows, one warp's ballot and one 128-byte line of y
-// (compact.cuh's tiles of kTile rows):
-//
-//   sparse_mark:   one block per kTile rows reads x once; each warp's
-//                  ballot of its 32 rows is that unit's match mask
-//                  (4 bytes per 32 rows), and the block writes its
-//                  tile's matches and marked units;
-//   scan_tiles:    twice, the tile offsets of the output and of the
-//                  marked-unit list (its length stays on the device);
-//   sparse_list:   one block of 64 threads per tile with a marked unit
-//                  writes each marked unit's (id, output position);
-//   sparse_gather: a fixed grid of warps strides over the list, its
-//                  length read from device memory; each warp writes
-//                  the set lanes of its unit's y to their positions.
-//
-// The positions come from the counts alone (tile offset, then the
-// popcounts of the earlier units and lanes), so the output is
-// select_scan's, bit for bit, in row order.  What bounds it: x read once
-// (4n), y read in the marked units only, the selected entries written,
-// and the masks (n / 8 bytes written, read again for marked tiles) and
-// the list (8 bytes per marked unit) on top.  Its caller zeroes `out`.
+// (§5.3): x read alone first, then y read only in the 32-row units
+// (ref.SKIP_ROWS) that hold a match.  Here it is the same one sweep with
+// select_scan's stage, its kernel named select_sparse_sweep so a profile
+// tells the two apart: x read once, y read only in the runs of 4 rows
+// that hold a match, a finer selective load than the reference's unit (a
+// stage that read a 32-row unit's 128-byte line where a warp's ballot
+// held a match tied or lost on every case timed on an H100).  What
+// bounds it: x read once (4n), y where a match is, and out written whole
+// (4n, the zero tail included).
 //
 // x is int32 or float32 (a NaN is never selected), or packed words; y any
 // 4-byte type, moved as raw bits.  Rows >= n never match (a packed
@@ -83,19 +66,6 @@
 #include "packed.cuh"
 
 namespace {
-
-// select_scan_sparse's predicate over a plain x, a row at a time.
-template <typename T>
-struct PlainPred {
-  const T* x;
-  long long n;
-  T lo, hi;
-  __device__ __forceinline__ bool operator()(long long r) const {
-    if (r >= n) return false;
-    const T v = __ldg(x + r);
-    return v >= lo && v <= hi;
-  }
-};
 
 // The select sweep's shape: rows a thread a tile, and the blocks an SM
 // the kernel is built for (4: 64 registers a thread).
@@ -332,6 +302,17 @@ select_packed_sweep(const SelectTile<X> stage, unsigned* status,
       status + (stage.n + kSelectTile - 1) / kSelectTile, count);
 }
 
+// select_scan_sparse's sweep: select_scan's stage, its own name so a
+// profile tells the two apart.
+template <typename X>
+__global__ void __launch_bounds__(kSweepThreads, kSelectBlocks)
+select_sparse_sweep(const SelectTile<X> stage, unsigned* status,
+                    long long* count) {
+  sweep<kSelectTile, unsigned>(
+      stage, stage.n, status,
+      status + (stage.n + kSelectTile - 1) / kSelectTile, count);
+}
+
 // select_scan_launch's arguments, passed by one pointer (a ctypes call
 // pays for each argument it converts).
 struct SelectArgs {
@@ -341,6 +322,7 @@ struct SelectArgs {
   int lo, hi;           // the bounds' bits in x's type (encoded if packed)
   int phys;             // the packed width (1, 2, 4, 8, 16), or 32: plain
   int is_float;         // a plain x: 1 float32, 0 int32
+  int sparse;           // a plain x: 1 select_scan_sparse's sweep
   void* out;
   long long* count;
   unsigned* status;
@@ -374,6 +356,8 @@ int launch_plain(const SelectArgs& a, cudaStream_t s) {
               T{}, aligned(a.x, 16)};
   memcpy(&x.lo, &a.lo, 4);
   memcpy(&x.hi, &a.hi, 4);
+  if (a.sparse)
+    return launch_sweep(select_sparse_sweep<PlainX<T>>, x, a, s);
   return launch_sweep(select_sweep<PlainX<T>>, x, a, s);
 }
 
@@ -386,152 +370,19 @@ int launch_packed(const SelectArgs& a, cudaStream_t s) {
   return launch_sweep(select_packed_sweep<X>, x, a, s);
 }
 
-// select_scan_sparse's phases, over compact.cuh's tiles.
-constexpr int kUnit = 32;                      // the skip unit (rows)
-constexpr int kUnits = static_cast<int>(kTile / kUnit);   // 64 a tile
-constexpr int kGatherBlocksPerSm = 8;
-
-// Phase 1: each unit's match mask; the tile's matches and marked units.
-template <typename Pred>
-__global__ void __launch_bounds__(kThreads)
-sparse_mark(const Pred selected, unsigned* __restrict__ masks,
-            int* __restrict__ counts, int* __restrict__ units) {
-  __shared__ int warp_counts[kWarps];
-  const long long base = kTile * blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int packed = 0;                  // matches | marked units << 16
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const unsigned ballot = __ballot_sync(
-        kFull, selected(base + static_cast<long long>(i) * kThreads +
-                        threadIdx.x));
-    if (lane == 0) {
-      masks[static_cast<long long>(blockIdx.x) * kUnits + i * kWarps +
-            warp] = ballot;
-      packed += __popc(ballot) + (ballot != 0u ? 1 << 16 : 0);
-    }
-  }
-  const int total = block_sum(packed, warp_counts);
-  if (threadIdx.x == 0) {
-    counts[blockIdx.x] = total & 0xffff;
-    units[blockIdx.x] = total >> 16;
-  }
-}
-
-// Phase 2a: (unit id, output position) of each marked unit, in row order.
-__global__ void __launch_bounds__(kUnits)
-sparse_list(const unsigned* __restrict__ masks, const int* __restrict__ units,
-            const int* __restrict__ unit_offsets,
-            const int* __restrict__ offsets, int2* __restrict__ list) {
-  __shared__ int first_warp;
-  if (units[blockIdx.x] == 0) return;            // uniform over the block
-  const int unit = blockIdx.x * kUnits + threadIdx.x;
-  const unsigned m = masks[unit];
-  const int v = __popc(m) + (m != 0u ? 1 << 16 : 0);
-  int incl = warp_scan(v);
-  if (threadIdx.x == 31) first_warp = incl;
-  __syncthreads();
-  if (threadIdx.x >= 32) incl += first_warp;
-  const int excl = incl - v;
-  if (m != 0u)
-    list[unit_offsets[blockIdx.x] + (excl >> 16)] =
-        make_int2(unit, offsets[blockIdx.x] + (excl & 0xffff));
-}
-
-// Phase 2b: a warp per marked unit, over a list whose length is on the
-// device; y is read in the unit's set lanes only.
-__global__ void __launch_bounds__(kThreads)
-sparse_gather(const int2* __restrict__ list,
-              const long long* __restrict__ n_marked,
-              const unsigned* __restrict__ masks,
-              const unsigned* __restrict__ y, unsigned* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long total = *n_marked;
-  const long long step = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long e = static_cast<long long>(blockIdx.x) * kWarps +
-                     (threadIdx.x >> 5);
-       e < total; e += step) {
-    const int2 ent = list[e];
-    const unsigned m = masks[ent.x];
-    if ((m >> lane) & 1u)
-      out[ent.y + __popc(m & ((1u << lane) - 1u))] =
-          __ldg(y + static_cast<long long>(ent.x) * kUnit + lane);
-  }
-}
-
-// The sparse scan's scratch, carved from one buffer: the list's length,
-// the list, the unit masks, then four int32 arrays of one entry a tile.
-struct SparseScratch {
-  long long* n_marked;
-  int2* list;
-  unsigned* masks;
-  int* counts;
-  int* offsets;
-  int* units;
-  int* unit_offsets;
-};
-
-long long sparse_scratch_bytes(long long n) {
-  const long long tiles = (n + kTile - 1) / kTile;
-  return 8 + tiles * kUnits * (8 + 4) + 4 * 4 * tiles;
-}
-
-SparseScratch carve(void* scratch, long long n) {
-  const long long tiles = (n + kTile - 1) / kTile;
-  char* p = static_cast<char*>(scratch);
-  SparseScratch s;
-  s.n_marked = reinterpret_cast<long long*>(p);
-  p += 8;
-  s.list = reinterpret_cast<int2*>(p);
-  p += 8 * tiles * kUnits;
-  s.masks = reinterpret_cast<unsigned*>(p);
-  p += 4 * tiles * kUnits;
-  s.counts = reinterpret_cast<int*>(p);
-  s.offsets = s.counts + tiles;
-  s.units = s.offsets + tiles;
-  s.unit_offsets = s.units + tiles;
-  return s;
-}
-
-template <typename Pred>
-int launch_sparse(const Pred& selected, const void* y, long long n,
-                  const SparseScratch& sc, void* out, long long* count,
-                  cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (n + kTile - 1) / kTile;
-  const unsigned grid = static_cast<unsigned>(tiles);
-  sparse_mark<Pred><<<grid, kThreads, 0, stream>>>(selected, sc.masks,
-                                                   sc.counts, sc.units);
-  scan_tiles<<<1, kScanThreads, 0, stream>>>(sc.counts, sc.offsets,
-                                             static_cast<int>(tiles), count);
-  scan_tiles<<<1, kScanThreads, 0, stream>>>(
-      sc.units, sc.unit_offsets, static_cast<int>(tiles), sc.n_marked);
-  sparse_list<<<grid, kUnits, 0, stream>>>(sc.masks, sc.units,
-                                          sc.unit_offsets, sc.offsets,
-                                          sc.list);
-  long long gather = (tiles * kUnits + kWarps - 1) / kWarps;
-  const long long cap = static_cast<long long>(sms) * kGatherBlocksPerSm;
-  if (gather > cap) gather = cap;
-  sparse_gather<<<static_cast<unsigned>(gather), kThreads, 0, stream>>>(
-      sc.list, sc.n_marked, sc.masks, static_cast<const unsigned*>(y),
-      static_cast<unsigned*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Blocks of the sweep resident on the current device for an x of kind
 // `which`: the packed width (1, 2, 4, 8, 16), 32 for a plain int32 x, 96
-// (32 | 64) for a plain float32 x.
+// (32 | 64) for a plain float32 x; | 128 for select_scan_sparse's sweep.
 extern "C" int select_scan_shape(int which, long long* resident) {
   switch (which) {
     case 32: return sweep_blocks(select_sweep<PlainX<int>>, resident);
     case 96: return sweep_blocks(select_sweep<PlainX<float>>, resident);
+    case 160:
+      return sweep_blocks(select_sparse_sweep<PlainX<int>>, resident);
+    case 224:
+      return sweep_blocks(select_sparse_sweep<PlainX<float>>, resident);
     case 1: return sweep_blocks(select_packed_sweep<PackedX<1>>, resident);
     case 2: return sweep_blocks(select_packed_sweep<PackedX<2>>, resident);
     case 4: return sweep_blocks(select_packed_sweep<PackedX<4>>, resident);
@@ -574,36 +425,6 @@ extern "C" long long select_scan_status_words(long long n) {
 
 // Rows of the sweep's tile.
 extern "C" long long select_scan_tile_rows() { return kSelectTile; }
-
-// x, y: (n,) device arrays, x int32 (is_float 0) or float32 (is_float 1),
-// y 4-byte; lo_bits/hi_bits: the bounds' 32-bit patterns in x's type;
-// scratch: the bytes select_scan_sparse_scratch_bytes(n) gives, 8-byte
-// aligned; out: (n,) zeroed; count: one int64.  0 < n < 2^31.  Launches on `stream`, does
-// not synchronise, returns cudaGetLastError().
-extern "C" int select_scan_sparse_launch(const void* x, const void* y,
-                                         long long n, int lo_bits,
-                                         int hi_bits, int is_float,
-                                         void* scratch, void* out,
-                                         void* count, void* stream) {
-  if (n <= 0 || n > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SparseScratch sc = carve(scratch, n);
-  long long* total = static_cast<long long*>(count);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_float) {
-    PlainPred<float> pred{static_cast<const float*>(x), n, 0.f, 0.f};
-    memcpy(&pred.lo, &lo_bits, 4);
-    memcpy(&pred.hi, &hi_bits, 4);
-    return launch_sparse(pred, y, n, sc, out, total, s);
-  }
-  const PlainPred<int> pred{static_cast<const int*>(x), n, lo_bits, hi_bits};
-  return launch_sparse(pred, y, n, sc, out, total, s);
-}
-
-
-extern "C" long long select_scan_sparse_scratch_bytes(long long n) {
-  return sparse_scratch_bytes(n);
-}
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -25,7 +25,12 @@ microbenchmark); the port of ``repro/kernels/hash_join.py::probe_agg``.
 Same contract as ``ref.probe_agg``: int32 sums wrap, bit for bit; f32
 values are summed in f64 in a fixed order and rounded once (the same
 bits on every run, ``ref.probe_agg``'s when the f64 sum is exact, as on
-integer-valued data, and within one f32 ulp of them otherwise).
+integer-valued data, and within one f32 ulp of them otherwise).  A call
+is two allocations (the table's copy as 8-byte slots of key beside
+payload, so that a probe reads one sector where the build's two arrays
+cost two; the blocks' partials and the result) and three kernels (the
+copy, the sweep and the partials' sum), launched through
+``build.launch``.
 
 The wrappers launch the kernels on CUDA tensors or raise; the choice of
 the plain version for a CPU tensor is ``ops``'s alone.  ``LAUNCHES``
@@ -58,15 +63,23 @@ class _JoinArgs(ctypes.Structure):
                 ("status", ctypes.c_void_p), ("blocks", ctypes.c_longlong)]
 
 
+class _AggArgs(ctypes.Structure):
+    """``probe_agg_launch``'s arguments (``csrc/hash_join.cu``'s
+    ``AggArgs``), passed by one pointer."""
+    _fields_ = [("keys", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("is_float", ctypes.c_int),
+                ("htk", ctypes.c_void_p), ("htv", ctypes.c_void_p),
+                ("mask", ctypes.c_uint), ("pairs", ctypes.c_void_p),
+                ("partials", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("blocks", ctypes.c_longlong)]
+
+
 _SIGNATURES = {
     "probe_join_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
     "probe_join_status_words": (ctypes.c_longlong, [ctypes.c_longlong]),
     "probe_join_shape": (ctypes.c_int, [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
-    "probe_agg_launch": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "probe_agg_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
     "probe_agg_shape": (ctypes.c_int, [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
     "probe_agg_tile_rows": (ctypes.c_longlong, []),
@@ -98,29 +111,33 @@ def probe_agg(keys: torch.Tensor, vals: torch.Tensor,
     int32; vals: (n,) int32 or f32; ht_keys, ht_vals: (S,) int32
     open-addressing table, S a power of two."""
     global AGG_LAUNCHES
-    if keys.device.type != "cuda":
+    if not keys.is_cuda:
         raise ValueError(f"probe_agg: no kernel for device {keys.device}")
-    device, n = keys.device, keys.shape[0]
-    kbuild.check_stream(keys, "keys", n, device)
-    kbuild.check_stream(vals, "vals", n, device, _VAL_TYPES)
-    s = _check_table(ht_keys, ht_vals, device)
-    is_float = vals.dtype == torch.float32
-    out = torch.zeros((), dtype=vals.dtype, device=device)
+    n, index, s = keys.shape[0], keys.get_device(), ht_keys.shape[0]
+    if not (vals.dtype in _VAL_TYPES and
+            kbuild.streams_ok(n, index, torch.int32, keys) and
+            kbuild.streams_ok(n, index, vals.dtype, vals) and
+            kbuild.streams_ok(s, index, torch.int32, ht_keys, ht_vals) and
+            0 < s <= 1 << 32 and not s & (s - 1)):
+        kbuild.check_stream(keys, "keys", n, keys.device)
+        kbuild.check_stream(vals, "vals", n, keys.device, _VAL_TYPES)
+        _check_table(ht_keys, ht_vals, keys.device)
     if n == 0:
-        return out
+        return torch.zeros((), dtype=vals.dtype, device=keys.device)
     lib = library()
-    blocks = max(1, min(kbuild.resident(lib, "probe_agg_shape", device.index,
-                                       int(is_float)),
-                        -(-n // lib.probe_agg_tile_rows())))
-    partials = torch.empty((blocks,), dtype=torch.float64 if is_float
-                           else torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.probe_agg_launch(
-            keys.data_ptr(), vals.data_ptr(), n, int(is_float),
-            ht_keys.data_ptr(), ht_vals.data_ptr(), s - 1, blocks,
-            partials.data_ptr(), out.data_ptr(), stream)
-    kbuild.check(lib, rc, "probe_agg")
+    is_float = vals.dtype is torch.float32
+    blocks = min(kbuild.resident(lib, "probe_agg_shape", index,
+                                 int(is_float)),
+                 -(-n // lib.probe_agg_tile_rows()))
+    # the partials, then the result's 8-byte word
+    buf = torch.empty((blocks + 1,), dtype=torch.int64, device=keys.device)
+    out = buf[blocks:].view(vals.dtype)[0]
+    pairs = torch.empty((s, 2), dtype=torch.int32, device=keys.device)
+    args = _AggArgs(keys.data_ptr(), vals.data_ptr(), n, int(is_float),
+                    ht_keys.data_ptr(), ht_vals.data_ptr(), s - 1,
+                    pairs.data_ptr(), buf.data_ptr(), out.data_ptr(), blocks)
+    kbuild.launch(lib, lib.probe_agg_launch, keys.device, "probe_agg",
+                  ctypes.addressof(args))
     AGG_LAUNCHES += 1
     return out
 

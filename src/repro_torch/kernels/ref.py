@@ -19,8 +19,8 @@ from repro_torch.kernels.common import DEFAULT_TILE, PHYS_WIDTHS, \
     decode_words
 
 MEASURE_OPS = ("first", "mul", "sub")
-# select_scan_sparse's skip unit: 32 rows, one 128-byte line of int32
-# (kUnit in csrc/select_scan.cu; one warp's ballot)
+# select_scan_sparse's skip unit: 32 rows, one 128-byte line of int32 (the
+# reference's; csrc/select_scan.cu's sweep reads y by runs of 4 rows)
 SKIP_ROWS = 32
 _INT32_MAX = (1 << 31) - 1
 
@@ -468,6 +468,28 @@ def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,
     return select_scan(decode_words(words, phys)[:y.shape[0]], y, lo, hi)
 
 
+def int32_bound(v) -> int:
+    """A select bound over an int32 column, as an int: an int32 value, or
+    ``ValueError``.  The kernels compare in x's type, and no int32 value
+    is 2.5 or 2^31, so every mode refuses such a bound alike."""
+    try:
+        iv = int(v)
+    except (OverflowError, ValueError):
+        iv = None
+    if iv is None or v != iv or not -(1 << 31) <= iv < (1 << 31):
+        raise ValueError(f"bound {v!r} is not an int32 value")
+    return iv
+
+
+def _bounds(x: torch.Tensor, lo, hi):
+    """The select bounds as the kernels take them: ``int32_bound``s over
+    an int32 x; as given otherwise (compared in x's type: f32 rounding
+    for a float32 x)."""
+    if x.dtype == torch.int32:
+        return int32_bound(lo), int32_bound(hi)
+    return lo, hi
+
+
 def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``select_scan`` in two phases (the paper's selective load, §5.3):
@@ -475,6 +497,7 @@ def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi
     a match; phase 2 compacts only the marked tiles, reading y only there.
     The result is ``select_scan``'s, bit for bit, whatever the unit."""
     n, unit = x.shape[0], SKIP_ROWS
+    lo, hi = _bounds(x, lo, hi)
     hit = B.block_pred_range(x, lo, hi) > 0
     pad = (-n) % unit
     tiles = torch.nn.functional.pad(hit, (0, pad)).view(-1, unit)
@@ -493,7 +516,9 @@ def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SELECT y WHERE lo <= x <= hi -> (out (n,), count): the selected
     entries of y in row order, then zeros.  Runs on the tensors' own
-    device with no host round trip."""
+    device with no host round trip.  Over an int32 x a bound that is not
+    an int32 value raises ``ValueError``, as the kernel does."""
+    lo, hi = _bounds(x, lo, hi)
     bitmap = B.block_pred_range(x, lo, hi)
     offsets, count = B.block_scan(bitmap)
     return B.block_shuffle(y, bitmap, offsets), count

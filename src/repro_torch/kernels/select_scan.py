@@ -5,19 +5,21 @@ Wrappers of the hand-written CUDA kernels ``csrc/select_scan.cu``, the
 port of the Pallas TPU kernels ``repro/kernels/select_scan.py::
 select_scan``, ``select_scan_packed`` (the predicate column bit-packed,
 decoded in registers) and ``select_scan_sparse`` (the paper's selective
-load: x read alone first, then y read only in the ``ref.SKIP_ROWS``-row
-tiles that hold a match).  Same contract as ``ref.select_scan``,
-``ref.select_scan_packed`` and ``ref.select_scan_sparse``: (out (n,),
-count), the selected entries in row order and zeros past the count, bit
-for bit — the sparse scan's output is ``select_scan``'s.
+load: y read only where a match is).  Same contract as
+``ref.select_scan``, ``ref.select_scan_packed`` and
+``ref.select_scan_sparse``: (out (n,), count), the selected entries in
+row order and zeros past the count, bit for bit — the sparse scan's
+output is ``select_scan``'s.
 
-``select_scan`` and ``select_scan_packed`` are one sweep of the card
-(``csrc/lookback.cuh``): a call is one allocation (the output, the count
-and the kernel's status words), one memset and one kernel, which also
-writes the zeros past the count; the tensors are checked by one cheap
-test (``build.streams_ok``) and the launch goes through ``build.launch``,
-as the opat pass's later filters run on few rows, where the fixed cost is
-the time.
+Each is one sweep of the card (``csrc/lookback.cuh``): a call is one
+allocation (the output, the count and the kernel's status words), one
+memset and one kernel, which also writes the zeros past the count; the
+tensors are checked by one cheap test (``build.streams_ok``) and the
+launch goes through ``build.launch``, as the opat pass's later filters
+run on few rows, where the fixed cost is the time.  The sparse scan's
+kernel is ``select_scan``'s under a name of its own
+(``select_sparse_sweep``): its sweep already reads y only in the runs of
+4 rows that hold a match, finer than the reference's 32-row unit.
 
 The wrappers launch the kernel on CUDA tensors or raise; the choice of the
 plain version for a CPU tensor is ``ops``' alone.  ``LAUNCHES`` counts the
@@ -27,12 +29,12 @@ kernel's and ``SPARSE_LAUNCHES`` the sparse one's.
 from __future__ import annotations
 
 import ctypes
-import struct
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.common import PHYS_WIDTHS
 
 LAUNCHES = 0
@@ -49,9 +51,9 @@ class _SelectArgs(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
                 ("n", ctypes.c_longlong), ("lo", ctypes.c_int),
                 ("hi", ctypes.c_int), ("phys", ctypes.c_int),
-                ("is_float", ctypes.c_int), ("out", ctypes.c_void_p),
-                ("count", ctypes.c_void_p), ("status", ctypes.c_void_p),
-                ("blocks", ctypes.c_longlong)]
+                ("is_float", ctypes.c_int), ("sparse", ctypes.c_int),
+                ("out", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                ("status", ctypes.c_void_p), ("blocks", ctypes.c_longlong)]
 
 
 _SIGNATURES = {
@@ -59,12 +61,6 @@ _SIGNATURES = {
     "select_scan_shape": (ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]),
     "select_scan_status_words": (ctypes.c_longlong, [ctypes.c_longlong]),
     "select_scan_tile_rows": (ctypes.c_longlong, []),
-    "select_scan_sparse_launch": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]),
-    "select_scan_sparse_scratch_bytes": (ctypes.c_longlong,
-                                         [ctypes.c_longlong]),
 }
 
 
@@ -74,26 +70,27 @@ def library() -> ctypes.CDLL:
 
 def bound_bits(v, dtype: torch.dtype) -> int:
     """A bound as the 32-bit pattern of its value in x's type: f32
-    rounding for a float x; an int32 x takes int32 bounds or raises."""
+    rounding for a float x; an int32 x takes int32 bounds or raises
+    (``ref.int32_bound``)."""
     if dtype == torch.float32:
-        return struct.unpack("<i", struct.pack("<f", float(v)))[0]
-    if v != int(v) or not -(1 << 31) <= int(v) < (1 << 31):
-        raise ValueError(f"bound {v!r} is not an int32 value")
-    return int(v)
+        with np.errstate(over="ignore"):     # past f32's range: +-inf
+            return int(np.float64(float(v)).astype(np.float32).view(np.int32))
+    return ref.int32_bound(v)
 
 
 def _sweep(x: torch.Tensor, y: torch.Tensor, n: int, lo_bits: int,
-           hi_bits: int, phys: int, is_float: int, what: str
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           hi_bits: int, phys: int, is_float: int, what: str,
+           sparse: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sweep call: (out (n,) of y's type, count) from one allocation,
     one memset and one kernel on y's device."""
     lib = library()
     out, count, status = build.sweep_buffers(
         n, lib.select_scan_status_words(n), y.device, rows=1, dtype=y.dtype)
     args = _SelectArgs(x.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits, phys,
-                       is_float, out.data_ptr(), count.data_ptr(), status,
-                       build.resident(lib, "select_scan_shape",
-                                      y.get_device(), phys | is_float << 6))
+                       is_float, sparse, out.data_ptr(), count.data_ptr(),
+                       status, build.resident(
+                           lib, "select_scan_shape", y.get_device(),
+                           phys | is_float << 6 | sparse << 7))
     build.launch(lib, lib.select_scan_launch, y.device, what,
                  ctypes.addressof(args))
     return out[0], count
@@ -105,13 +102,11 @@ def _empty(device: torch.device, dtype: torch.dtype
             torch.zeros((), dtype=torch.int64, device=device))
 
 
-def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SELECT y WHERE lo <= x <= hi -> (out (n,), count 0-d int64), both
-    on x's device.  x: (n,) int32 or f32; y: (n,) 4-byte."""
-    global LAUNCHES
+def _plain(x: torch.Tensor, y: torch.Tensor, lo, hi, what: str
+           ) -> Tuple[int, int, int]:
+    """A plain scan's inputs checked -> (n, lo bits, hi bits)."""
     if not x.is_cuda:
-        raise ValueError(f"select_scan: no kernel for device {x.device}")
+        raise ValueError(f"{what}: no kernel for device {x.device}")
     n, index = x.shape[0], x.get_device()
     if not (x.dtype in _X_TYPES and y.dtype in _Y_TYPES and
             build.streams_ok(n, index, x.dtype, x) and
@@ -119,8 +114,16 @@ def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
         build.check_stream(x, "x", n, x.device, _X_TYPES)
         build.check_stream(y, "y", n, x.device, _Y_TYPES)
     if n >= 1 << 31:
-        raise ValueError(f"select_scan takes under 2^31 rows, got {n}")
-    lo_bits, hi_bits = bound_bits(lo, x.dtype), bound_bits(hi, x.dtype)
+        raise ValueError(f"{what} takes under 2^31 rows, got {n}")
+    return n, bound_bits(lo, x.dtype), bound_bits(hi, x.dtype)
+
+
+def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SELECT y WHERE lo <= x <= hi -> (out (n,), count 0-d int64), both
+    on x's device.  x: (n,) int32 or f32; y: (n,) 4-byte."""
+    global LAUNCHES
+    n, lo_bits, hi_bits = _plain(x, y, lo, hi, "select_scan")
     if n == 0:
         return _empty(x.device, y.dtype)
     got = _sweep(x, y, n, lo_bits, hi_bits, 32, int(x.dtype is torch.float32),
@@ -131,35 +134,17 @@ def select_scan(x: torch.Tensor, y: torch.Tensor, lo, hi
 
 def select_scan_sparse(x: torch.Tensor, y: torch.Tensor, lo, hi
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``select_scan``'s result in two phases: x read alone, then y read
-    only in the 32-row tiles holding a match -> (out (n,), count 0-d
-    int64) on x's device.  x: (n,) int32 or f32; y: (n,) 4-byte."""
+    """``select_scan``'s result, y read only where a match is -> (out
+    (n,), count 0-d int64) on x's device.  x: (n,) int32 or f32; y: (n,)
+    4-byte."""
     global SPARSE_LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"select_scan_sparse: no kernel for device "
-                         f"{x.device}")
-    n = x.shape[0]
-    build.check_stream(x, "x", n, x.device, _X_TYPES)
-    build.check_stream(y, "y", n, x.device, _Y_TYPES)
-    if n >= 1 << 31:
-        raise ValueError(f"select_scan_sparse takes under 2^31 rows, got {n}")
-    lo_bits, hi_bits = bound_bits(lo, x.dtype), bound_bits(hi, x.dtype)
-    out = torch.zeros_like(y)
-    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    n, lo_bits, hi_bits = _plain(x, y, lo, hi, "select_scan_sparse")
     if n == 0:
-        return out, count
-    lib = library()
-    scratch = torch.empty((lib.select_scan_sparse_scratch_bytes(n),),
-                          dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.select_scan_sparse_launch(
-            x.data_ptr(), y.data_ptr(), n, lo_bits, hi_bits,
-            int(x.dtype == torch.float32), scratch.data_ptr(),
-            out.data_ptr(), count.data_ptr(), stream)
-    build.check(lib, rc, "select_scan_sparse")
+        return _empty(x.device, y.dtype)
+    got = _sweep(x, y, n, lo_bits, hi_bits, 32, int(x.dtype is torch.float32),
+                 "select_scan_sparse", sparse=1)
     SPARSE_LAUNCHES += 1
-    return out, count
+    return got
 
 
 def select_scan_packed(words: torch.Tensor, y: torch.Tensor, lo, hi,

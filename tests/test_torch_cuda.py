@@ -989,6 +989,62 @@ def test_probe_agg_kernel_matches_plain(cuda, n, kind, vals):
         assert torch.equal(got, want)
 
 
+def _agg_held(args, want, f32_random: bool) -> None:
+    """probe_agg of args, twice: the same bits every run, and the plain
+    version's (within one f32 ulp of them for non-integer f32 values,
+    which the f64 sums in another order)."""
+    runs = [hash_join.probe_agg(*args) for _ in range(2)]
+    for got in runs:
+        assert got.dtype == want.dtype and got.shape == ()
+        assert torch.equal(got, runs[0])
+    if f32_random:
+        ulp = abs(float(torch.nextafter(want, want + 1)) - float(want))
+        assert abs(float(runs[0]) - float(want)) <= ulp
+    else:
+        assert torch.equal(runs[0], want)
+
+
+@pytest.mark.parametrize("n", [2047, 2049, 3_000_017, (1 << 24) + 5])
+@pytest.mark.parametrize("vals", ["int32", "f32_integers", "f32_random"])
+def test_probe_agg_many_tiles(cuda, n, vals):
+    """Ragged n over many 2,048-row tiles and more tiles than resident
+    blocks: the plain version's sum, run after run."""
+    args = _on(cases.probe_agg_case(n, n, "duplicate_wrap", vals), cuda)
+    _agg_held(args, ref.probe_agg(*args), vals == "f32_random")
+
+
+@pytest.mark.parametrize("kind", ["clustered", "full", "slots1", "slots2",
+                                  "slots4", "misses", "empty"])
+@pytest.mark.parametrize("vals", ["int32", "f32_integers"])
+def test_probe_agg_walks_past_the_home_run(cuda, kind, vals):
+    """Walks that cross several runs and the table's end ("clustered"),
+    a full table whose misses end after one lap, tables smaller than a
+    run, and tables no key is in: the plain version's bits."""
+    args = _on(cases.probe_agg_case(70_001, 70_001, kind, vals), cuda)
+    _agg_held(args, ref.probe_agg(*args), False)
+
+
+def test_probe_agg_table_past_the_l2(cuda):
+    """A table whose 8-byte slots are more than the L2 holds, probed by as
+    many rows as it has slots (2^24 rows on an H100): the plain version's
+    bits and numpy's sum."""
+    l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+    kb = 1 << max(10, (2 * l2 - 1).bit_length() - 10)    # > 2 L2, in KB
+    bkeys, n_slots = cases.join_bench_keys(9, kb * 1024)
+    assert 8 * n_slots > l2
+    htk, htv = (torch.from_numpy(a).to(cuda)
+                for a in hashtable.np_build(bkeys, bkeys, n_slots))
+    rng = np.random.default_rng(9)
+    keys = rng.integers(0, len(bkeys), n_slots).astype(np.int32)
+    vals = rng.integers(-(1 << 31), (1 << 31) - 1, n_slots).astype(np.int32)
+    args = (torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda),
+            htk, htv)
+    got = _launched(hash_join, "probe_agg", *args, counter="AGG_LAUNCHES")
+    exact = int(keys.astype(np.int64).sum() + vals.astype(np.int64).sum())
+    assert int(got) == (exact + (1 << 31)) % (1 << 32) - (1 << 31)
+    _agg_held(args, ref.probe_agg(*args), False)
+
+
 @pytest.mark.parametrize("n", [1, 3, 37, 100_003, 1 << 22])
 @pytest.mark.parametrize("kind", cases.SUM_KINDS)
 @pytest.mark.parametrize("offset", [0, 1])
@@ -1085,6 +1141,44 @@ def test_select_scan_sparse_float_column(cuda):
     out, cnt = select_scan.select_scan_sparse(*args)
     want, want_cnt = ref.select_scan(*args)
     assert torch.equal(cnt, want_cnt) and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("selectivity", [0.0, 1.0])
+@pytest.mark.parametrize("n", [37, 100_003])
+def test_select_scan_sparse_unaligned_y(cuda, selectivity, n):
+    """y offset by one element (not 16-byte aligned) is read a row at a
+    time, at no match and at every row a match: select_scan's bits, and
+    the zero tail written whole."""
+    x, y, lo, hi = _on(cases.sparse_case(n, n, selectivity), cuda)
+    ys = torch.empty(n + 1, dtype=y.dtype, device=cuda)
+    ys[1:].copy_(y)
+    want = ref.select_scan_sparse(x, y, lo, hi)
+    torch.cuda.synchronize()
+    _dirty(n)
+    got = _launched(select_scan, "select_scan_sparse", x, ys[1:], lo, hi,
+                    counter="SPARSE_LAUNCHES")
+    again = select_scan.select_scan_sparse(x, ys[1:], lo, hi)
+    assert int(want[1]) == (0 if selectivity == 0.0 else n)
+    assert _equal(got, want) and _equal(again, want)
+    assert _equal(got, select_scan.select_scan(x, ys[1:], lo, hi))
+
+
+def test_select_scan_sparse_call_is_one_memset_and_one_sweep(cuda):
+    """One call is one memset and one sweep kernel of its own name."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n = 3_000_017
+    args = _on(cases.sparse_case(n, n, 1e-3), cuda)
+    count = int(select_scan.select_scan_sparse(*args)[1])
+    got = smoke.one_call("select_scan_sparse",
+                         lambda: select_scan.select_scan_sparse(*args), n,
+                         count, select_scan.library(), columns=1,
+                         shape=("select_scan_shape", 32 | 128))
+    assert "select_sparse_sweep" in got["kernel"]
 
 
 @pytest.fixture

@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s bounds: the bytes and operations one ``spja`` call,
-and one call of each opat kernel, needs on its data, held against a
-row-by-row count in plain Python.  Tolerance: exact (integer counts)."""
+one call of each opat kernel, and one ``probe_agg`` and
+``select_scan_sparse`` call, needs on its data, held against a
+row-by-row count in plain Python.  Tolerance: exact (integer counts, and
+shares of a sector past the L2 that sum exactly)."""
 import importlib.util
 import pathlib
 
@@ -296,8 +298,15 @@ def test_part_probe_need_walks_each_partition_table(kind, bits):
      "::PartProbe, unsigned int*, long long*)", "part_probe"),
     ("void (anonymous namespace)::probe_join_sweep<8>((anonymous namespace)"
      "::JoinProbe, unsigned int*, long long*)", "probe_join"),
-    ("void (anonymous namespace)::scan_tiles(int const*, int*, int, long "
-     "long*)", "select_scan_sparse"),
+    ("void (anonymous namespace)::select_sparse_sweep<(anonymous namespace)"
+     "::PlainX<int> >((anonymous namespace)::SelectTile<(anonymous "
+     "namespace)::PlainX<int> >, unsigned int*, long long*)",
+     "select_scan_sparse"),
+    ("void (anonymous namespace)::probe_agg_sweep<4, float, double>(int "
+     "const*, float const*, long long, int2 const*, unsigned int, double*)",
+     "probe_agg"),
+    ("void (anonymous namespace)::pair_slots(int const*, int const*, long "
+     "long, int2*)", "probe_agg"),
     ("void (anonymous namespace)::select_sweep<(anonymous namespace)::"
      "PlainX<float> >((anonymous namespace)::SelectTile<(anonymous "
      "namespace)::PlainX<float> >, unsigned int*, long long*)",
@@ -327,6 +336,80 @@ def test_device_kinds_name_the_select_sweep_alone():
     assert dict(smoke.DEVICE_KINDS)["select_packed_sweep"] == \
         "select_scan_packed"
     assert set(smoke.SWEEPS) >= {"select_scan", "select_scan_packed"}
+
+
+def _agg_brute(keys, htk, l2_bytes) -> dict:
+    """probe_agg's need, row by row: each key's walk from its home slot
+    (4 operations a step, 2 a hit), the 64-byte segments of 16 slots it
+    visits and hits, 8 bytes a row of keys and vals, the 4-byte result,
+    and past the L2 the segments only at the share the L2 can hold and a
+    32-byte sector a row at the share it cannot."""
+    mask, seg = len(htk) - 1, smoke.SEGMENT // 4
+    visited, hits, ops = set(), set(), 0
+    for key in keys.tolist():
+        slot = ((key & 0xFFFFFFFF) * 2654435761) & mask
+        for _ in range(len(htk)):
+            visited.add(slot // seg)
+            ops += 4
+            if htk[slot] == key:
+                hits.add(slot // seg)
+                ops += 2
+                break
+            if htk[slot] == -2 ** 31:
+                break
+            slot = (slot + 1) & mask
+    table = 8 * len(htk)
+    held = l2_bytes / table if table > l2_bytes else 1
+    moved = 8 * len(keys) + 4 + \
+        smoke.SEGMENT * (len(visited) + len(hits)) * held
+    for _ in keys.tolist():
+        if table > l2_bytes:
+            moved += smoke.SECTOR * (table - l2_bytes) / table
+    return {"bytes": moved, "ops": ops}
+
+
+@pytest.mark.parametrize("kind", ["duplicate_wrap", "clustered", "full",
+                                  "misses"])
+@pytest.mark.parametrize("l2_share", [None, 4, 2])
+def test_agg_need_counts_each_probe_and_the_share_past_the_l2(kind,
+                                                               l2_share):
+    """probe_agg's bound: the segments its probes visit and hit while the
+    table fits the L2; past it those segments at the share L2 / table
+    bytes and a sector a probe at 1 - L2 / table bytes (an L2 of a
+    quarter and a half of the table: shares whose sums are exact)."""
+    keys, _, htk, _ = cases.probe_agg_case(31, 501, kind)
+    table = 8 * len(htk)
+    l2 = 1 << 40 if l2_share is None else table // l2_share
+    got = smoke.agg_need(torch.from_numpy(keys), torch.from_numpy(htk), l2)
+    want = _agg_brute(keys, htk, l2)
+    assert (got["bytes"], got["ops"]) == (want["bytes"], want["ops"])
+    assert got["past_l2_bytes"] == (0.0 if l2_share is None else
+                                    501 * smoke.SECTOR * (1 - 1 / l2_share))
+    held = 1 if l2_share is None else 1 / l2_share
+    assert got["table_read_bytes"] == (
+        want["bytes"] - 8 * 501 - 4 - got["past_l2_bytes"])
+    assert got["table_read_bytes"] <= held * table
+    assert got["bytes_ms"] == want["bytes"] / smoke.HBM_BYTES_PER_S * 1e3
+    assert got["ops_ms"] == want["ops"] / smoke.INT32_OPS_PER_S * 1e3
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 1000, 1025])
+@pytest.mark.parametrize("selectivity", [0.0, 1e-3, 0.1, 1.0])
+@pytest.mark.parametrize("order", cases.SPARSE_ORDERS)
+def test_sparse_need_counts_x_the_matched_segments_and_out_whole(
+        n, selectivity, order):
+    """select_scan_sparse's bound, row by row: x (4n), each 64-byte
+    segment of y (16 rows) that holds a selected row, and out written
+    whole (4n)."""
+    x, _, lo, hi = cases.sparse_case(n, n, selectivity, order)
+    got = smoke.sparse_need(torch.from_numpy(x), lo, hi)
+    rows = smoke.SEGMENT // 4
+    segments = {r // rows for r in range(n) if lo <= x[r] <= hi}
+    want = 4 * n + smoke.SEGMENT * len(segments) + 4 * n
+    assert (got["bytes"], got["ops"]) == (want, 2 * n)
+    assert (got["y_bytes"], got["count"]) == (
+        smoke.SEGMENT * len(segments), sum(lo <= v <= hi for v in x.tolist()))
+    assert got["bytes_ms"] == want / smoke.HBM_BYTES_PER_S * 1e3
 
 
 def _profile(head, kept, launches, kinds):
