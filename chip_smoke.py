@@ -100,7 +100,8 @@ exits non-zero without printing a result:
            bit-identical to its plain version and to numpy, timed beside
            its bound (``agg_need``: past the L2 a sector a probe at the
            share the L2 cannot hold; and ``torch.sum``), one call of the
-           256 MB table profiled; the hash ``build`` of those
+           256 MB table profiled, and one f32 ``reduce_sum`` call: one
+           kernel and at most one memset; the hash ``build`` of those
            tables (50 % fill) from their keys, byte-identical to its plain
            version, its tables probed to the sums of the host build's,
            timed beside the host ``np_build``; ``select_scan_sparse`` of
@@ -915,7 +916,10 @@ DEVICE_KINDS = [("select_packed_sweep", "select_scan_packed"),
                 ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
-                ("build_", "build"),
+                ("build_", "build"), ("radix_histogram", "histogram"),
+                ("radix_sweep", "partition_multi"),
+                ("radix_counts", "digit_counts"),
+                ("reduce_sum", "reduce_sum"),
                 ("arange", "torch arange"), ("index", "torch gather"),
                 ("copy", "torch copy/cast"), ("Fill", "torch zeros"),
                 ("Memcpy HtoD", "copy to device"),
@@ -2372,6 +2376,21 @@ def resident_phases() -> dict:
         row["GBps"] = moved / row["ms"] / 1e6
         sum_calls.append(row)
         print("reduce_sum " + json.dumps(row), flush=True)
+    # one call is one kernel and at most one memset (its ticket), and each
+    # profile taken counted one launch
+    before = ag.SUM_LAUNCHES
+    prof = profiled(lambda: ag.reduce_sum(sum_inputs[1]), ("reduce_sum",))
+    launched = {kind: sum(c for _, c, _ in rows)
+                for kind, rows in prof["kernels"].items()}
+    tries = len(prof["lost"]) + 1
+    if launched.get("reduce_sum") != 1 or launched.get("memset", 0) > 1 or \
+            set(launched) - {"reduce_sum", "memset"} or \
+            ag.SUM_LAUNCHES - before != tries:
+        raise AssertionError(f"reduce_sum: one call launched {launched}, "
+                             f"counted {ag.SUM_LAUNCHES - before} in "
+                             f"{tries} profiles")
+    print("reduce_sum one call " + json.dumps(
+        {k: prof[k] for k in ("device_ms", "kernels")}), flush=True)
     for (m, fn, _, src, replaces), calls in zip(
             JOIN_BENCH, (join_calls, sum_calls)):
         lib = [r["library_ms"] for r in calls if r["library_ms"] is not None]

@@ -9,7 +9,7 @@ that computes the same function where there is one.
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
 ``--only`` runs the named sections alone (sort, project, probe, sum, spja,
-wave, select, join, sparse); sum, join and sparse need no database.
+wave, select, join, sparse, hist); sum, join and sparse need no database.
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -39,7 +39,11 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    calls, TURN_ROUNDS passes); the parent is the other side of the turns
    (``--tree``).  Every captured call is held bit-identical to the plain
    version (``ref``) before it is timed.
-5. ``reduce_sum`` of 2^28 random f32 rows in turns with ``torch.sum``.
+5. ``reduce_sum`` of 2^28 random f32 rows in turns with ``torch.sum``,
+   and of 2^28 random int32 rows alone (``torch.sum`` of int32 returns
+   int64, another function): the parent is the other side of the turns;
+   each sum held to the plain version first (int32 bit for bit, f32
+   within one f32 ulp).
 6. ``spja`` on the 13 queries' calls (``compile.fused_inputs``, the calls
    ``chip_smoke.py`` phase 4 times), on the plain database and on
    ``storage.pack_database`` of it: each call and the 13 back to back,
@@ -72,6 +76,16 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    ``select_scan`` on the same call, beside ``chip_smoke.sparse_need``'s
    bound.
 
+11. ``hist``: ``histogram`` on every call captured from the part and
+   part_loop passes of the 13 queries (``capture``), each held
+   bit-identical to the plain version and to a second run first; then
+   each pass's calls back to back, the HIST_LARGEST largest calls and
+   every call under HIST_SMALL_ROWS rows (fewer tiles than the resident
+   grid) timed alone, TURN_ROUNDS rounds of ``event_ms`` (TURN_CALLS
+   calls, 5 passes), beside each call's bound (``chip_smoke.opat_need``).
+   No PyTorch call computes the per-tile counts, so the parent is the
+   other side of the turns.
+
 Sections 6, 7 and 8 share one database and its packing; no PyTorch call
 computes those kernels' functions, nor ``probe_agg``'s or
 ``select_scan_sparse``'s, so the parent is the other side of the turns
@@ -96,12 +110,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave", "select",
-            "join", "sparse")
+            "join", "sparse", "hist")
 # the sections that read the SSB database
-DB_SECTIONS = {"sort", "project", "probe", "spja", "wave", "select"}
+DB_SECTIONS = {"sort", "project", "probe", "spja", "wave", "select", "hist"}
 # (query, join) of the calls timed alone: the first join of q2.1 and the
 # third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
 PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
+# hist: the largest calls of a pass timed alone, and the calls under this
+# many rows (fewer 2,048-row tiles than the kernel's resident grid)
+HIST_LARGEST = 3
+HIST_SMALL_ROWS = 2_000_000
 
 
 def rounds(fn, calls: int) -> dict:
@@ -332,19 +350,81 @@ def sparse_turns(dev) -> dict:
 
 def sum_turns(dev) -> dict:
     """Section 5: ``reduce_sum`` of 2^28 random f32 rows in turns with
-    ``torch.sum``, beside the 4n-byte bound."""
+    ``torch.sum``, and of 2^28 random int32 rows alone, each beside the
+    4n-byte bound and held to the plain version first."""
     from chip_smoke import HBM_BYTES_PER_S, KERNEL_REPS, SEED, SUM_ROWS, \
         turns
-    from repro_torch.kernels import agg
+    from repro_torch.kernels import agg, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(SUM_ROWS, device=dev, generator=gen)
+    xi = torch.randint(-(1 << 31), (1 << 31) - 1, (SUM_ROWS,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    got, want = agg.reduce_sum(x), ref.reduce_sum(x)
+    if abs(float(got) - float(want)) > abs(
+            float(torch.nextafter(want, want + 1)) - float(want)):
+        raise AssertionError("reduce_sum f32: more than 1 ulp from plain")
+    if not torch.equal(agg.reduce_sum(xi), ref.reduce_sum(xi)):
+        raise AssertionError("reduce_sum int32: kernel != plain")
+    bound_ms = 4 * SUM_ROWS / HBM_BYTES_PER_S * 1e3
     row = turns(lambda: agg.reduce_sum(x), lambda: torch.sum(x),
                 calls=KERNEL_REPS)
-    row.update(n=SUM_ROWS, bound_ms=4 * SUM_ROWS / HBM_BYTES_PER_S * 1e3,
-               kernel_sum=agg.reduce_sum(x).item(),
+    row.update(n=SUM_ROWS, bound_ms=bound_ms, kernel_sum=got.item(),
                library_sum=torch.sum(x).item())
     print("reduce_sum f32 2^28 " + json.dumps(row), flush=True)
-    return row
+    row_i = dict(rounds(lambda: agg.reduce_sum(xi), KERNEL_REPS),
+                 n=SUM_ROWS, bound_ms=bound_ms)
+    print("reduce_sum int32 2^28 " + json.dumps(row_i), flush=True)
+    return {"f32": row, "int32": row_i}
+
+
+def hist_turns(db) -> dict:
+    """Section 11: ``histogram`` on the part and part_loop passes' calls;
+    each captured call held to the plain version and a second run first,
+    then each pass, its largest calls and its small ones timed."""
+    from chip_smoke import TURN_CALLS, opat_need
+    from repro_torch.kernels import radix_part, ref
+    from repro_torch.sql import hashtable
+    cache = hashtable.HashTableCache()
+    report = {}
+    for strategy in ("part", "part_loop"):
+        calls = capture(radix_part, "histogram", strategy, db, cache)
+        for query, k, args in calls:
+            got = radix_part.histogram(*args)
+            if not (torch.equal(got, ref.histogram(*args)) and
+                    torch.equal(got, radix_part.histogram(*args))):
+                raise AssertionError(f"histogram {strategy} {query} call "
+                                     f"{k}: kernel != plain or two runs "
+                                     "differ")
+
+        def bound_ms(args):
+            need = opat_need("histogram", args, None)
+            return max(need["bytes_ms"], need["ops_ms"])
+
+        def timed(args):
+            return dict(n=int(args[0].shape[0]), r=args[2], **rounds(
+                lambda: radix_part.histogram(*args), TURN_CALLS),
+                bound_ms=bound_ms(args))
+
+        def whole_pass():
+            for _, _, args in calls:
+                radix_part.histogram(*args)
+        largest = sorted(calls, key=lambda c: -c[2][0].shape[0])
+        row = {"calls": len(calls),
+               "rows": sum(int(a[0].shape[0]) for _, _, a in calls),
+               "bits": [a[2] for _, _, a in calls],
+               "pass": rounds(whole_pass, 5),
+               "bound_ms": sum(bound_ms(a) for _, _, a in calls),
+               "largest": {f"{q} call {k}": timed(args)
+                           for q, k, args in largest[:HIST_LARGEST]},
+               "small": {f"{q} call {k}": timed(args)
+                         for q, k, args in calls
+                         if args[0].shape[0] < HIST_SMALL_ROWS}}
+        row["bound_share"] = row["bound_ms"] / row["pass"]["median"]
+        report[f"histogram_{strategy}"] = row
+        print(f"histogram {strategy} " + json.dumps(row), flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return report
 
 
 def fused_turns(db, pdb, dev, sections) -> dict:
@@ -448,7 +528,7 @@ def main() -> int:
     if "sparse" in args.only:
         report["select_scan_sparse"] = sparse_turns(dev)
     if "sum" in args.only:
-        report["reduce_sum_f32"] = sum_turns(dev)
+        report["reduce_sum"] = sum_turns(dev)
     if not DB_SECTIONS & set(args.only):
         print(json.dumps(report))
         return 0
@@ -573,6 +653,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "probe" in args.only:
         report.update(probe_turns(db))
+    if "hist" in args.only:
+        report.update(hist_turns(db))
     print(json.dumps(report))
     return 0
 

@@ -35,7 +35,7 @@ from repro_torch.kernels import ref
 
 LAUNCHES = 0
 SUM_LAUNCHES = 0
-SUM_ROWS_PER_BLOCK = 4 * 256      # one 16-byte load a thread (kSumThreads)
+SUM_ROWS_PER_BLOCK = 4 * 1024     # one 16-byte load a thread (kSumBlock)
 
 _VAL_TYPES = (torch.int32, torch.float32)
 _SIGNATURES = {
@@ -115,27 +115,27 @@ def group_sum(group_ids: torch.Tensor, vals: torch.Tensor,
 
 
 def reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """-> 0-d int32 (int32 x) or f32 (f32 x) on x's device.  x: (n,)."""
+    """-> 0-d int32 (int32 x) or f32 (f32 x) on x's device.  x: (n,).
+    One memset and one kernel a call: the kernel writes all of ``out``,
+    and the partials and the ticket of its last block's finish lie in one
+    scratch allocation of the call's own."""
     global SUM_LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"reduce_sum: no kernel for device {x.device}")
     device, n = x.device, x.shape[0]
     build.check_stream(x, "x", n, device, _VAL_TYPES)
-    is_float = x.dtype == torch.float32
-    out = torch.zeros((), dtype=x.dtype, device=device)
     if n == 0:
-        return out
+        return torch.zeros((), dtype=x.dtype, device=device)
+    is_float = x.dtype == torch.float32
     lib = library()
     blocks = max(1, min(build.resident(lib, "reduce_sum_shape", device.index,
                                        int(is_float)),
                         -(-n // SUM_ROWS_PER_BLOCK)))
-    partials = torch.empty((blocks,), dtype=torch.float64 if is_float
-                           else torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.reduce_sum_launch(x.data_ptr(), n, int(is_float), blocks,
-                                   partials.data_ptr(), out.data_ptr(),
-                                   stream)
-    build.check(lib, rc, "reduce_sum")
+    out = torch.empty((), dtype=x.dtype, device=device)
+    # an 8-byte partial a block, then the ticket
+    scratch = torch.empty((blocks + 1,), dtype=torch.int64, device=device)
+    build.launch(lib, lib.reduce_sum_launch, device, "reduce_sum",
+                 x.data_ptr(), n, int(is_float), blocks, scratch.data_ptr(),
+                 out.data_ptr())
     SUM_LAUNCHES += 1
     return out

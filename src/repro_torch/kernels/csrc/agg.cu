@@ -32,13 +32,17 @@
 // reduce_sum: the global sum of an int32 or f32 column.  Replaces the
 // Pallas TPU kernel src/repro/kernels/agg.py::reduce_sum (_sum_kernel),
 // which adds each tile into one scalar across a grid that runs in order;
-// here each block sums its rows and reduce.cuh's finish_sum adds the
-// blocks' partials in a fixed order: an int32 sum wraps as the
+// here each block sums its rows and the block that finishes last adds the
+// blocks' partials in a fixed order, in the same launch
+// (reduce.cuh's finish_by_last_block): an int32 sum wraps as the
 // reference's, an f32 sum is taken in f64 and rounded once (the
 // reference sums in f32).  What bounds it: the column read once, 4 bytes
 // a row at 3.35 TB/s; each thread reads 16 bytes a load (a 16-byte
-// aligned column), four loads in flight, over a grid of as many blocks as
-// fit on the SMs at once.
+// aligned column), four loads in flight, over a grid of as many blocks of
+// 1,024 threads as fit on the SMs at once (2 an SM).  A call is one
+// memset (the ticket) and one kernel, which writes the output whole: a
+// fill of it or a second launch to finish the sum would each be a
+// dependent launch, about what a 2^28-row call would lose to torch.sum.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -248,6 +252,13 @@ extern "C" int group_sum_launch(const void* ids, const void* vals,
 
 namespace {
 
+// reduce_sum: 16-byte loads a thread in flight, threads a block and
+// blocks an SM (on an H100, 2 blocks of 1,024 threads an SM ran 1.5-2 %
+// faster than 8 of 256 at 2^28 rows)
+constexpr int kSumLoads = 4;
+constexpr int kSumBlock = 1024;
+constexpr int kSumBlocksPerSm = 2;
+
 __device__ __forceinline__ unsigned long long add4(int4 v) {
   return static_cast<unsigned long long>(static_cast<long long>(v.x) + v.y +
                                          v.z + v.w);
@@ -257,74 +268,76 @@ __device__ __forceinline__ double add4(float4 v) {
   return ((static_cast<double>(v.x) + v.y) + v.z) + v.w;
 }
 
-// Each block's partial sum of x: the 16-byte vectors first (`vec`: x is
-// 16-byte aligned), four a thread in flight, then the ragged rows.
-template <typename T, typename T4, typename Acc>
-__global__ void __launch_bounds__(kSumThreads)
-reduce_sum_partials(const T* __restrict__ x, long long n, int vec,
-                    Acc* __restrict__ partials) {
-  const long long stride = static_cast<long long>(gridDim.x) * kSumThreads;
+// The whole sum of x in one launch: each block sums its rows (the 16-byte
+// vectors first when `vec`, x being 16-byte aligned, kSumLoads a thread in
+// flight over a grid-strided walk; then the ragged rows), and the block
+// that finishes last adds the blocks' partials and writes out
+// (reduce.cuh's finish_by_last_block).
+template <typename T, typename T4, typename Acc, typename Out>
+__global__ void __launch_bounds__(kSumBlock, kSumBlocksPerSm)
+reduce_sum_kernel(const T* __restrict__ x, long long n, int vec,
+                  Acc* partials, unsigned* ticket, Out* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * kSumBlock;
   const long long n4 = vec ? n / 4 : 0;
   const T4* x4 = reinterpret_cast<const T4*>(x);
   Acc s = Acc(0);
-  long long i = static_cast<long long>(blockIdx.x) * kSumThreads +
+  long long i = static_cast<long long>(blockIdx.x) * kSumBlock +
                 threadIdx.x;
-  for (; i + 3 * stride < n4; i += 4 * stride) {
-    const T4 a = __ldg(x4 + i);
-    const T4 b = __ldg(x4 + i + stride);
-    const T4 c = __ldg(x4 + i + 2 * stride);
-    const T4 d = __ldg(x4 + i + 3 * stride);
-    s += add4(a);
-    s += add4(b);
-    s += add4(c);
-    s += add4(d);
+  for (; i + (kSumLoads - 1) * stride < n4; i += kSumLoads * stride) {
+    T4 v[kSumLoads];
+#pragma unroll
+    for (int k = 0; k < kSumLoads; ++k) v[k] = __ldg(x4 + i + k * stride);
+#pragma unroll
+    for (int k = 0; k < kSumLoads; ++k) s += add4(v[k]);
   }
   for (; i < n4; i += stride) s += add4(__ldg(x4 + i));
   for (long long r = 4 * n4 + static_cast<long long>(blockIdx.x) *
-                                  kSumThreads + threadIdx.x;
+                                  kSumBlock + threadIdx.x;
        r < n; r += stride)
     s += static_cast<Acc>(__ldg(x + r));
-  s = block_total(s);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  finish_by_last_block(block_total(s), partials, ticket, out);
 }
 
 }  // namespace
 
-// Blocks of reduce_sum's partial kernel resident on the card (its grid is
-// the vectors over kSumThreads, up to this).
+// Blocks of reduce_sum's kernel resident on the card (its grid is the rows
+// over 4 * kSumBlock, up to this).
 extern "C" int reduce_sum_shape(int is_float, long long* resident) {
   if (is_float)
-    return resident_blocks(reduce_sum_partials<float, float4, double>,
-                           resident);
+    return resident_blocks(reduce_sum_kernel<float, float4, double, float>,
+                           resident, kSumBlock);
   return resident_blocks(
-      reduce_sum_partials<int, int4, unsigned long long>, resident);
+      reduce_sum_kernel<int, int4, unsigned long long, int>, resident,
+      kSumBlock);
 }
 
-// x: (n,) int32 (is_float 0) or f32; partials: `blocks` 8-byte scratch
-// (int64 or f64); out: one int32 or f32.  Launches the partial kernel and
-// finish_sum on `stream`, does not synchronise, returns cudaGetLastError().
+// x: (n,) int32 (is_float 0) or f32; scratch: blocks + 1 8-byte words,
+// a partial a block (int64 or f64) and then the ticket, cleared here; out:
+// one int32 or f32, written whole.  One memset and one kernel on `stream`; does not
+// synchronise, returns cudaGetLastError().
 extern "C" int reduce_sum_launch(const void* x, long long n, int is_float,
-                                 long long blocks, void* partials, void* out,
+                                 long long blocks, void* scratch, void* out,
                                  void* stream) {
   if (n <= 0 || blocks < 1 || blocks > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* ticket = reinterpret_cast<unsigned*>(
+      static_cast<long long*>(scratch) + blocks);
+  cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = (reinterpret_cast<std::uintptr_t>(x) & 15u) == 0u;
   const unsigned grid = static_cast<unsigned>(blocks);
   if (is_float) {
-    reduce_sum_partials<float, float4, double><<<grid, kSumThreads, 0, s>>>(
-        static_cast<const float*>(x), n, vec, static_cast<double*>(partials));
-    finish_sum<<<1, kFinishThreads, 0, s>>>(
-        static_cast<const double*>(partials), static_cast<int>(blocks),
-        static_cast<float*>(out));
+    reduce_sum_kernel<float, float4, double, float>
+        <<<grid, kSumBlock, 0, s>>>(
+            static_cast<const float*>(x), n, vec,
+            static_cast<double*>(scratch), ticket, static_cast<float*>(out));
   } else {
-    reduce_sum_partials<int, int4, unsigned long long>
-        <<<grid, kSumThreads, 0, s>>>(
+    reduce_sum_kernel<int, int4, unsigned long long, int>
+        <<<grid, kSumBlock, 0, s>>>(
             static_cast<const int*>(x), n, vec,
-            static_cast<unsigned long long*>(partials));
-    finish_sum<<<1, kFinishThreads, 0, s>>>(
-        static_cast<const unsigned long long*>(partials),
-        static_cast<int>(blocks), static_cast<int*>(out));
+            static_cast<unsigned long long*>(scratch), ticket,
+            static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,18 @@
 // of the key read as an unsigned word (a logical shift), r <= 8, so at
 // most 256 buckets.
 //
-//   histogram: one block per tile of kTile = 2048 rows writes the tile's
-//              2^r counts to its own row of a (n_tiles, 2^r) array, the
-//              reference's layout (the partitioned join reads it).
-//              Counters live in shared memory; a warp adds each bucket
-//              once (peers_of finds the lanes that share it, one ballot
-//              per bucket bit).  Counts do not depend on the order of the
+//   histogram: each tile of kTile = 2048 rows writes its 2^r counts to
+//              its own row of a (n_tiles, 2^r) array, the reference's
+//              layout (the partitioned join reads it).  A grid of resident
+//              blocks walks the tiles, 16 bytes a load, the next tile's
+//              loads issued before the current tile is counted, so loads
+//              stay in flight while a block counts, syncs and writes.  Each
+//              warp counts into its own counters in shared memory: for r
+//              <= 5 each thread adds its rows into 4-bit fields of a
+//              register and the warp adds the fields (one warp reduction a
+//              pair of buckets); for wider r a warp adds each bucket once
+//              (peers_of finds the lanes that share it, one ballot per
+//              bucket bit).  Counts do not depend on the order of the
 //              adds.
 //   counts:    one read of the keys gives every pass's global digit
 //              counts, a (passes, 2^r) array (passes x 2^r <= 1024): a
@@ -55,7 +61,10 @@
 // launcher clears the (n_tiles x 2^r) words and the tile counter behind
 // them with one cudaMemsetAsync before each pass.
 //
-// What bounds it: device-memory bytes at 3.35 TB/s.  The function itself
+// What bounds it: device-memory bytes at 3.35 TB/s.  The histogram reads
+// the keys once (4 bytes a row) and writes 4 * 2^r bytes a tile; a ballot
+// and a shared atomic a row per bucket bit cost about as much issue time
+// as the read at 3.35 TB/s, hence count_packed.  A pass's function
 // moves the key and N payload columns once each way, (1 + N) * 8 bytes a
 // row a pass.  The design adds the counts' read of the keys (4 bytes a row
 // for all the passes of a sort) and the status words (4 bytes per bucket
@@ -113,34 +122,145 @@ __device__ __forceinline__ unsigned peers_of(unsigned b, unsigned peers,
   return peers;
 }
 
+// A thread's 8 rows of a histogram tile: rows 4j .. 4j + 3 and 1024 + 4j
+// .. + 3 of the tile for thread j, so that a warp's 32 lanes read 512
+// neighbouring bytes a load.
+struct TileKeys {
+  int4 lo, hi;
+};
+
+__device__ __forceinline__ long long tile_row(long long first, int i) {
+  return first + (i >> 2) * (kTile / 2) + (i & 3);
+}
+
+// Tile t's keys for this thread: two 16-byte loads when the tile is whole
+// and the keys are 16-byte aligned (`vec`), else eight 4-byte loads of
+// the same rows, 0 past n.
+__device__ __forceinline__ TileKeys load_tile(const int* __restrict__ keys,
+                                              long long n, long long t,
+                                              bool vec) {
+  const long long first = t * kTile + 4 * threadIdx.x;
+  TileKeys k;
+  if (vec && (t + 1) * kTile <= n) {
+    k.lo = __ldg(reinterpret_cast<const int4*>(keys + first));
+    k.hi = __ldg(reinterpret_cast<const int4*>(keys + first + kTile / 2));
+    return k;
+  }
+  int v[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const long long row = tile_row(first, i);
+    v[i] = row < n ? __ldg(keys + row) : 0;
+  }
+  k.lo = make_int4(v[0], v[1], v[2], v[3]);
+  k.hi = make_int4(v[4], v[5], v[6], v[7]);
+  return k;
+}
+
+// A warp's counts of a tile's rows for r <= 5 (the partitioned join's
+// widths), without a ballot or an atomic a row: each thread adds its 8
+// rows into 4-bit fields of A 64-bit registers, bucket b at field b & 15
+// of register b >> 4 (a field holds at most 8); then field pairs spread
+// to 16 bits are added over the warp (__reduce_add_sync, one a pair of
+// buckets), and lane b stores the warp's count of bucket b.  Every lane
+// calls it.
+template <int A>
+__device__ __forceinline__ void count_packed(int* counts,
+                                             const int (&key)[kItems],
+                                             long long first, long long n,
+                                             bool whole, int start_bit,
+                                             unsigned mask) {
+  const int nb = static_cast<int>(mask) + 1;
+  const int lane = threadIdx.x & 31;
+  unsigned long long acc[A] = {};
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    if (!whole && tile_row(first, i) >= n) continue;
+    const unsigned b = bucket_of(key[i], start_bit, mask);
+    const unsigned long long one = 1ull << ((b & 15u) << 2);
+#pragma unroll
+    for (int a = 0; a < A; ++a) acc[a] += b >> 4 == static_cast<unsigned>(a)
+                                              ? one : 0ull;
+  }
+  // pair q holds buckets (q & 3) + 8 * (q >> 2) and 4 more, at bits 0
+  // and 16: register q >> 3, its high word when (q >> 2) is odd
+  const int mine_q = (lane & 3) + 4 * (lane >> 3);
+  unsigned mine = 0;
+#pragma unroll
+  for (int q = 0; q < 8 * A; ++q) {
+    if ((q & 3) + 8 * (q >> 2) >= nb) continue;       // uniform
+    const unsigned long long a = acc[q >> 3];
+    const unsigned word = static_cast<unsigned>((q >> 2) & 1 ? a >> 32 : a);
+    const unsigned pair = __reduce_add_sync(
+        kFull, (word >> (4 * (q & 3))) & 0x000F000Fu);
+    if (q == mine_q) mine = lane & 4 ? pair >> 16 : pair & 0xFFFFu;
+  }
+  if (lane < nb) counts[lane] = static_cast<int>(mine);
+}
+
+// Resident blocks walk the tiles t = blockIdx.x, t + gridDim.x, ...; each
+// tile's 2^r counts go to its own row of a (n_tiles, 2^r) array, the
+// reference's layout (the partitioned join reads it).  A block issues the
+// next tile's loads before it counts the current one, so its loads stay in
+// flight across the count, the sync and the row write.  Each warp counts
+// into its own counters in shared memory (count_packed for r <= 5; else
+// it adds each bucket once a step: peers_of finds the lanes that share
+// it, one ballot per bucket bit), so warps never contend on a hot bucket,
+// and none waits on another's count; after one sync thread b adds the
+// warps' counts of bucket b into the tile's row and clears them.  Two sets
+// of counters, alternated by tile, let the next tile's count start without
+// a second sync.  Counts do not depend on the order of the adds, nor the
+// rows on the order of the tiles.
 __global__ void __launch_bounds__(kThreads)
 radix_histogram(const int* __restrict__ keys, long long n, int start_bit,
-                unsigned mask, int* __restrict__ hist) {
-  __shared__ int counts[kMaxBuckets];
+                unsigned mask, bool vec, int* __restrict__ hist) {
+  __shared__ int warp_counts[2][kWarps][kMaxBuckets];
   const int nb = static_cast<int>(mask) + 1;
   const int r = __popc(mask);
-  for (int b = threadIdx.x; b < nb; b += kThreads) counts[b] = 0;
-  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const long long first = kTile * blockIdx.x;
-  unsigned b[kItems];              // every load issued before the first match
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long row = first + static_cast<long long>(i) * kThreads +
-                          threadIdx.x;
-    b[i] = row < n ? bucket_of(__ldg(keys + row), start_bit, mask)
-                   : kNoBucket;
-  }
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const bool valid = b[i] != kNoBucket;
-    const unsigned peers = peers_of(b[i], side_of(valid), r);
-    if (valid && lane == __ffs(peers) - 1)
-      atomicAdd(&counts[b[i]], __popc(peers));
-  }
+  const int warp = threadIdx.x >> 5;
+  for (int c = threadIdx.x; c < 2 * kWarps * kMaxBuckets; c += kThreads)
+    (&warp_counts[0][0][0])[c] = 0;
   __syncthreads();
-  int* row = hist + static_cast<long long>(blockIdx.x) * nb;
-  for (int b = threadIdx.x; b < nb; b += kThreads) row[b] = counts[b];
+  const long long tiles = (n + kTile - 1) / kTile;
+  long long t = blockIdx.x;
+  TileKeys cur = load_tile(keys, n, t, vec);
+  for (int set = 0; t < tiles; t += gridDim.x, set ^= 1) {
+    TileKeys next = cur;
+    if (t + gridDim.x < tiles) next = load_tile(keys, n, t + gridDim.x, vec);
+    const int key[kItems] = {cur.lo.x, cur.lo.y, cur.lo.z, cur.lo.w,
+                             cur.hi.x, cur.hi.y, cur.hi.z, cur.hi.w};
+    const long long first = t * kTile + 4 * threadIdx.x;
+    const bool whole = (t + 1) * kTile <= n;
+    int* counts = warp_counts[set][warp];
+    if (r <= 4) {
+      count_packed<1>(counts, key, first, n, whole, start_bit, mask);
+    } else if (r == 5) {
+      count_packed<2>(counts, key, first, n, whole, start_bit, mask);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const bool valid = whole || tile_row(first, i) < n;
+        const unsigned b = valid ? bucket_of(key[i], start_bit, mask)
+                                 : kNoBucket;
+        const unsigned peers = peers_of(b, whole ? kFull : side_of(valid),
+                                        r);
+        if (valid && lane == __ffs(peers) - 1)
+          atomicAdd(&counts[b], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < nb) {
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sum += warp_counts[set][w][threadIdx.x];
+        warp_counts[set][w][threadIdx.x] = 0;
+      }
+      hist[t * nb + threadIdx.x] = sum;
+    }
+    cur = next;
+  }
 }
 
 // One row's digit in each pass, added to the warp's own counters.  Every
@@ -417,27 +537,33 @@ int sweep(const int* keys, long long n, int start_bit, unsigned mask,
 
 }  // namespace
 
-// keys: (n,) int32; hist: (ceil(n / 2048), 2^r) int32.  0 < n < 2^31,
-// 1 <= r <= 8, 0 <= start_bit < 32.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// keys: (n,) int32; hist: (ceil(n / 2048), 2^r) int32, written whole.
+// 0 < n < 2^31, 1 <= r <= 8, 0 <= start_bit < 32; max_grid: radix_shape's
+// blocks for `which` 1.  Launches on `stream`, does not synchronise,
+// returns cudaGetLastError().
 extern "C" int radix_histogram_launch(const void* keys, long long n,
-                                      int start_bit, int r, void* hist,
+                                      int start_bit, int r,
+                                      long long max_grid, void* hist,
                                       void* stream) {
-  if (bad_args(n, start_bit, r))
+  if (bad_args(n, start_bit, r) || max_grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (n + kTile - 1) / kTile;
-  radix_histogram<<<static_cast<unsigned>(tiles), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), n, start_bit, (1u << r) - 1u,
+  const bool vec = (reinterpret_cast<std::uintptr_t>(keys) & 15u) == 0u;
+  radix_histogram<<<static_cast<unsigned>(tiles < max_grid ? tiles
+                                                           : max_grid),
+                    kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(keys), n, start_bit, (1u << r) - 1u, vec,
       static_cast<int*>(hist));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the counts kernel resident on the current device (its grid is
-// the key vectors over kThreads, up to this).  `which` is 0.
+// Blocks resident on the current device of the counts kernel (`which` 0;
+// its grid is the key vectors over kThreads, up to this) or of the
+// histogram kernel (`which` 1; its grid is the tiles, up to this).
 extern "C" int radix_shape(int which, long long* resident) {
-  if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return resident_blocks(radix_counts, 0, resident);
+  if (which == 0) return resident_blocks(radix_counts, 0, resident);
+  if (which == 1) return resident_blocks(radix_histogram, 0, resident);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // keys: (n,) int32; counts: (passes, 2^r) int32, cleared here, then

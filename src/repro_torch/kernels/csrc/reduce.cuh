@@ -5,8 +5,10 @@
 // grid that runs in order.  Hopper blocks run in any order, so here each
 // block reduces its rows in a fixed order (each thread its own rows, a
 // shuffle tree per warp, the warps in order) to one partial in device
-// memory, and finish_sum, one block launched after it on the same stream,
-// adds the partials in a fixed order and rounds once.  int32 data is
+// memory, and the partials are added in a fixed order and rounded once:
+// by finish_sum, one block launched after it on the same stream
+// (probe_agg), or by the last block of the same launch to finish
+// (finish_by_last_block, reduce_sum).  int32 data is
 // summed in unsigned 64-bit (two's complement) and cut to int32 at the
 // end: sums mod 2^32 do not depend on order, so the result is the
 // reference's wrapping int32 sum.  f32 data is summed in f64 and rounded
@@ -60,17 +62,48 @@ finish_sum(const T* __restrict__ partials, int n, Out* __restrict__ out) {
   if (threadIdx.x == 0) store_total(s, out);
 }
 
-// Blocks of `kernel` resident on the current device at kSumThreads
-// threads, for the wrapper's grid.
+// The sum of every block's partial, written by the block that finishes
+// last, inside the launch that made the partials: each block writes its
+// partial `s` (valid in thread 0) to partials[blockIdx.x], makes it
+// visible to the card and takes a ticket; the block that draws the last
+// ticket reads all gridDim.x partials and adds them in a fixed order
+// (thread i the partials i, i + blockDim.x, ..., then block_total), so
+// the bits do not depend on which block finished last, and writes the
+// total rounded once.  *ticket is 0 at the launch (the launcher clears
+// it) and is left at gridDim.x.
+template <typename T, typename Out>
+__device__ __forceinline__ void finish_by_last_block(T s, T* partials,
+                                                     unsigned* ticket,
+                                                     Out* out) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  T t = T(0);
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x);
+       i += blockDim.x)
+    t += __ldcg(partials + i);           // past L1: the other SMs' writes
+  t = block_total(t);
+  if (threadIdx.x == 0) store_total(t, out);
+}
+
+// Blocks of `kernel` resident on the current device at `threads` threads
+// a block, for the wrapper's grid.
 template <typename Kernel>
-int resident_blocks(Kernel kernel, long long* resident) {
+int resident_blocks(Kernel kernel, long long* resident,
+                    int threads = kSumThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kSumThreads, 0);
+                                                      threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *resident = static_cast<long long>(sms) * per_sm;
   return static_cast<int>(cudaSuccess);

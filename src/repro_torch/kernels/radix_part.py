@@ -45,7 +45,7 @@ _VAL_TYPES = (torch.int32, torch.float32, torch.uint32)
 _SIGNATURES = {
     "radix_histogram_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "radix_shape": (ctypes.c_int, [ctypes.c_int,
                                    ctypes.POINTER(ctypes.c_longlong)]),
     "radix_counts_launch": (ctypes.c_int, [
@@ -93,7 +93,8 @@ def pass_plan(counts, n: int) -> List[int]:
 
 def histogram(keys: torch.Tensor, start_bit: int, r: int) -> torch.Tensor:
     """Per-tile bucket counts -> (ceil(n / 2048), 2^r) int32 on the keys'
-    device.  keys: (n,) int32."""
+    device.  keys: (n,) int32.  One launch over a grid of resident blocks
+    (asked once), each walking tiles."""
     global HIST_LAUNCHES
     n = _check(keys, start_bit, r, "histogram")
     lib = library()
@@ -102,8 +103,9 @@ def histogram(keys: torch.Tensor, start_bit: int, r: int) -> torch.Tensor:
                        device=keys.device)
     if n == 0:
         return hist
+    grid = build.resident(lib, "radix_shape", keys.device.index, 1)
     build.launch(lib, lib.radix_histogram_launch, keys.device,
-                 "radix histogram", keys.data_ptr(), n, start_bit, r,
+                 "radix histogram", keys.data_ptr(), n, start_bit, r, grid,
                  hist.data_ptr())
     HIST_LAUNCHES += 1
     return hist

@@ -587,6 +587,51 @@ def test_radix_kernels_bit_identical_to_plain(cuda, i, n):
     assert _equal(radix_part.partition_multi(keys, vals, start_bit, r), got)
 
 
+def _hist_rows(n, cuda) -> int:
+    """n as the histogram cases name it: a number, or "resident", past
+    the tiles of one wave of the kernel's resident grid, so a block takes
+    several tiles and the last one is ragged."""
+    if n != "resident":
+        return n
+    lib = radix_part.library()
+    grid = build.resident(lib, "radix_shape", cuda.index, 1)
+    return lib.radix_tile_rows() * grid + 37
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [2047, 2049, "resident"])
+@pytest.mark.parametrize("i", range(len(cases.RADIX_CASES)))
+def test_histogram_tiles_edges_and_unaligned_keys(cuda, i, n, offset):
+    """Tiles past one ragged edge and past the resident grid (a block
+    walks several tiles, the next one's loads in flight), and a view
+    that is not 16-byte aligned (offset 1: 4-byte loads), each run
+    twice."""
+    start_bit, r, kind, n_vals = cases.RADIX_CASES[i]
+    rows = _hist_rows(n, cuda)
+    keys = _on(cases.radix_case(i, rows + offset, start_bit, r, kind,
+                                n_vals), cuda)[0][offset:]
+    got = _launched(radix_part, "histogram", keys, start_bit, r,
+                    counter="HIST_LAUNCHES")
+    assert torch.equal(got, ref.histogram(keys, start_bit, r))
+    assert torch.equal(radix_part.histogram(keys, start_bit, r), got)
+
+
+@pytest.mark.parametrize("start_bit", [0, 3])
+@pytest.mark.parametrize("kind", ["uniform", "one_bucket", "duplicates"])
+@pytest.mark.parametrize("n", [37, 4099, "resident"])
+@pytest.mark.parametrize("r", range(1, radix_part.MAX_BITS + 1))
+def test_histogram_every_width(cuda, r, n, kind, start_bit):
+    """Every r: the 4-bit fields of registers for r <= 5 (one register to
+    r = 4, two at r = 5; "one_bucket" fills a field with all 8 of a
+    thread's rows), the warp's ballots past it."""
+    rows = _hist_rows(n, cuda)
+    keys = _on(cases.radix_case(r, rows, start_bit, r, kind, 1), cuda)[0]
+    got = _launched(radix_part, "histogram", keys, start_bit, r,
+                    counter="HIST_LAUNCHES")
+    assert torch.equal(got, ref.histogram(keys, start_bit, r))
+    assert torch.equal(radix_part.histogram(keys, start_bit, r), got)
+
+
 def _counters():
     return (radix_part.HIST_LAUNCHES, radix_part.COUNT_LAUNCHES,
             radix_part.SCATTER_LAUNCHES)
@@ -1060,6 +1105,55 @@ def test_reduce_sum_kernel_matches_plain(cuda, n, kind, offset):
         assert abs(float(got) - float(want)) <= ulp
     else:
         assert torch.equal(got, want)
+
+
+def _sum_held(x, got):
+    want = ref.reduce_sum(x)
+    assert got.dtype == want.dtype and got.shape == ()
+    if x.is_floating_point():
+        ulp = abs(float(torch.nextafter(want, want + 1)) - float(want))
+        assert abs(float(got) - float(want)) <= ulp
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", cases.SUM_KINDS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reduce_sum_past_one_grid_step(cuda, kind, offset):
+    """n just past one full step of the resident grid (4 vectors of 4 rows
+    a thread), aligned and not: every row summed once, the same bits
+    twice."""
+    lib = agg.library()
+    blocks = build.resident(lib, "reduce_sum_shape", cuda.index,
+                            int(kind != "int32_overflow"))
+    n = blocks * agg.SUM_ROWS_PER_BLOCK * 4 + 3
+    (x,) = _on(cases.reduce_case(n, n + offset, kind), cuda)
+    x = x[offset:]
+    got = _launched(agg, "reduce_sum", x, counter="SUM_LAUNCHES")
+    _sum_held(x, got)
+    assert torch.equal(agg.reduce_sum(x), got)
+
+
+@pytest.mark.parametrize("kind", cases.SUM_KINDS)
+def test_reduce_sum_ticket_is_the_calls_own(cuda, kind):
+    """Calls back to back and one on each of two streams give the same
+    bits: each call clears its own ticket, and no two share one."""
+    (x,) = _on(cases.reduce_case(7, 3_000_017, kind), cuda)
+    first = agg.reduce_sum(x)
+    back_to_back = [agg.reduce_sum(x) for _ in range(4)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    main = torch.cuda.current_stream(cuda)
+    on_streams = []
+    for s in streams:
+        s.wait_stream(main)
+        with torch.cuda.stream(s):
+            on_streams.append(agg.reduce_sum(x))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize(cuda)
+    _sum_held(x, first)
+    for got in back_to_back + on_streams:
+        assert torch.equal(got, first)
 
 
 @pytest.mark.parametrize("packed", [False, True])

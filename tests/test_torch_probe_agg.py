@@ -103,7 +103,7 @@ def test_probe_agg_cases_match_reference(kind, vals):
 
 
 @pytest.mark.parametrize("kind", cases.SUM_KINDS)
-@pytest.mark.parametrize("n", [1, 3000, 4097])
+@pytest.mark.parametrize("n", [1, 3000, 4097, 4099, 8195])
 def test_reduce_sum_matches_reference_kernel(kind, n):
     (x,) = cases.reduce_case(n, n, kind)
     got = TREF.reduce_sum(torch.from_numpy(x))

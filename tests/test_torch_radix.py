@@ -66,6 +66,20 @@ def test_histogram_matches_reference_kernel(case, n, tile):
     _same(got, RREF.histogram(rk, start_bit, r, tile))
 
 
+@pytest.mark.parametrize("kind", ["uniform", "negative", "one_bucket"])
+@pytest.mark.parametrize("r", [1, 3, 5])
+@pytest.mark.parametrize("n", [2047, 2049, 4099])
+def test_histogram_matches_reference_kernel_at_the_tile_edges(n, r, kind):
+    """The part path's bucket widths (``model.part_bits``: 1-5 at SF 20)
+    at the 2,048-row tile's edges: one row short of a tile, one past it,
+    and a ragged third tile, where the card's kernel switches from its
+    16-byte loads of a whole tile to 4-byte loads of a ragged one."""
+    tk, _, rk, _ = _both(n + r, n, 0, r, kind, 1)
+    got = TREF.histogram(tk, 0, r, 2048)
+    assert got.shape == (-(-n // 2048), 1 << r)
+    _same(got, RRADIX.histogram(rk, 0, r, tile=2048, interpret=True))
+
+
 @pytest.mark.parametrize("n,tile", [(37, 512), (4096, 512), (3001, 2048)])
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_partition_multi_matches_reference_kernel(case, n, tile):

@@ -319,6 +319,19 @@ def test_part_probe_need_walks_each_partition_table(kind, bits):
      "long>(int const*, int const*, long long, int const*, int const*, "
      "unsigned int, unsigned long long*)", "other"),
     ("Memset (Device)", "memset"),
+    ("void (anonymous namespace)::radix_histogram(int const*, long long, "
+     "int, unsigned int, bool, int*)", "histogram"),
+    ("void (anonymous namespace)::radix_sweep<2>(int const*, long long, "
+     "int, unsigned int, int const*, unsigned int*, unsigned int*, "
+     "(anonymous namespace)::Payload, int*)", "partition_multi"),
+    ("void (anonymous namespace)::radix_counts(int const*, long long, int, "
+     "int, int, bool, int*)", "digit_counts"),
+    ("void (anonymous namespace)::reduce_sum_kernel<float, float4, double, "
+     "float>(float const*, long long, int, double*, unsigned int*, float*)",
+     "reduce_sum"),
+    ("void (anonymous namespace)::reduce_sum_kernel<int, int4, unsigned "
+     "long long, int>(int const*, long long, int, unsigned long long*, "
+     "unsigned int*, int*)", "reduce_sum"),
 ])
 def test_device_kinds_file_each_kernel_under_its_wrapper(name, kind):
     """The profile files the partitioned probe under ``part_probe``, not
