@@ -44,7 +44,8 @@ exits non-zero without printing a result:
            ``select_scan`` call run twice with the same bits, beside a
            fill of its zero tail), and one ``probe_join`` and one
            ``select_scan`` call of each size profiled: one sweep kernel
-           and one memset;
+           and one memset; one ``group_sum`` call over a grid of blocks
+           and one of a single block profiled: one kernel each;
 6. packed storage: phase 4's database packed (``storage.pack_database``)
            and resident on the card, the 13 queries ``fused`` (``spja`` on
            packed streams) and ``opat`` (the leading filter through
@@ -104,9 +105,11 @@ exits non-zero without printing a result:
            kernel and at most one memset; the hash ``build`` of those
            tables (50 % fill) from their keys, byte-identical to its plain
            version, its tables probed to the sums of the host build's,
-           timed beside the host ``np_build``; ``select_scan_sparse`` of
-           2^28 rows at selectivities 1e-5 to 0.5, x uniform and sorted,
-           equal to ``select_scan`` and timed beside it, with the share of
+           timed beside the host ``np_build``, one call of the 256 MB
+           table profiled (one kernel and the 4-byte read of its flag);
+           ``select_scan_sparse`` of 2^28 rows at selectivities 1e-5 to
+           0.5, x uniform and sorted, equal to ``select_scan`` and timed
+           beside it, with the share of
            32-row tiles that hold a match, beside ``sparse_need``'s bound
            (out written whole), one call profiled: one sweep of its own
            name and one memset; ``project`` of 2^28 rows, with
@@ -252,6 +255,9 @@ SINGLES = ("q1.1", "q2.1")
 JOIN_ROWS = 1 << 28
 JOIN_TABLE_KB = (8, 256, 4096, 32768, 65536, 262144)
 SUM_ROWS = 1 << 28
+# phase 5: the group_sum calls profiled alone, (rows, groups): flight 2's
+# groups over a grid of blocks, and q3.4's call, one block
+GROUP_PROFILED = ((1_000_003, 7000), (72, 24))
 PROJECT_ROWS = 1 << 28
 
 # (label, cases.spja_case arguments): what SSB data never shows — a
@@ -377,10 +383,10 @@ OPAT_SYNTHETIC = {
         for n in (BIG, 37) for sig in (False, True)
         for a, b in ((1.0, -1.0), (0.75, -1.25))],
     "group_sum": [
-        (f"{kind}, {g} groups, n={BIG}", "group_case",
-         (g, BIG, g, kind, True), (), False)
+        (f"{kind}, {g} groups, n={n}", "group_case",
+         (g, n, g, kind, True), (), False)
         for kind in ("int32_overflow", "f32_integers", "f32_random")
-        for g in (1, 7000)],
+        for g in (1, 7000) for n in (BIG, 4095)],
     "select_scan_packed": [
         (f"{sel} at {phys} bits, n={n}", "select_packed_case",
          (n + phys, n, phys, sel), (), False)
@@ -913,7 +919,7 @@ DEVICE_KINDS = [("select_packed_sweep", "select_scan_packed"),
                 ("select_sweep", "select_scan"),
                 ("part_probe", "part_probe"), ("probe_join", "probe_join"),
                 ("probe_agg_sweep", "probe_agg"), ("pair_slots", "probe_agg"),
-                ("group_sum", "group_sum"), ("reduce_partials", "group_sum"),
+                ("group_sum", "group_sum"),
                 ("project_kernel", "project"),
                 ("multi_spja_kernel", "multi_spja"), ("spja_kernel", "spja"),
                 ("build_", "build"), ("radix_histogram", "histogram"),
@@ -977,7 +983,9 @@ def profile_once(run, head: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = list(prof.events())
-    launches = sum(e.device_type != cuda and "LaunchKernel" in e.name
+    launches = sum(e.device_type != cuda and ("LaunchKernel" in e.name or
+                                              "LaunchCooperativeKernel" in
+                                              e.name)
                    for e in events) - head
     kinds, names, kernels, spins = {}, {}, 0, 0
     for e in events:
@@ -1034,6 +1042,22 @@ def one_call(fn: str, run, n: int, count: int, lib, columns: int = 2,
             "memset_ms": prof["device_ms"]["memset"],
             "zero_tail_fill_ms": fill.get("device_ms", {}).get("torch zeros",
                                                                0.0)}
+
+
+def one_kernel(fn: str, run, also=()) -> dict:
+    """The device work of one call of a wrapper that is one kernel a call
+    (``group_sum``; ``build``, whose EMPTY flag is also read back, kind
+    ``copy to host``), from the profile: raises unless it is one kernel
+    of the wrapper's kind and at most one record of each kind in
+    ``also``."""
+    prof = profiled(run, (fn,))
+    calls = {kind: sum(c for _, c, _ in rows)
+             for kind, rows in prof["kernels"].items()}
+    if calls.get(fn) != 1 or set(calls) - {fn, *also} or \
+            any(calls.get(k, 0) > 1 for k in also):
+        raise AssertionError(f"{fn}: one call launched {calls}, not one "
+                             "kernel")
+    return {k: prof[k] for k in ("device_ms", "kernels")}
 
 
 @contextlib.contextmanager
@@ -1584,6 +1608,14 @@ def resident_phases() -> dict:
 
     print("profile opat " + json.dumps(profiled(
         run_opat, ("select_scan", "probe_join", "group_sum"))), flush=True)
+    ag = mods["agg"]
+    for n_pin, g in GROUP_PROFILED:     # a grid of blocks, and one block
+        args = cases.tensors(cases.group_case(3302, n_pin, g), dev)
+        resident, warps, _ = ag._shape(dev.index, g, True)
+        print("group_sum one call " + json.dumps(dict(one_kernel(
+            "group_sum", lambda: ag.group_sum(*args)), n=n_pin, n_groups=g,
+            blocks=ag.group_grid(n_pin, g, resident, 8), warps=warps)),
+            flush=True)
     hj = mods["hash_join"]
     for n_pin in (BIG, 37):
         args = cases.tensors(cases.probe_case(3300, n_pin), dev)
@@ -2432,6 +2464,13 @@ def resident_phases() -> dict:
     print(f"launches build={hj.BUILD_LAUNCHES}: each table byte-identical "
           "to its plain version, probe_agg sums equal to the host build's",
           flush=True)
+    # one call of the largest table: one kernel and its flag's read
+    bkeys, n_slots = cases.join_bench_keys(SEED, JOIN_TABLE_KB[-1] * 1024)
+    bkeys = torch.from_numpy(bkeys).to(dev)
+    bvals = bkeys.clone()
+    print("build one call " + json.dumps(one_kernel(
+        "build", lambda: hj.build(bkeys, bvals, n_slots),
+        also=("copy to host",))), flush=True)
     build_calls = []
     for kb, _, _, n_build in tables:
         bkeys, n_slots = cases.join_bench_keys(SEED, kb * 1024)

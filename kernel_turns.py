@@ -1,6 +1,7 @@
-"""Time the port's radix sort, projection, probe, sum, fused, select and
-join-microbenchmark kernels on one card, in turns beside the PyTorch call
-that computes the same function where there is one.
+"""Time the port's radix sort, projection, probe, sum, fused, select,
+join-microbenchmark, hash build and group-by kernels on one card, in
+turns beside the PyTorch call that computes the same function where
+there is one.
 
     python3 kernel_turns.py [--tree PATH] [--only SECTION ...]
 
@@ -9,7 +10,8 @@ that computes the same function where there is one.
 so two commits are compared by running the script once for each, in
 turns (parent, change, change, parent), in one call on the card.
 ``--only`` runs the named sections alone (sort, project, probe, sum, spja,
-wave, select, join, sparse, hist); sum, join and sparse need no database.
+wave, select, join, sparse, hist, build, group); sum, join, sparse and
+build need no database.
 
 Every timing is ``chip_smoke.turns``: TURN_ROUNDS rounds in turns
 (kernel, library, library, kernel), each the mean of back-to-back calls
@@ -86,6 +88,22 @@ every round and the medians.  Data: ``chip_smoke.SF`` and ``SEED``.
    No PyTorch call computes the per-tile counts, so the parent is the
    other side of the turns.
 
+12. ``build``: the hash ``build`` of ``chip_smoke.py`` phase 10's six
+   tables (8 KB to 256 MB, 50 % fill), each built on the card from
+   ``cases.join_bench_keys`` (payload = key, in an array of its own) and
+   held byte-identical to ``ref.build`` first, then timed in TURN_ROUNDS
+   rounds of ``event_ms`` (KERNEL_REPS calls) beside the 8n + 8S-byte
+   bound.  No PyTorch call builds the table: the parent is the other
+   side of the turns.
+
+13. ``group``: ``group_sum`` on the 13 calls captured from one opat pass
+   of the 13 queries (``capture``), each held to the plain version and a
+   second run first (``chip_smoke.check_against_plain``: bit-identical,
+   or within one f32 ulp for non-integer f32), then each call and the
+   pass in turns with ``index_add_`` into a fresh zero grid
+   (``chip_smoke.library_call``; TURN_CALLS calls, 5 passes), beside
+   each call's bound (``chip_smoke.opat_need``).
+
 Sections 6, 7 and 8 share one database and its packing; no PyTorch call
 computes those kernels' functions, nor ``probe_agg``'s or
 ``select_scan_sparse``'s, so the parent is the other side of the turns
@@ -110,9 +128,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SECTIONS = ("sort", "project", "probe", "sum", "spja", "wave", "select",
-            "join", "sparse", "hist")
+            "join", "sparse", "hist", "build", "group")
 # the sections that read the SSB database
-DB_SECTIONS = {"sort", "project", "probe", "spja", "wave", "select", "hist"}
+DB_SECTIONS = {"sort", "project", "probe", "spja", "wave", "select", "hist",
+               "group"}
 # (query, join) of the calls timed alone: the first join of q2.1 and the
 # third of q4.2; calls under chip_smoke.SMALL_ROWS rows are timed alone too
 PROBE_CALLS = (("q2.1", 0), ("q4.2", 2))
@@ -348,6 +367,79 @@ def sparse_turns(dev) -> dict:
     return report
 
 
+def build_turns(dev) -> dict:
+    """Section 12: ``build`` of phase 10's six tables, each held
+    byte-identical to ``ref.build`` first, then timed beside its
+    bound."""
+    from chip_smoke import HBM_BYTES_PER_S, JOIN_TABLE_KB, KERNEL_REPS, SEED
+    from repro_torch import cases
+    from repro_torch.kernels import hash_join, ref
+    report = {}
+    for kb in JOIN_TABLE_KB:
+        host_keys, n_slots = cases.join_bench_keys(SEED, kb * 1024)
+        keys = torch.from_numpy(host_keys).to(dev)
+        vals = keys.clone()
+        got = hash_join.build(keys, vals, n_slots)
+        if not all(torch.equal(g, w) for g, w in
+                   zip(got, ref.build(keys, vals, n_slots))):
+            raise AssertionError(f"build {kb} KB: kernel != plain")
+        del got
+        row = {"table_KB": kb, "n_build": len(host_keys), "n_slots": n_slots,
+               **rounds(lambda: hash_join.build(keys, vals, n_slots),
+                        KERNEL_REPS),
+               "bound_ms": 8 * (len(host_keys) + n_slots) / HBM_BYTES_PER_S
+               * 1e3}
+        report[f"{kb}KB"] = row
+        print(f"build {kb} KB " + json.dumps(row), flush=True)
+        del keys, vals
+        torch.cuda.empty_cache()
+    report["all_medians"] = sum(r["median"] for r in report.values())
+    print("build six tables " + json.dumps(report["all_medians"]),
+          flush=True)
+    return report
+
+
+def group_turns(db) -> dict:
+    """Section 13: ``group_sum`` on the opat pass's calls, each held to
+    the plain version and a second run first, then each call and the pass
+    in turns with ``index_add_``."""
+    from chip_smoke import (TURN_CALLS, check_against_plain, library_call,
+                            opat_need, turns)
+    from repro_torch.kernels import agg, ref
+    from repro_torch.sql import hashtable
+    calls = capture(agg, "group_sum", "opat", db,
+                    hashtable.HashTableCache())
+    index_add = library_call("group_sum")
+    for query, k, args in calls:
+        check_against_plain("group_sum", f"{query} call {k}",
+                            agg.group_sum(*args), ref.group_sum(*args),
+                            again=agg.group_sum(*args))
+
+    def timed(args):
+        need = opat_need("group_sum", args, None)
+        return dict(turns(lambda: agg.group_sum(*args),
+                          lambda: index_add(*args), calls=TURN_CALLS),
+                    n=int(args[0].shape[0]), n_groups=args[2],
+                    bound_ms=max(need["bytes_ms"], need["ops_ms"]))
+
+    def whole_pass(fn):
+        def run():
+            for _, _, args in calls:
+                fn(*args)
+        return run
+    row = {"calls": len(calls),
+           "each": {query: timed(args) for query, _, args in calls},
+           "pass": turns(whole_pass(agg.group_sum), whole_pass(index_add),
+                         calls=5)}
+    row["bound_ms"] = sum(c["bound_ms"] for c in row["each"].values())
+    row["sum_of_medians"] = sum(c["kernel_median"]
+                                for c in row["each"].values())
+    row["index_add_sum_of_medians"] = sum(c["library_median"]
+                                          for c in row["each"].values())
+    print("group_sum opat " + json.dumps(row), flush=True)
+    return {"group_sum_opat": row}
+
+
 def sum_turns(dev) -> dict:
     """Section 5: ``reduce_sum`` of 2^28 random f32 rows in turns with
     ``torch.sum``, and of 2^28 random int32 rows alone, each beside the
@@ -529,6 +621,8 @@ def main() -> int:
         report["select_scan_sparse"] = sparse_turns(dev)
     if "sum" in args.only:
         report["reduce_sum"] = sum_turns(dev)
+    if "build" in args.only:
+        report["build"] = build_turns(dev)
     if not DB_SECTIONS & set(args.only):
         print(json.dumps(report))
         return 0
@@ -655,6 +749,8 @@ def main() -> int:
         report.update(probe_turns(db))
     if "hist" in args.only:
         report.update(hist_turns(db))
+    if "group" in args.only:
+        report.update(group_turns(db))
     print(json.dumps(report))
     return 0
 

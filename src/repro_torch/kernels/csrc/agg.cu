@@ -4,30 +4,55 @@
 // kernel src/repro/kernels/agg.py::group_sum
 // (_group_kernel), which adds each tile into one (n_groups,) accumulator
 // in VMEM across a grid that runs in order.  Hopper blocks run in any
-// order, so the design depends on the values' type:
+// order, so here a call is one cooperative launch of at most the resident
+// blocks, in two phases split by a grid sync:
+//
+//  1. each block sums its rows into shared memory in a fixed order, then
+//     adds its warps' grids in warp order into one partial row of
+//     device memory (a block alone in its grid writes the result here and
+//     stops);
+//  2. after the grid sync, block b takes groups b * 32 .. b * 32 + 31,
+//     then those gridDim.x * 32 on, and adds each group's partial rows in
+//     block order: warp w the rows w, w + warps, ..., then the warps'
+//     sums in warp order; it writes `out` (or adds into `acc`) whole.
+//
+// The accumulation depends on the values' type:
 //
 //  * int32 values: wrapping int32 addition is associative, so any order
-//    gives the reference's bits.  Each block adds its rows into an
-//    (n_groups,) uint32 grid in shared memory with shared atomics, then
-//    adds each nonzero group to the zeroed output with one global atomic.
+//    gives the reference's bits.  A block of 256 threads adds its rows
+//    (8 a thread in flight) into an (n_groups,) uint32 grid with shared
+//    atomics.
 //  * f32 values: float atomics would change the rounding from run to run.
-//    Each warp owns an (n_groups,) f64 grid in shared memory and walks its
-//    own fixed rows 32 at a time; the lanes of one step that share a group
-//    (__match_any_sync) are summed in lane order by the lowest of them,
-//    which adds the sum to the warp's grid.  The warps' grids go to device
-//    memory as partial grids, and a second kernel sums them in a fixed
-//    order and rounds to f32 once.  The result is the same bits on every
-//    run, and an integer-valued sum (every SSB measure) is exact far past
-//    SF 20 (2^53 against q1.1's 2.2e9), so it equals the numpy oracle.
+//    While a block's values are integers of magnitude at most 2^31 (every
+//    SSB measure), their sums are exact in int64 and so the same in any
+//    order: the block adds them into one (n_groups,) int64 grid of two
+//    32-bit words a group with shared atomics (add_exact).  A block that
+//    meets any other value adds its rows again, in a fixed order: each
+//    of up to 8 warps owns an (n_groups,) f64 grid in shared memory and
+//    adds its share of the block's rows 32 a step; the lanes of one step
+//    that share a group (__match_any_sync) are summed in lane order by
+//    the lowest of them, which adds the sum to the warp's grid.  The
+//    result is the same bits on every run for a given grid, and an
+//    integer-valued sum is exact far past SF 20 (2^53 against q1.1's
+//    2.2e9), so it equals the numpy oracle.  On SSB flight 2's 7000
+//    groups the match step alone lost to the two-kernel design (PERF.md
+//    §6); the exact path is what a query pays.
 //
 // An id outside [0, n_groups) is dropped (an unsigned compare, as in
 // ssb_fused.cu).
 //
-// What bounds it: device-memory bytes at 3.35 TB/s: ids and vals read
-// once (8n) and the grid written.  The f32 path adds the partial grids,
-// 8 bytes a group for each warp in flight, written and read once.  Up to
-// 8 warps a block share the 227 KB of shared memory: at 7000 groups
-// (SSB flight 2) that is 4 warps, one block an SM.
+// What bounds it: device-memory bytes at 3.35 TB/s, ids and vals read
+// once (8n) and the grid written.  What held the two-kernel design back
+// was per call, not per row: a fill of `out`, a grid of warps' partial
+// grids (blocks x warps x n_groups x 8 bytes: 29.6 MB at 7000 groups,
+// written and read again by a second kernel), and 224 KB of shared memory
+// cleared and copied out by every block however few rows it got.  Here
+// the wrapper sizes the grid by the call's rows (agg.py's group_grid: a
+// call of a few thousand rows is one block, which writes no partial row;
+// the partial rows stay a small share of the 8n input bytes), the partial
+// rows fall to one a block and stay in L2, and nothing else runs.  The
+// f32 block's f64 grids share the 227 KB of shared memory: at 7000 groups
+// (SSB flight 2) 4 of its 16 warps own one, and one block fits an SM.
 //
 // reduce_sum: the global sum of an int32 or f32 column.  Replaces the
 // Pallas TPU kernel src/repro/kernels/agg.py::reduce_sum (_sum_kernel),
@@ -43,6 +68,7 @@
 // memset (the ticket) and one kernel, which writes the output whole: a
 // fill of it or a second launch to finish the sum would each be a
 // dependent launch, about what a 2^28-row call would lose to torch.sum.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,111 +77,304 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // int32 path
-constexpr int kItems = 4;
-constexpr int kMaxWarps = 8;           // f32 path, warps a block
-constexpr int kMinSteps = 8;           // f32 path, 32-row steps a warp
-constexpr int kReduceSlices = 32;      // warps of the reduce kernel
+constexpr int kThreads = 256;          // int32 path, threads a block
+constexpr int kItems = 8;              // int32 path, rows a thread holds
+constexpr int kMaxWarps = 8;           // f32 path, warps with an f64 grid
+constexpr int kBlockWarps = 16;        // f32 path, warps a block
+constexpr int kSteps = 8;              // f32 path, rows a thread a tile
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
-constexpr int kStageBytes = kMaxWarps * 32 * 8;   // stage[][] below
+constexpr int kStageBytes = kBlockWarps * 32 * 8;   // stage[][] below
+
+// A group's sum into the result: rounded to f32 once, or added unrounded
+// into the running f64 grid of a morsel fold.
+__device__ __forceinline__ void store_group(double s, int g, float* out,
+                                            double* acc) {
+  if (acc != nullptr) {
+    acc[g] += s;
+  } else {
+    out[g] = __double2float_rn(s);
+  }
+}
+
+// The same for int32 sums (as uint32: wrapping), written or added.
+__device__ __forceinline__ void store_group(unsigned s, int g, unsigned* out,
+                                            unsigned* acc) {
+  if (acc != nullptr) {
+    acc[g] += s;
+  } else {
+    out[g] = s;
+  }
+}
+
+// Phase 2, after the grid sync: each group's gridDim.x partial rows added
+// in block order (warp w of the block the rows w, w + warps, ...; then
+// the warps' sums in warp order, through `part`, 32 a warp) and stored.
+// The rows were written by other SMs in this launch, so they are read
+// past L1.
+template <typename T, typename Out>
+__device__ __forceinline__ void finish_groups(const T* partials,
+                                              int n_groups, T* part,
+                                              Out* out, T* acc) {
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = static_cast<int>(gridDim.x);
+  for (int c = blockIdx.x; c * 32 < n_groups;
+       c += static_cast<int>(gridDim.x)) {
+    const int g = c * 32 + lane;
+    T s = T(0);
+    if (g < n_groups) {
+#pragma unroll 8
+      for (int r = warp; r < rows; r += warps)
+        s += __ldcg(partials + static_cast<long long>(r) * n_groups + g);
+    }
+    part[warp * 32 + lane] = s;
+    __syncthreads();
+    if (warp == 0 && g < n_groups) {
+      T t = T(0);
+      for (int w = 0; w < warps; ++w) t += part[w * 32 + lane];
+      store_group(t, g, out, acc);
+    }
+    __syncthreads();                 // part is rewritten by the next chunk
+  }
+}
+
+// Phase 1's end: the block's row of sums (`row(g)`) stored as the result
+// when the block is the whole grid (true: the launch is done), else as
+// the block's partial row.
+template <typename T, typename Out, typename Row>
+__device__ __forceinline__ bool block_row(int n_groups, Row row,
+                                          T* partials, Out* out, T* acc) {
+  const bool alone = gridDim.x == 1;
+  T* mine = alone ? nullptr
+                  : partials + static_cast<long long>(blockIdx.x) * n_groups;
+  for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
+    const T s = row(g);
+    if (alone) {
+      store_group(s, g, out, acc);
+    } else {
+      mine[g] = s;
+    }
+  }
+  return alone;
+}
 
 __global__ void __launch_bounds__(kThreads)
 group_sum_i32(const int* __restrict__ ids, const int* __restrict__ vals,
-              long long n, int n_groups, unsigned* __restrict__ out) {
-  extern __shared__ unsigned acc[];
-  for (int g = threadIdx.x; g < n_groups; g += kThreads) acc[g] = 0u;
+              long long n, int n_groups, unsigned* partials, unsigned* out,
+              unsigned* acc) {
+  extern __shared__ unsigned sums[];
+  __shared__ unsigned part[kThreads];
+  for (int g = threadIdx.x; g < n_groups; g += kThreads) sums[g] = 0u;
   __syncthreads();
+  const unsigned groups = static_cast<unsigned>(n_groups);
   const long long tile = static_cast<long long>(kThreads) * kItems;
   const long long stride = tile * gridDim.x;
   for (long long base = tile * blockIdx.x; base < n; base += stride) {
+    unsigned g[kItems], v[kItems];
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const long long r = base + static_cast<long long>(i) * kThreads +
                           threadIdx.x;
-      if (r >= n) break;
-      const unsigned g = static_cast<unsigned>(__ldg(ids + r));
-      if (g < static_cast<unsigned>(n_groups))
-        atomicAdd(&acc[g], static_cast<unsigned>(__ldg(vals + r)));
+      g[i] = kNone;
+      v[i] = 0u;
+      if (r < n) {
+        g[i] = static_cast<unsigned>(__ldg(ids + r));
+        v[i] = static_cast<unsigned>(__ldg(vals + r));
+      }
     }
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      if (g[i] < groups) atomicAdd(&sums[g[i]], v[i]);
   }
   __syncthreads();
-  for (int g = threadIdx.x; g < n_groups; g += kThreads) {
-    const unsigned v = acc[g];
-    if (v != 0u) atomicAdd(out + g, v);
+  if (block_row(n_groups, [&](int g) { return sums[g]; }, partials, out,
+                acc))
+    return;
+  cooperative_groups::this_grid().sync();
+  finish_groups(partials, n_groups, part, out, acc);
+}
+
+// A warp tile's rows, 32 a step: lane l holds row base + 32 k + l of
+// step k (every load of the tile in flight at once).
+__device__ __forceinline__ void load_tile(const int* __restrict__ ids,
+                                          const float* __restrict__ vals,
+                                          long long n, long long base,
+                                          int lane, unsigned* g, float* v) {
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const long long r = base + 32LL * k + lane;
+    g[k] = kNone;
+    v[k] = 0.0f;
+    if (r < n) {
+      g[k] = static_cast<unsigned>(__ldg(ids + r));
+      v[k] = __ldg(vals + r);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-group_sum_f64_partials(const int* __restrict__ ids,
-                       const float* __restrict__ vals, long long n,
-                       int n_groups, double* __restrict__ partials) {
-  extern __shared__ double grids[];            // warps x n_groups
-  __shared__ double stage[kMaxWarps][32];
-  const int warps = blockDim.x >> 5;
+// One step of a warp's rows into its f64 grid: the lanes that share group
+// g add their values in lane order, by the lowest of them (a lane alone
+// in its group adds its own value; a step of one group, 32 values
+// unrolled).  g is kNone for a dropped row.
+__device__ __forceinline__ void add_step(double* grid, double* stage,
+                                         int lane, unsigned g, double v) {
+  stage[lane] = v;
+  const unsigned peers = __match_any_sync(kFull, g);
+  __syncwarp();
+  if (g != kNone && lane == __ffs(peers) - 1) {
+    double s = 0.0;
+    if (peers == 1u << lane) {
+      s = v;
+    } else if (peers == kFull) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s += stage[j];
+    } else {
+      for (unsigned m = peers; m != 0u; m &= m - 1u)
+        s += stage[__ffs(m) - 1];
+    }
+    grid[g] += s;
+  }
+  __syncwarp();                    // stage is rewritten by the next step
+}
+
+// An exact int64 sum added into a group's (lo, hi) words with two 32-bit
+// shared atomics: the low word, then the high word with the carry out of
+// the low one.  The words hold the group's sum mod 2^64.
+__device__ __forceinline__ void add_exact(unsigned* lo, unsigned* hi,
+                                          unsigned g, long long x) {
+  const unsigned l = static_cast<unsigned>(x);
+  const unsigned h =
+      static_cast<unsigned>(static_cast<unsigned long long>(x) >> 32);
+  const unsigned old = atomicAdd(lo + g, l);
+  atomicAdd(hi + g, h + (old + l < old ? 1u : 0u));
+}
+
+// A block tile's rows, kSteps a thread: thread t holds rows base + k *
+// blockDim.x + t (every load in flight at once; kNone past n).
+__device__ __forceinline__ void load_rows(const int* __restrict__ ids,
+                                          const float* __restrict__ vals,
+                                          long long n, long long base,
+                                          unsigned* g, float* v) {
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const long long r = base + static_cast<long long>(k) * blockDim.x +
+                        threadIdx.x;
+    g[k] = kNone;
+    v[k] = 0.0f;
+    if (r < n) {
+      g[k] = static_cast<unsigned>(__ldg(ids + r));
+      v[k] = __ldg(vals + r);
+    }
+  }
+}
+
+// f32 values.  A block takes tiles of blockDim.x * kSteps rows, a grid
+// stride apart.  First the exact path: while the block's values are
+// integers of magnitude at most 2^31 (every SSB measure), their sums are
+// the same in any order, so each thread adds its rows (kSteps of them,
+// the next tile's in flight meanwhile; a run of one group summed in a
+// register) into the block's one int64 grid of (lo, hi) words with shared
+// atomics.  If any of the block's values is
+// not (__syncthreads_or), the block adds its rows again in lane order:
+// each of `grid_warps` warps owns an f64 grid and takes its share of the
+// tiles' 32 * kSteps-row parts, 32 rows a step (add_step).  Either way
+// the block's row of sums is the same bits on every run.
+__global__ void __launch_bounds__(kBlockWarps * 32)
+group_sum_f32(const int* __restrict__ ids, const float* __restrict__ vals,
+              long long n, int n_groups, int grid_warps, double* partials,
+              float* out, double* acc) {
+  extern __shared__ double grids[];     // grid_warps x n_groups; (lo, hi)
+  __shared__ double stage[kBlockWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < warps * n_groups; i += blockDim.x)
-    grids[i] = 0.0;
+  const unsigned groups = static_cast<unsigned>(n_groups);
+  const long long tile = static_cast<long long>(blockDim.x) * kSteps;
+  const long long stride = tile * gridDim.x;
+  unsigned* lo = reinterpret_cast<unsigned*>(grids);
+  unsigned* hi = lo + n_groups;
+  for (int i = threadIdx.x; i < 2 * n_groups; i += blockDim.x) lo[i] = 0u;
   __syncthreads();
-  double* grid = grids + warp * n_groups;
-  const long long stride = 32LL * gridDim.x * warps;
-  for (long long base = 32LL * (static_cast<long long>(blockIdx.x) * warps +
-                                warp);
-       base < n; base += stride) {
-    const long long r = base + lane;
-    unsigned g = kNone;
-    double v = 0.0;
-    if (r < n) {
-      g = static_cast<unsigned>(__ldg(ids + r));
-      v = static_cast<double>(__ldg(vals + r));
-      if (g >= static_cast<unsigned>(n_groups)) g = kNone;
+  bool inexact = false;
+  unsigned run_g = kNone;
+  long long run = 0;
+  long long base = tile * blockIdx.x;
+  unsigned g[kSteps];
+  float v[kSteps];
+  load_rows(ids, vals, n, base, g, v);
+  while (base < n) {
+    const long long next = base + stride;
+    unsigned ng[kSteps];
+    float nv[kSteps];
+    load_rows(ids, vals, n, next, ng, nv);       // in flight meanwhile
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      if (g[k] >= groups) continue;
+      if (!(v[k] == truncf(v[k]) && fabsf(v[k]) <= 2147483648.0f)) {
+        inexact = true;
+        continue;
+      }
+      if (g[k] != run_g) {
+        if (run_g != kNone) add_exact(lo, hi, run_g, run);
+        run_g = g[k];
+        run = 0;
+      }
+      run += static_cast<long long>(v[k]);
     }
-    stage[warp][lane] = v;
-    const unsigned peers = __match_any_sync(kFull, g);
-    __syncwarp();
-    if (g != kNone && lane == __ffs(peers) - 1) {
-      double s = 0.0;
-      for (unsigned m = peers; m != 0u; m &= m - 1u)
-        s += stage[warp][__ffs(m) - 1];
-      grid[g] += s;
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      g[k] = ng[k];
+      v[k] = nv[k];
     }
-    __syncwarp();                  // stage is rewritten by the next step
+    base = next;
   }
-  __syncthreads();
-  double* mine = partials + static_cast<long long>(blockIdx.x) * warps *
-                                n_groups;
-  for (int i = threadIdx.x; i < warps * n_groups; i += blockDim.x)
-    mine[i] = grids[i];
-}
-
-// One block per 32 groups: warp s sums partial rows s, s + 32, ... of its
-// lane's group in order, then warp 0 sums the 32 slices in order.
-// With `acc` (a running f64 grid, a morsel fold's), each group's sum is
-// added to it unrounded and `out` is not written.
-__global__ void __launch_bounds__(kReduceSlices * 32)
-reduce_partials(const double* __restrict__ partials, int rows, int n_groups,
-                float* __restrict__ out, double* __restrict__ acc) {
-  __shared__ double part[kReduceSlices][33];
-  const int lane = threadIdx.x & 31;
-  const int slice = threadIdx.x >> 5;
-  const int g = blockIdx.x * 32 + lane;
-  double s = 0.0;
-  if (g < n_groups) {
-    for (int w = slice; w < rows; w += kReduceSlices)
-      s += partials[static_cast<long long>(w) * n_groups + g];
-  }
-  part[slice][lane] = s;
-  __syncthreads();
-  if (slice == 0 && g < n_groups) {
-    double t = 0.0;
-    for (int k = 0; k < kReduceSlices; ++k) t += part[k][lane];
-    if (acc != nullptr) {
-      acc[g] += t;
-    } else {
-      out[g] = __double2float_rn(t);
+  if (run_g != kNone) add_exact(lo, hi, run_g, run);
+  bool alone;
+  if (!__syncthreads_or(inexact)) {
+    alone = block_row(
+        n_groups,
+        [&](int g) {
+          return static_cast<double>(static_cast<long long>(
+              static_cast<unsigned long long>(hi[g]) << 32 | lo[g]));
+        },
+        partials, out, acc);
+  } else {
+    for (int i = threadIdx.x; i < grid_warps * n_groups; i += blockDim.x)
+      grids[i] = 0.0;
+    __syncthreads();
+    if (warp < grid_warps) {
+      double* grid = grids + warp * n_groups;
+      const int parts = static_cast<int>(blockDim.x >> 5);
+      for (long long base = tile * blockIdx.x; base < n; base += stride) {
+        for (int t = warp; t < parts; t += grid_warps) {
+          const long long part = base + 32LL * kSteps * t;
+          if (part >= n) break;
+          unsigned g[kSteps];
+          float v[kSteps];
+          load_tile(ids, vals, n, part, lane, g, v);
+#pragma unroll
+          for (int k = 0; k < kSteps; ++k) {
+            if (part + 32LL * k >= n) break;
+            add_step(grid, stage[warp], lane, g[k] < groups ? g[k] : kNone,
+                     static_cast<double>(v[k]));
+          }
+        }
+      }
     }
+    __syncthreads();
+    alone = block_row(
+        n_groups,
+        [&](int g) {
+          double s = 0.0;
+          for (int w = 0; w < grid_warps; ++w) s += grids[w * n_groups + g];
+          return s;
+        },
+        partials, out, acc);
   }
+  if (alone) return;
+  cooperative_groups::this_grid().sync();
+  finish_groups(partials, n_groups, &stage[0][0], out, acc);
 }
 
 // The dynamic shared memory a block of each path needs for n_groups.
@@ -164,16 +383,31 @@ size_t grid_bytes(int n_groups, int is_float, int warps) {
                   : static_cast<size_t>(n_groups) * sizeof(unsigned);
 }
 
+// group_sum_launch's arguments, passed by one pointer (a ctypes call pays
+// for each argument it converts).
+struct GroupArgs {
+  const int* ids;
+  const void* vals;
+  long long n;
+  int n_groups;
+  int is_float;
+  long long blocks;
+  int warps;
+  void* partials;
+  void* out;
+  void* acc;
+};
+
 }  // namespace
 
 // The launch shape for n_groups on the current device, the one place it is
 // computed; the wrapper asks once per (device, n_groups, path) and keeps
-// it.  shape[0]: rows a block takes per grid step (the grid is the rows
-// over this, up to shape[1]); shape[1]: blocks resident on the card, 0 when
-// n_groups does not fit one block's shared memory; shape[2]: partial grid
-// rows a block writes (the f32 path's warps, else 0); shape[3]: the most
-// groups either path takes.  Raises the kernel's dynamic shared memory cap
-// to that most, so a later launch of any shape needs no further call.
+// it.  shape[0]: blocks resident on the card (the most a cooperative
+// launch takes), 0 when n_groups does not fit one block's shared memory;
+// shape[1]: the f32 path's warps that own an f64 grid (of its 16 a
+// block), else 8; shape[2]: the most groups either path takes.
+// Raises the kernel's dynamic shared memory cap to that most, so a later
+// launch of any shape needs no further call.
 extern "C" int group_sum_shape(int n_groups, int is_float, long long* shape) {
   if (n_groups < 1) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
@@ -187,19 +421,20 @@ extern "C" int group_sum_shape(int n_groups, int is_float, long long* shape) {
   // one warp's f64 grid beside the f32 path's static stage[][] bounds
   // both paths, as ssb_fused.py bounds the fused kernel's int64 grid
   const int cap = optin - kStageBytes;
-  shape[0] = shape[1] = shape[2] = 0;
-  shape[3] = cap / static_cast<int>(sizeof(double));
-  if (n_groups > shape[3]) return static_cast<int>(cudaSuccess);
+  shape[0] = shape[1] = 0;
+  shape[2] = cap / static_cast<int>(sizeof(double));
+  if (n_groups > shape[2]) return static_cast<int>(cudaSuccess);
   const int fit = cap / (n_groups * static_cast<int>(sizeof(double)));
-  const int warps = is_float ? (fit < kMaxWarps ? fit : kMaxWarps) : 0;
+  const int warps = is_float ? (fit < kMaxWarps ? fit : kMaxWarps)
+                             : kThreads / 32;
   const size_t smem = grid_bytes(n_groups, is_float, warps);
   if (is_float) {
-    err = cudaFuncSetAttribute(group_sum_f64_partials,
+    err = cudaFuncSetAttribute(group_sum_f32,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                cap);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, group_sum_f64_partials, warps * 32, smem);
+        &per_sm, group_sum_f32, kBlockWarps * 32, smem);
   } else {
     err = cudaFuncSetAttribute(group_sum_i32,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -210,44 +445,53 @@ extern "C" int group_sum_shape(int n_groups, int is_float, long long* shape) {
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  shape[0] = is_float ? 32LL * kMinSteps * warps
-                      : static_cast<long long>(kThreads) * kItems;
-  shape[1] = static_cast<long long>(sms) * per_sm;
-  shape[2] = warps;
+  shape[0] = static_cast<long long>(sms) * per_sm;
+  shape[1] = warps;
   return static_cast<int>(cudaSuccess);
 }
 
-// ids: (n,) int32; vals: (n,) int32 (is_float 0) or f32 (is_float 1);
-// out: (n_groups,) int32, zeroed or holding sums to add to, or f32; blocks
-// and warps (the f32 path's, else 0) from group_sum_shape; partials:
-// (blocks * warps, n_groups) f64 scratch (f32 only, else null); acc: null,
-// or (f32 only) an (n_groups,) f64 grid the unrounded sums are added to in
-// place of writing `out`.  Launches on `stream`, does not synchronise,
-// returns cudaGetLastError().
-extern "C" int group_sum_launch(const void* ids, const void* vals,
-                                long long n, int n_groups, int is_float,
-                                long long blocks, int warps, void* partials,
-                                void* out, void* acc, void* stream) {
-  if (n <= 0 || n_groups < 1 || blocks < 1 || blocks > 2147483647LL ||
-      (is_float && (warps < 1 || warps > kMaxWarps || partials == nullptr)))
+// args: a GroupArgs (void here, so the entry keeps external linkage).
+// ids: (n,) int32; vals: (n,) int32 (is_float 0) or f32 (is_float 1); n
+// >= 0; blocks: 1 up to group_sum_shape's resident blocks, warps its
+// warps; partials: blocks x n_groups of scratch (f64 for f32 values,
+// uint32 for int32), null when blocks is 1; out: (n_groups,) of vals'
+// type, written whole, or null with acc: the running (n_groups,) grid
+// (f64 for f32 values, int32 for int32) the sums are added to.  One
+// cooperative launch on `stream`, no other call; does not synchronise,
+// returns the launch's error.
+extern "C" int group_sum_launch(const void* args, void* stream) {
+  const GroupArgs& a = *static_cast<const GroupArgs*>(args);
+  if (a.n < 0 || a.n_groups < 1 || a.blocks < 1 ||
+      a.blocks > 2147483647LL || (a.blocks > 1 && a.partials == nullptr) ||
+      (a.out == nullptr) == (a.acc == nullptr) ||
+      (a.is_float && (a.warps < 1 || a.warps > kMaxWarps)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = grid_bytes(n_groups, is_float, warps);
-  if (is_float) {
-    group_sum_f64_partials<<<static_cast<unsigned>(blocks), warps * 32, smem,
-                             s>>>(static_cast<const int*>(ids),
-                                  static_cast<const float*>(vals), n,
-                                  n_groups, static_cast<double*>(partials));
-    reduce_partials<<<(n_groups + 31) / 32, kReduceSlices * 32, 0, s>>>(
-        static_cast<const double*>(partials),
-        static_cast<int>(blocks * warps), n_groups, static_cast<float*>(out),
-        static_cast<double*>(acc));
-  } else {
-    group_sum_i32<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        static_cast<const int*>(ids), static_cast<const int*>(vals), n,
-        n_groups, static_cast<unsigned*>(out));
+  const int* ids = a.ids;
+  long long n = a.n;
+  int n_groups = a.n_groups;
+  const dim3 grid(static_cast<unsigned>(a.blocks));
+  const size_t smem = grid_bytes(n_groups, a.is_float, a.warps);
+  if (a.is_float) {
+    const float* vals = static_cast<const float*>(a.vals);
+    double* partials = static_cast<double*>(a.partials);
+    float* out = static_cast<float*>(a.out);
+    double* acc = static_cast<double*>(a.acc);
+    int grid_warps = a.warps;
+    void* params[] = {&ids,        &vals,     &n,   &n_groups,
+                      &grid_warps, &partials, &out, &acc};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(group_sum_f32), grid,
+        dim3(kBlockWarps * 32), params, smem, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  const int* vals = static_cast<const int*>(a.vals);
+  unsigned* partials = static_cast<unsigned*>(a.partials);
+  unsigned* out = static_cast<unsigned*>(a.out);
+  unsigned* acc = static_cast<unsigned*>(a.acc);
+  void* params[] = {&ids, &vals, &n, &n_groups, &partials, &out, &acc};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(group_sum_i32), grid, dim3(kThreads),
+      params, smem, s));
 }
 
 namespace {

@@ -59,18 +59,28 @@
 // row of a duplicate key is found first.  Hopper threads insert at once,
 // and a plain CAS of the key would place rows in whatever order the
 // threads win.  So the insert places ROW IDS by ordered linear probing:
-// an int32 slot array (kNoRow where free); a thread carries a row from
-// its home slot; at a free slot it CASes its row in, at a slot held by a
-// higher row it CASes its row in and carries the displaced row on from
-// the next slot, at a lower row it moves on.  The layout that results is
-// unique, whatever order the CASes win: each row sits past its home only
-// over lower rows, which is the row-order sequential table.  A second
-// pass writes htk[s] = keys[row[s]] and htv[s] = vals[row[s]] (EMPTY and
-// 0 where free).  What bounds it: device-memory bytes, the keys and vals
-// read once and the table written once (8n + 8S); the slot array (4S,
-// written and read) and the CASes, one per probe step, come on top, and
-// at half fill a row's walk is short.  The wrapper raises for n > S and
-// for a key equal to EMPTY, which no such table can hold.
+// a slot array of 4-byte rows (all ones where free, above every row); a
+// thread carries a row from its home slot; at a free slot it CASes its
+// row in, at a slot held by a higher row it CASes its row in and carries
+// the displaced row on from the next slot, at a lower row it moves on.
+// The layout that results is unique, whatever order the CASes win: each
+// row sits past its home only over lower rows, which is the row-order
+// sequential table.  The insert also writes each row's (key, val) as one
+// 8-byte word, and the emit gathers that word for every filled slot: one
+// random sector a slot, where the row's key and val from their own
+// arrays cost two.  A call is one cooperative launch (build_table: clear,
+// insert, emit, split by grid syncs; kBuildItems rows a thread, their
+// CASes in flight together) and, in the wrapper, one 4-byte read of the
+// flag the insert raises for a key equal to EMPTY, which no such table
+// can hold.  8-byte slots of (row, key), which spare the copy and emit
+// the key from the slot, tied at 256 MB and lost at 64 MB, where their
+// slot array no longer fits the 50 MB L2 (PERF.md §6).  What bounds
+// it: device-memory bytes, the keys and vals read once and the table
+// written once (8n + 8S); the slot array (4S, cleared, then read by the
+// emit), the copy (8n, written, then gathered) and the CASes, one per
+// probe step, random sectors once the slot array outgrows the L2, come on
+// top.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
@@ -326,88 +336,158 @@ extern "C" int probe_agg_launch(const void* args, void* stream) {
 
 namespace {
 
-constexpr int kNoRow = 2147483647;             // INT32_MAX: a free slot
+constexpr unsigned kFreeRow = ~0u;              // above every row
 constexpr int kBuildThreads = 256;
+constexpr int kBuildItems = 4;          // rows a thread places at once
 
-__global__ void __launch_bounds__(kBuildThreads)
-build_clear(int* __restrict__ rows, long long n_slots) {
-  const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
-  for (long long s = static_cast<long long>(blockIdx.x) * kBuildThreads +
-                     threadIdx.x;
-       s < n_slots; s += stride)
-    rows[s] = kNoRow;
-}
-
-__global__ void __launch_bounds__(kBuildThreads)
-build_insert(const int* __restrict__ keys, long long n, unsigned mask,
-             int* __restrict__ rows) {
-  const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kBuildThreads +
-                     threadIdx.x;
-       i < n; i += stride) {
-    int r = static_cast<int>(i);
-    unsigned s = (static_cast<unsigned>(__ldg(keys + i)) * kHashMul) & mask;
-    // A filled slot is never freed, only taken by a lower row, so each
-    // CAS either places r or names the row that holds the slot now.
-    int expect = kNoRow;               // first guess: the slot is free
-    while (true) {
-      const int held = atomicCAS(rows + s, expect, r);
-      if (held == expect) {            // r is in slot s
-        if (held == kNoRow) break;
-        r = held;                      // carry the displaced higher row on
-        s = (s + 1u) & mask;
-        expect = kNoRow;
-      } else if (held > r) {
-        expect = held;                 // displace it: CAS again at s
+// Ordered linear probing of rows, kBuildItems of them in flight a thread:
+// each round issues one CAS for every row still being placed, then moves
+// each on.  A row at slot s: a free slot takes it; a slot held by a
+// higher row takes it and the displaced row goes on from the next slot;
+// a lower row's slot is passed.  A filled slot is never freed, only taken
+// by a lower row, so each CAS either places the row or names the row that
+// holds the slot now.  `live`: the rows still to place.
+__device__ __forceinline__ void insert_rows(unsigned* slots, unsigned mask,
+                                            unsigned* row, unsigned* s,
+                                            unsigned live) {
+  unsigned expect[kBuildItems];
+#pragma unroll
+  for (int i = 0; i < kBuildItems; ++i) expect[i] = kFreeRow;
+  while (live != 0u) {
+    unsigned held[kBuildItems];
+#pragma unroll
+    for (int i = 0; i < kBuildItems; ++i)
+      if ((live >> i) & 1u) held[i] = atomicCAS(slots + s[i], expect[i],
+                                                row[i]);
+#pragma unroll
+    for (int i = 0; i < kBuildItems; ++i) {
+      if (!((live >> i) & 1u)) continue;
+      if (held[i] == expect[i]) {
+        if (held[i] == kFreeRow) {
+          live &= ~(1u << i);
+          continue;
+        }
+        row[i] = held[i];
+        s[i] = (s[i] + 1u) & mask;
+        expect[i] = kFreeRow;
+      } else if (held[i] > row[i]) {
+        expect[i] = held[i];
       } else {
-        s = (s + 1u) & mask;           // a lower row holds s: move on
-        expect = kNoRow;
+        s[i] = (s[i] + 1u) & mask;
+        expect[i] = kFreeRow;
       }
     }
   }
 }
 
+// A table slot from its row: the row's (key, val) (EMPTY and 0 where
+// free), the one gather of the emit, read past L1 (the insert wrote it).
+__device__ __forceinline__ int2 emit_slot(unsigned r,
+                                          const int2* __restrict__ pairs) {
+  if (r == kFreeRow) return make_int2(kEmpty, 0);
+  return __ldcg(pairs + r);
+}
+
+// The whole build in one cooperative launch of at most the resident
+// blocks, three phases split by grid syncs: clear (every slot free, two to an
+// 8-byte store; the flag down), insert (each thread its rows, a stride of
+// the grid apart, kBuildItems at once: the keys and vals loaded, the
+// (key, val) words written, the CASes in flight together; a key equal to
+// EMPTY raises the flag and is not placed), emit (two slots a thread
+// step, the slot words read past L1, where the other SMs' CASes left
+// them).  scratch: the (mask + 1) 4-byte slots, padded to 8 bytes, then
+// the n (key, val) words.
 __global__ void __launch_bounds__(kBuildThreads)
-build_emit(const int* __restrict__ rows, const int* __restrict__ keys,
-           const int* __restrict__ vals, long long n_slots,
-           int* __restrict__ htk, int* __restrict__ htv) {
+build_table(const int* __restrict__ keys, const int* __restrict__ vals,
+            long long n, unsigned mask, unsigned long long* scratch,
+            int* flag, int* __restrict__ htk, int* __restrict__ htv) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long n_slots = static_cast<long long>(mask) + 1;
+  const long long pairs_n = n_slots / 2;
   const long long stride = static_cast<long long>(gridDim.x) * kBuildThreads;
-  for (long long s = static_cast<long long>(blockIdx.x) * kBuildThreads +
-                     threadIdx.x;
-       s < n_slots; s += stride) {
-    const int r = rows[s];
-    htk[s] = r == kNoRow ? kEmpty : __ldg(keys + r);
-    htv[s] = r == kNoRow ? 0 : __ldg(vals + r);
+  const long long first = static_cast<long long>(blockIdx.x) * kBuildThreads +
+                          threadIdx.x;
+  unsigned* slots = reinterpret_cast<unsigned*>(scratch);
+  int2* rows = reinterpret_cast<int2*>(scratch + (n_slots + 1) / 2);
+  uint2* slot2 = reinterpret_cast<uint2*>(slots);
+  for (long long i = first; i < pairs_n; i += stride)
+    slot2[i] = make_uint2(kFreeRow, kFreeRow);
+  if (first == 0) {
+    if (n_slots == 1) slots[0] = kFreeRow;
+    *flag = 0;
+  }
+  grid.sync();
+  for (long long base = first; base < n; base += stride * kBuildItems) {
+    unsigned row[kBuildItems], slot[kBuildItems], live = 0u;
+    int k[kBuildItems], v[kBuildItems];
+#pragma unroll
+    for (int i = 0; i < kBuildItems; ++i) {
+      const long long r = base + i * stride;
+      k[i] = r < n ? __ldg(keys + r) : 0;
+      v[i] = r < n ? __ldg(vals + r) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kBuildItems; ++i) {
+      const long long r = base + i * stride;
+      row[i] = static_cast<unsigned>(r);
+      slot[i] = home_slot(k[i], mask);
+      if (r < n) rows[r] = make_int2(k[i], v[i]);
+      if (r < n && k[i] == kEmpty) *flag = 1;
+      if (r < n && k[i] != kEmpty) live |= 1u << i;
+    }
+    insert_rows(slots, mask, row, slot, live);
+  }
+  grid.sync();
+  int2* htk2 = reinterpret_cast<int2*>(htk);
+  int2* htv2 = reinterpret_cast<int2*>(htv);
+  for (long long i = first; i < pairs_n; i += stride) {
+    const uint2 w = __ldcg(slot2 + i);
+    const int2 a = emit_slot(w.x, rows), b = emit_slot(w.y, rows);
+    htk2[i] = make_int2(a.x, b.x);
+    htv2[i] = make_int2(a.y, b.y);
+  }
+  if (n_slots == 1 && first == 0) {
+    const int2 a = emit_slot(__ldcg(slots), rows);
+    htk[0] = a.x;
+    htv[0] = a.y;
   }
 }
 
 }  // namespace
 
-// keys, vals: (n,) int32, no key EMPTY; rows: (mask + 1,) int32 scratch;
-// htk, htv: (mask + 1,) int32 outputs, mask + 1 a power of two >= n.
-// 0 <= n < 2^31.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// Blocks of the build resident on the current device (`which` is 0): the
+// most its cooperative launch takes.
+extern "C" int build_shape(int which, long long* resident) {
+  if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return resident_blocks(build_table, resident, kBuildThreads);
+}
+
+// keys, vals: (n,) int32; scratch: (mask + 2) / 2 + n + 1 8-byte words
+// (the 4-byte slots, the (key, val) words, then the 4-byte flag), all
+// written here (the flag is 1 after the launch when a
+// key equals EMPTY, and the table is then not the rows'); htk, htv: (mask
+// + 1,) int32 outputs, written whole, mask + 1 a power of two >= n,
+// htv's address 8-byte aligned when mask > 0.  0 <= n < 2^31 - 1; blocks:
+// 1 up to build_shape's.  One cooperative launch on `stream`, no other
+// call; does not synchronise, returns the launch's error.
 extern "C" int build_launch(const void* keys, const void* vals, long long n,
-                            unsigned mask, void* rows, void* htk, void* htv,
-                            void* stream) {
+                            unsigned mask, long long blocks, void* scratch,
+                            void* htk, void* htv, void* stream) {
   const long long n_slots = static_cast<long long>(mask) + 1;
   if (n < 0 || n > n_slots || n > 2147483646LL ||
-      (mask & (mask + 1u)) != 0u)
+      (mask & (mask + 1u)) != 0u || blocks < 1 || blocks > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* r = static_cast<int*>(rows);
   const int* k = static_cast<const int*>(keys);
-  auto blocks = [](long long items) {
-    const long long b = (items + kBuildThreads - 1) / kBuildThreads;
-    return static_cast<unsigned>(b < 65536 ? b : 65536);
-  };
-  build_clear<<<blocks(n_slots), kBuildThreads, 0, s>>>(r, n_slots);
-  if (n > 0)
-    build_insert<<<blocks(n), kBuildThreads, 0, s>>>(k, n, mask, r);
-  build_emit<<<blocks(n_slots), kBuildThreads, 0, s>>>(
-      r, k, static_cast<const int*>(vals), n_slots, static_cast<int*>(htk),
-      static_cast<int*>(htv));
-  return static_cast<int>(cudaGetLastError());
+  const int* v = static_cast<const int*>(vals);
+  unsigned long long* slots = static_cast<unsigned long long*>(scratch);
+  int* flag = reinterpret_cast<int*>(slots + (n_slots + 1) / 2 + n);
+  int* out_k = static_cast<int*>(htk);
+  int* out_v = static_cast<int*>(htv);
+  void* params[] = {&k, &v, &n, &mask, &slots, &flag, &out_k, &out_v};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(build_table),
+      dim3(static_cast<unsigned>(blocks)), dim3(kBuildThreads), params, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 namespace {

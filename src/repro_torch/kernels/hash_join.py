@@ -7,7 +7,11 @@ Same contract as ``ref.build``: the table that inserting the rows one by
 one in row order gives, bit for bit (the reference's ``ref.build`` and
 its kernel's; not ``sql.hashtable.np_build``'s, which places rows in
 rounds and lays them out otherwise).  It raises for more rows than slots
-and for a key equal to EMPTY, which no such table can hold.
+(checked on the host) and for a key equal to EMPTY, which no such table
+can hold (the kernel raises a flag, read as 4 bytes after the launch).
+A call is two allocations (the 4-byte row slots, the rows' (key, val)
+words and the flag; the table) and one cooperative launch through
+``build.launch``.
 
 ``probe_join`` — the rows whose key is found in a linear-probe table, as
 stable compacted (payload, val) pairs (the opat chain's join); the port
@@ -50,6 +54,7 @@ from repro_torch.kernels import ref
 LAUNCHES = 0
 AGG_LAUNCHES = 0
 BUILD_LAUNCHES = 0
+BUILD_SLOTS_PER_BLOCK = 2048    # build's grid: 4 slot pairs a thread
 
 
 class _JoinArgs(ctypes.Structure):
@@ -85,7 +90,10 @@ _SIGNATURES = {
     "probe_agg_tile_rows": (ctypes.c_longlong, []),
     "build_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]),
+    "build_shape": (ctypes.c_int, [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
 }
 _VAL_TYPES = (torch.int32, torch.float32)
 
@@ -181,22 +189,26 @@ def build(keys: torch.Tensor, vals: torch.Tensor, n_slots: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (htk, htv), each (n_slots,) int32 on the keys' device.  keys,
     vals: (n,) int32, n <= n_slots, no key EMPTY; n_slots a power of two
-    up to 2^31."""
+    up to 2^31.  One launch and one 4-byte read of its EMPTY flag."""
     global BUILD_LAUNCHES
     if keys.device.type != "cuda":
         raise ValueError(f"build: no kernel for device {keys.device}")
     device, n = keys.device, keys.shape[0]
     kbuild.check_stream(keys, "keys", n, device)
     kbuild.check_stream(vals, "vals", n, device)
-    ref.check_build(keys, vals, n_slots)
-    rows = torch.empty((n_slots,), dtype=torch.int32, device=device)
-    out = torch.empty((2, n_slots), dtype=torch.int32, device=device)
+    ref.check_build_shape(keys, vals, n_slots)
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.build_launch(keys.data_ptr(), vals.data_ptr(), n,
-                              n_slots - 1, rows.data_ptr(),
-                              out[0].data_ptr(), out[1].data_ptr(), stream)
-    kbuild.check(lib, rc, "build")
+    blocks = min(kbuild.resident(lib, "build_shape", keys.get_device(), 0),
+                 -(-n_slots // BUILD_SLOTS_PER_BLOCK))
+    # the 4-byte row slots (in 8-byte words), the rows' (key, val) words,
+    # then the flag
+    half = (n_slots + 1) // 2
+    scratch = torch.empty((half + n + 1,), dtype=torch.int64, device=device)
+    out = torch.empty((2, n_slots), dtype=torch.int32, device=device)
+    kbuild.launch(lib, lib.build_launch, device, "build", keys.data_ptr(),
+                  vals.data_ptr(), n, n_slots - 1, blocks, scratch.data_ptr(),
+                  out[0].data_ptr(), out[1].data_ptr())
     BUILD_LAUNCHES += 1
+    if n and scratch.view(torch.int32)[2 * (half + n)].item():
+        raise ref.empty_key_error()
     return out[0], out[1]

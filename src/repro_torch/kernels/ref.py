@@ -370,9 +370,19 @@ def multi_spja(pred_cols: Sequence[torch.Tensor], pred_bounds,
 def check_build(keys: torch.Tensor, vals: torch.Tensor,
                 n_slots: int) -> None:
     """Raise unless (keys, vals) can be built into an ``n_slots`` table:
-    (n,) int32 each, n_slots a power of two up to 2^31 holding every row,
-    and no key equal to EMPTY (the reference's lookups stop at EMPTY and
-    its sequential insert overwrites such a key, so no table holds it)."""
+    ``check_build_shape``'s checks, and no key equal to EMPTY (the
+    reference's lookups stop at EMPTY and its sequential insert
+    overwrites such a key, so no table holds it)."""
+    check_build_shape(keys, vals, n_slots)
+    if keys.shape[0] and bool((keys == B.EMPTY).any()):
+        raise empty_key_error()
+
+
+def check_build_shape(keys: torch.Tensor, vals: torch.Tensor,
+                      n_slots: int) -> None:
+    """Raise unless keys and vals are (n,) int32 each and n_slots is a
+    power of two up to 2^31 holding every row: ``check_build`` without
+    the scan of the keys (the kernel's insert checks them)."""
     n = keys.shape[0]
     for what, t in (("keys", keys), ("vals", vals)):
         if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != n:
@@ -382,9 +392,12 @@ def check_build(keys: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"n_slots {n_slots} is not a power of 2 up to 2^31")
     if n > n_slots:
         raise ValueError(f"{n} keys do not fit a table of {n_slots} slots")
-    if n and bool((keys == B.EMPTY).any()):
-        raise ValueError(f"a key equals EMPTY ({B.EMPTY}), which no "
-                         "open-addressing table can hold")
+
+
+def empty_key_error() -> ValueError:
+    """The error of a build whose keys hold EMPTY, in every mode."""
+    return ValueError(f"a key equals EMPTY ({B.EMPTY}), which no "
+                      "open-addressing table can hold")
 
 
 def build(keys: torch.Tensor, vals: torch.Tensor, n_slots: int

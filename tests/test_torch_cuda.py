@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch import cases
+from repro_torch.core import blocks as core_blocks
 from repro_torch.kernels import (agg, build, hash_join, multi_fused, ops,
                                  part_probe, project, radix_part, ref,
                                  select_scan, ssb_fused, unpack)
@@ -403,6 +404,71 @@ def test_group_sum_kernel_matches_plain(cuda, n, n_groups, kind):
         assert bool(((got - want).abs() <= ulp).all())
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_groups", [1, 7000, "max"])
+@pytest.mark.parametrize("n", [72, 4095, 1 << 22])
+@pytest.mark.parametrize("kind", cases.GROUP_KINDS)
+def test_group_sum_grid_sized_by_its_rows(cuda, kind, n, n_groups):
+    """One launch a call, whatever grid the rows give it (one block for a
+    few thousand rows, which writes the result itself; the resident grid
+    for 2^22 rows, finished after the grid sync), up to the most groups
+    one warp's f64 grid holds; two runs give the same bits, bit-identical
+    to the plain version or within one f32 ulp for non-integer f32."""
+    if n_groups == "max":
+        n_groups = agg._shape(cuda.index, 1, kind != "int32_overflow")[2]
+    args = _on(cases.group_case(n % 1000 + n_groups % 97, n, n_groups,
+                                kind, out_of_range=True), cuda)
+    got = _launched(agg, "group_sum", *args)
+    again = _launched(agg, "group_sum", *args)
+    want = ref.group_sum(*args)
+    assert got.dtype == want.dtype and got.shape == (n_groups,)
+    assert torch.equal(again, got)
+    if kind == "f32_random":
+        ulp = torch.abs(torch.nextafter(want, torch.full_like(want, np.inf))
+                        - want)
+        assert bool(((got - want).abs() <= ulp).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("odd", ["past_2^31", "halves"])
+@pytest.mark.parametrize("n", [4095, 1 << 22])
+def test_group_sum_exact_and_ordered_blocks_agree(cuda, n, odd):
+    """f32 values that are integers of magnitude at most 2^31 are summed
+    exactly in int64; a block that holds any other value (a few rows of
+    3 * 2^31, or of halves) sums its rows in f64 in lane order instead.
+    Every sum here is exact in f64, so each block's path gives the plain
+    version's bits, run after run."""
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, 7000, n, dtype=np.int32)
+    vals = rng.integers(-1000, 1000, n).astype(np.float32)
+    rows = rng.integers(0, n, 5)
+    vals[rows] = np.float32(3 * 2.0 ** 31) if odd == "past_2^31" else \
+        vals[rows] + np.float32(0.5)
+    ids, vals = (torch.from_numpy(a).to(cuda) for a in (ids, vals))
+    got = _launched(agg, "group_sum", ids, vals, 7000)
+    assert torch.equal(_launched(agg, "group_sum", ids, vals, 7000), got)
+    assert torch.equal(got, ref.group_sum(ids, vals, 7000))
+
+
+@pytest.mark.parametrize("n_groups", [1, 7000])
+@pytest.mark.parametrize("kind", ["int32_overflow", "f32_integers"])
+def test_group_sum_acc_folds_morsels_as_one_call(cuda, kind, n_groups):
+    """Three morsels (one block, then grids of blocks) added into one
+    running grid, f64 for f32 values and int32 for int32, one launch each:
+    the grid is the sums of one call over their concatenation (rounded
+    once for f32; wrapping for int32)."""
+    ids, vals, g = _on(cases.group_case(23, 300_007, n_groups, kind,
+                                        out_of_range=True), cuda)
+    acc = torch.zeros((g,), dtype=ref.group_acc_dtype(vals), device=cuda)
+    cuts = (0, 72, 100_001, 300_007)
+    for lo, hi in zip(cuts, cuts[1:]):
+        assert _launched(agg, "group_sum", ids[lo:hi], vals[lo:hi], g,
+                         acc=acc) is acc
+    whole = _launched(agg, "group_sum", ids, vals, g)
+    assert torch.equal(acc.to(vals.dtype), whole)
+    assert torch.equal(whole, ref.group_sum(ids, vals, g))
 
 
 def test_opat_queries_on_card_match_oracle_and_fused(cuda):
@@ -1202,6 +1268,71 @@ def test_build_kernel_table_probes_as_the_host_build(cuda):
                                          dtype=torch.int32) * 7, len(keys))
     assert torch.equal(hash_join.probe_agg(probe, probe, htk, htv),
                        hash_join.probe_agg(probe, probe, hk, hv))
+
+
+def test_build_runs_wrap_past_the_last_slot(cuda):
+    """Rows whose home slots are the table's last four: their runs wrap
+    to slot 0 and on, in row order, as the sequential build lays them."""
+    n_slots = 64
+    cand = torch.arange(-20_000, 20_000, dtype=torch.int32)
+    keys = cand[core_blocks.hash_fn(cand, n_slots) >= n_slots - 4][:40]
+    keys = torch.cat([keys, keys[:8]]).to(cuda)         # and duplicates
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=cuda) * 7
+    got = _launched(hash_join, "build", keys, vals, n_slots,
+                    counter="BUILD_LAUNCHES")
+    want = ref.build(keys, vals, n_slots)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got[0][0]) != -(1 << 31)                 # wrapped to slot 0
+
+
+@pytest.mark.parametrize("n_slots", [16, 1 << 12, 1 << 16])
+def test_build_full_table_of_duplicates(cuda, n_slots):
+    """n = S rows of duplicate keys: every slot filled, each key's rows in
+    row order along its chain."""
+    keys, vals, s = _on(cases.build_case(17, n_slots, "duplicates",
+                                         n=n_slots), cuda)
+    got = _launched(hash_join, "build", keys, vals, s,
+                    counter="BUILD_LAUNCHES")
+    want = ref.build(keys, vals, s)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not bool((got[0] == -(1 << 31)).any())
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_build_empty_key_raises_from_the_kernels_flag(cuda, where):
+    """A key equal to EMPTY is found by the kernel's insert, which raises
+    its flag; the wrapper raises the plain path's error after the launch,
+    and the next call, of clean keys, builds."""
+    keys, vals, s = _on(cases.build_case(19, 1 << 16), cuda)
+    at = {"first": 0, "middle": keys.numel() // 2,
+          "last": keys.numel() - 1}[where]
+    clean = keys.clone()
+    keys[at] = -(1 << 31)
+    before = hash_join.BUILD_LAUNCHES
+    with pytest.raises(ValueError) as kernel_err:
+        hash_join.build(keys, vals, s)
+    assert hash_join.BUILD_LAUNCHES == before + 1
+    for mode in ("kernel", "ref"):
+        with pytest.raises(ValueError) as err:
+            ops.build_hash_table(keys, vals, s, mode=mode)
+        assert str(err.value) == str(kernel_err.value)
+    got = _launched(hash_join, "build", clean, vals, s,
+                    counter="BUILD_LAUNCHES")
+    assert all(torch.equal(g, w)
+               for g, w in zip(got, ref.build(clean, vals, s)))
+
+
+def test_build_table_past_the_l2_bit_identical_to_plain(cuda):
+    """The join microbenchmark's largest table, 2^24 rows into 2^25
+    slots (256 MB of table, a 256 MB slot array past the 50 MB L2)."""
+    host, n_slots = cases.join_bench_keys(20, 256 << 20)
+    assert n_slots == 1 << 25
+    keys = torch.from_numpy(host).to(cuda)
+    vals = keys * 3 + 1
+    got = _launched(hash_join, "build", keys, vals, n_slots,
+                    counter="BUILD_LAUNCHES")
+    want = ref.build(keys, vals, n_slots)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_build_wrapper_rejects_bad_inputs(cuda):
