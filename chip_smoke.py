@@ -127,8 +127,31 @@ exits non-zero without printing a result:
            set a one-morsel run of the query measured (plus 64 MiB of
            allocator slack); per query ``query_ms`` beside the
            resident one, the upload's bound (scanned bytes over the
-           measured host-to-device rate, beside a pinned 1 GiB copy) and
-           the resident kernel time; one morsel query profiled.
+           measured host-to-device rate, beside a pinned 1 GiB copy),
+           the cost model's ``morsel_pipeline_time`` on the calibrated
+           card (phase 12) and the resident kernel time; the 13 queries
+           ``sharded`` at S = 4 over the host table, each shard folding its
+           own morsels (morsels added across the shards, the peak one
+           shard's double buffer, by the same rule); one morsel query
+           profiled;
+12. sharding and the cost model (run before phase 11, on phase 4's and
+           phase 6's resident databases): ``calibrate.measure`` on the
+           card into a cache of the run's own (read, write, L2 gather,
+           launch overhead, pinned host-to-device rate, beside the
+           published 3.35 TB/s), read back by ``model.default_hardware``;
+           the 13 queries through ``compile_plan(plan, "sharded")`` at S
+           = 2, 4 and 8 logical shards, plain and packed (shards of a
+           resident table are views of its tensors: the device memory
+           over the base at most the re-packed words of packed columns
+           cut off a word boundary) — S ``spja`` launches a query, every
+           result bit-identical to the oracle, to the fused path and to a
+           second pass; ``query_ms`` beside fused with each shard's time;
+           the 13-query wave through ``execute_shared_sharded`` at S = 4,
+           plain and packed — S ``multi_spja`` launches, bit-identical to
+           phase 9's ``execute_shared``; ``compile_plan(plan, "auto")`` on
+           the plain database and on its S = 4 shards — bit-identical to
+           the oracle, the choice and each candidate's predicted time
+           beside the measured ``query_ms`` of phases 4, 5, 7 and 12.
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -222,6 +245,11 @@ MIN_MORSELS = 4
 MIN_PACKED_MORSELS = 3
 H2D_BYTES = 1 << 30
 MORSEL_REPS = 3
+# phase 12: the shard counts of the 13 queries, of the sharded wave, and
+# of phase 11's sharded morsel run
+SHARDS = (2, 4, 8)
+WAVE_SHARDS = 4
+MORSEL_SHARDS = 4
 PART_N = 2_000_003              # rows of the synthetic partitioned probes
 # the one-sweep compactions (csrc/lookback.cuh): a call is one memset and
 # one kernel, each timed call run twice
@@ -2589,6 +2617,15 @@ def resident_phases() -> dict:
     print(f"phase10_s {time.perf_counter() - t:.3f}")
     del base, vals, sum_inputs, tables
 
+    sharded = shard_phase(
+        dev, card, db, pdb, cache, queries, oracle, kernels, mods,
+        first=first, all13=waves["all13"], pad_to=pads["all13"],
+        waves={label: wave_out[label, "all13"]
+               for label in ("plain", "packed")},
+        measured={"fused": fused_ms, "opat": opat_ms,
+                  "part": {r["query"]: r["part_query_ms"]
+                           for r in part_rows},
+                  "shared": {"all13": main_wave["query_ms"]}})
     launch = ("block", "blocks_per_sm", "warps_per_sm")
     shapes = {(label, r["query"]): {k: r[k] for k in launch}
               for label, rs in (("fused", rows), ("packed_fused", prows))
@@ -2607,7 +2644,204 @@ def resident_phases() -> dict:
                               {r["query"]: r["kernel_ms"] for r in prows}),
                 shared=({"all13": wave_out["plain", "all13"]},
                         {"all13": main_wave["query_ms"]},
-                        {"all13": main_wave["kernel_ms"]}))
+                        {"all13": main_wave["kernel_ms"]}),
+                **sharded)
+
+
+def shard_phase(dev, card, db, pdb, cache, queries, oracle, kernels, mods,
+                first, all13, pad_to, waves, measured) -> dict:
+    """Phase 12, on the resident databases of phases 4 and 6; returns what
+    phase 11 reads (the calibrated hardware, and the 13 queries sharded
+    at ``MORSEL_SHARDS`` with their ``query_ms``)."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.cost.model import H100
+    from repro_torch.kernels import ssb_fused
+    from repro_torch.sql import calibrate, shard
+    from repro_torch.sql import compile as TC
+    from repro_torch.sql import model as M
+    from repro_torch.sql.compile import compile_plan
+    mf = mods["multi_fused"]
+    t = phase(f"12 sharding and the cost model: calibration; the 13 queries "
+              f"sharded at S = {SHARDS}, plain and packed; the 13-query wave "
+              f"sharded at S = {WAVE_SHARDS}; auto, SF {SF}")
+
+    # calibration on the card, into a cache of this run's own
+    saved = os.environ.get("REPRO_CALIB_CACHE")
+    tmp = tempfile.mkdtemp(prefix="calib-")
+    os.environ["REPRO_CALIB_CACHE"] = tmp
+    t0 = time.perf_counter()
+    calib = calibrate.measure(dev)
+    calibrate.save(calib)
+    calib_s = time.perf_counter() - t0
+    hw = M.default_hardware(dev)
+    if hw != calibrate.apply(calib, H100):
+        raise AssertionError(f"default_hardware did not read the "
+                             f"calibration: {hw}")
+    print("calibration " + json.dumps({
+        "card": card, "seconds": calib_s,
+        "read_GBps": calib.read_bw / 1e9, "write_GBps": calib.write_bw / 1e9,
+        "cache_GBps": calib.cache_bw / 1e9,
+        "launch_overhead_us": calib.launch_overhead_s * 1e6,
+        "h2d_GBps": calib.interconnect_bw / 1e9,
+        "published_read_GBps": HBM_BYTES_PER_S / 1e9,
+        "read_over_published": calib.read_bw / HBM_BYTES_PER_S,
+        "sizes": {"stream_bytes": calibrate.STREAM_BYTES["cuda"],
+                  "gather_table_bytes": calibrate.GATHER_TABLE_BYTES["cuda"],
+                  "gather_probes": calibrate.GATHER_PROBES["cuda"],
+                  "h2d_bytes": calibrate.H2D_BYTES}}), flush=True)
+
+    def own_bytes(sdb, database):
+        """Device bytes the shards hold of their own (the re-packed words
+        of a packed column cut off a word boundary), in allocator
+        blocks."""
+        base = database.lineorder
+        total = 0
+        for x in sdb.shards:
+            fact = x.lineorder
+            for col in fact.columns:
+                d = fact.on_device(col, dev)
+                if d.untyped_storage().data_ptr() != \
+                        base.on_device(col, dev).untyped_storage().data_ptr():
+                    total += -(-d.numel() * 4 // 512) * 512
+        return total
+
+    def run_sharded(sdb, s):
+        out, launched, shard_ms = {}, {}, {}
+        for name, plan in queries.items():
+            before = ssb_fused.LAUNCHES
+            q = compile_plan(plan, "sharded")
+            out[name] = q.execute(sdb, cache=cache)
+            launched[name] = ssb_fused.LAUNCHES - before
+            if q.device_count != s or len(q.shard_times_s) != s:
+                raise AssertionError(f"{name}: {q.device_count} shards, "
+                                     f"{len(q.shard_times_s)} times")
+            shard_ms[name] = [x * 1e3 for x in q.shard_times_s]
+        return out, launched, shard_ms
+
+    databases = (("plain", db), ("packed", pdb))
+    shard_rows, at_morsel = [], {}
+    sharded_launches = 0            # the first pass of each S and database
+    for label, database in databases:
+        fused = measured["fused"] if label == "plain" else None
+        for s in SHARDS:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            sdb = shard.shard_database(database, s)
+            torch.cuda.synchronize()
+            over = torch.cuda.memory_allocated() - before
+            repacked = own_bytes(sdb, database)
+            if over > repacked:
+                raise AssertionError(f"{label} S={s}: {over} B over the base, "
+                                     f"re-packed words {repacked} B")
+            ssb_fused.LAUNCHES = 0
+            got, launched, _ = run_sharded(sdb, s)
+            sharded_launches += ssb_fused.LAUNCHES
+            again, _, shard_ms = run_sharded(sdb, s)
+            if set(launched.values()) != {s}:
+                raise AssertionError(f"{label} S={s}: spja launches "
+                                     f"{launched}, expected {s} a query")
+            for name in queries:
+                for other, what in ((oracle[name], "numpy oracle"),
+                                    (first[name], "fused path"),
+                                    (again[name], "second pass")):
+                    if not same_bits(got[name], other):
+                        raise AssertionError(f"{label} S={s} {name}: "
+                                             f"differs from the {what}")
+            for name, plan in queries.items():
+                times = query_ms(compile_plan(plan, "sharded"), sdb, cache)
+                row = {"database": label, "S": s, "query": name,
+                       "query_ms": statistics.median(times),
+                       "query_ms_max": max(times),
+                       "shard_ms": shard_ms[name],
+                       "launches": launched[name]}
+                if fused is not None:
+                    row["fused_query_ms"] = fused[name]
+                    row["over_fused"] = row["query_ms"] / fused[name]
+                shard_rows.append(row)
+                print("sharded " + json.dumps(row), flush=True)
+            if (label, s) == ("plain", MORSEL_SHARDS):
+                at_morsel = (got, {r["query"]: r["query_ms"] for r in
+                                   shard_rows[-len(queries):]}, {})
+            print(f"{label} S={s}: allocated over the base {over} B, "
+                  f"re-packed words {repacked} B; bit-identical: oracle, "
+                  f"fused, second pass", flush=True)
+            del sdb
+    totals = {f"{label} S={s}": sum(r["query_ms"] for r in shard_rows
+                                    if (r["database"], r["S"]) == (label, s))
+              for label, _ in databases for s in SHARDS}
+    totals["plain fused"] = sum(measured["fused"].values())
+    print("sharded totals " + json.dumps(totals), flush=True)
+
+    wave_launches = 0
+    for label, database in databases:
+        sdb = shard.shard_database(database, WAVE_SHARDS)
+        mf.LAUNCHES = 0
+        got, shard_s, report = TC.execute_shared_sharded(
+            all13, sdb, cache=cache, pad_to=pad_to)
+        launched = mf.LAUNCHES
+        wave_launches += launched
+        if launched != WAVE_SHARDS or len(shard_s) != WAVE_SHARDS:
+            raise AssertionError(f"sharded wave {label}: {launched} "
+                                 f"launches, {len(shard_s)} shard times")
+        for plan, g, w in zip(all13, got, waves[label]):
+            if not (same_bits(g, w) and same_bits(g, oracle[plan.name])):
+                raise AssertionError(f"sharded wave {label} {plan.name}: "
+                                     "differs from execute_shared or the "
+                                     "oracle")
+        times = []
+        for _ in range(QUERY_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, shard_s, _ = TC.execute_shared_sharded(
+                all13, sdb, cache=cache, pad_to=pad_to)
+            times.append((time.perf_counter() - t0) * 1e3)
+        row = {"database": label, "S": WAVE_SHARDS, "launches": launched,
+               "morsels": report.n_morsels,
+               "query_ms": statistics.median(times),
+               "query_ms_max": max(times),
+               "shard_ms": [x * 1e3 for x in shard_s]}
+        if label == "plain":
+            row["wave_query_ms"] = measured["shared"]["all13"]
+        print("sharded wave " + json.dumps(row), flush=True)
+        del sdb
+
+    # auto: the cost model's pick on the calibrated card, run and timed
+    sdb = shard.shard_database(db, MORSEL_SHARDS)
+    sharded_ms = at_morsel[1]
+    auto_rows = []
+    for label, database in (("plain", db), (f"S={MORSEL_SHARDS}", sdb)):
+        for name, plan in queries.items():
+            q = compile_plan(plan, "auto")
+            got = q.execute(database, cache=cache)
+            if not same_bits(got, oracle[name]):
+                raise AssertionError(f"auto {label} {name}: differs from the "
+                                     f"oracle ({q.decided})")
+            times = query_ms(compile_plan(plan, "auto"), database, cache)
+            have = {k: v.get(name) for k, v in measured.items()
+                    if k != "shared"}
+            have["sharded"] = sharded_ms[name] if label != "plain" else None
+            row = {"database": label, "query": name, "decided": q.decided,
+                   "predicted_ms": {k: v * 1e3 for k, v in
+                                    q.predictions.items()},
+                   "query_ms": statistics.median(times),
+                   "measured_ms": have}
+            auto_rows.append(row)
+            print("auto " + json.dumps(row), flush=True)
+    del sdb
+    if saved is None:
+        del os.environ["REPRO_CALIB_CACHE"]
+    else:
+        os.environ["REPRO_CALIB_CACHE"] = saved
+    shutil.rmtree(tmp)
+    for entry, launched in ((kernels[0], sharded_launches),
+                            (next(k for k in kernels
+                                  if k["name"] == "multi_fused.multi_spja"),
+                             wave_launches)):
+        entry["launches_sharded"] = launched
+    print(f"phase12_s {time.perf_counter() - t:.3f}", flush=True)
+    return dict(hw=hw, sharded=at_morsel)
 
 
 def cuda_tensors() -> list:
@@ -2624,14 +2858,17 @@ def cuda_tensors() -> list:
 
 
 def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
-                 mods, all13, pad_to, shapes, **resident) -> int:
+                 mods, all13, pad_to, shapes, hw, **resident) -> int:
     """Phase 11, then the kernels line and the result line."""
+    from repro_torch.cost.model import morsel_pipeline_time
     from repro_torch.kernels import ssb_fused
     from repro_torch.sql import compile as TC
     from repro_torch.sql import morsel as MS
+    from repro_torch.sql import shard
     from repro_torch.sql.compile import compile_plan
-    t = phase(f"11 morsels: 13 SSB queries fused, opat, shared and packed "
-              f"fused, {MORSEL_BYTES >> 20} MiB morsels, SF {SF}")
+    t = phase(f"11 morsels: 13 SSB queries fused, opat, shared, packed "
+              f"fused and sharded at S = {MORSEL_SHARDS}, "
+              f"{MORSEL_BYTES >> 20} MiB morsels, SF {SF}")
     h2d, host = {}, np.ones(H2D_BYTES, np.uint8)
     dst = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
     pinned = torch.ones(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
@@ -2658,6 +2895,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
     for k in ("pinned_tensor", "pageable_numpy", "registered_numpy"):
         n_bytes = end - start if k == "registered_numpy" else H2D_BYTES
         h2d[f"{k}_GBps"] = n_bytes / h2d[f"{k}_ms"] / 1e6
+    h2d["calibrated_GBps"] = hw.interconnect_bw / 1e9
     print("h2d " + json.dumps(h2d), flush=True)
     h2d_rate = h2d["registered_numpy_GBps"] * 1e9
     del dst, pinned, host
@@ -2701,6 +2939,13 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
         return (TC._chain_scan_cols(plan) if label == "opat"
                 else TC._fused_scan_cols(plan))
 
+    def launches_a_morsel(label, name):
+        """The dispatches a morsel the cost model charges the strategy."""
+        if label != "opat":
+            return 1
+        plan = queries[name]
+        return len(plan.filters) + len(plan.joins) + 2
+
     def run_morsels(label, database, name, budget=MORSEL_BYTES):
         """One morsel run of a query (or the wave) -> (result, n_morsels,
         double-buffer peak)."""
@@ -2709,8 +2954,9 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                 all13, database, cache=cache, pad_to=pad_to,
                 morsel_bytes=budget)
             return got, rep.n_morsels, rep.peak_resident_bytes
-        q = compile_plan(queries[name],
-                         "opat" if label == "opat" else "fused")
+        q = compile_plan(queries[name], {"opat": "opat",
+                                         "sharded": "sharded"}.get(label,
+                                                                   "fused"))
         got = q.execute(database, cache=cache, morsel_bytes=budget)
         return got, q.n_morsels, q.peak_resident_bytes
 
@@ -2740,10 +2986,18 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                 **{fn: mod.LAUNCHES for (_, fn, *_), mod in
                    zip(OPAT, opat_mods)}}
 
-    databases = {"fused": db, "opat": db, "packed_fused": pdb, "shared": db}
+    # the shards of the host table (phase 12's were views of the resident
+    # one): each streams its own morsels
+    sdb = shard.shard_database(db, MORSEL_SHARDS)
+    databases = {"fused": db, "opat": db, "packed_fused": pdb, "shared": db,
+                 "sharded": sdb}
+    # a sharded fold runs the fused kernel: the fused run's working set
     per_row = {(label, name): working_set(label, databases[label], name,
                                           scan_cols(label, name))
-               for label, (res, *_) in resident.items() for name in res}
+               for label, (res, *_) in resident.items() for name in res
+               if label != "sharded"}
+    per_row.update({("sharded", name): per_row["fused", name]
+                    for name in resident["sharded"][0]})
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ssb_fused.LAUNCHES = mf.LAUNCHES = 0
@@ -2777,10 +3031,18 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                 raise AssertionError(f"morsels {label} {name}: only "
                                      f"{n_morsels} morsels")
             kernel = {"fused": "spja", "packed_fused": "spja",
-                      "shared": "multi_spja"}.get(label)
+                      "shared": "multi_spja", "sharded": "spja"}.get(label)
             if kernel and launched[kernel] != n_morsels:
                 raise AssertionError(f"morsels {label} {name}: {launched} "
                                      f"launches for {n_morsels} morsels")
+            if label == "sharded":      # morsels add across shards
+                per_shard = [MS.MorselStream(x.lineorder, MORSEL_BYTES,
+                                             cols=cols).n_morsels
+                             for x in sdb.shards]
+                if n_morsels != sum(per_shard):
+                    raise AssertionError(f"morsels sharded {name}: "
+                                         f"{n_morsels}, the shards' streams "
+                                         f"{per_shard}")
             stream = MS.MorselStream(database.lineorder, MORSEL_BYTES,
                                      cols=cols)
             scanned = sum(stream.morsel_nbytes(i)
@@ -2807,6 +3069,9 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                    "resident_kernel_ms": res_kernel_ms.get(name),
                    "scanned_GB": scanned / 1e9,
                    "upload_bound_ms": scanned / h2d_rate * 1e3,
+                   "model_ms": morsel_pipeline_time(
+                       scanned, n_morsels, hw,
+                       launches_a_morsel(label, name)) * 1e3,
                    "peak_alloc_MB": peak_alloc / 1e6,
                    "bound_MB": bound / 1e6,
                    "allocated_before_MB": before_alloc / 1e6,
@@ -2816,6 +3081,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                    "work_MB": work / 1e6}
             row["over_upload_bound"] = row["query_ms"] / \
                 row["upload_bound_ms"]
+            row["over_model"] = row["query_ms"] / row["model_ms"]
             morsel_rows.append(row)
             print("morsel " + json.dumps(row), flush=True)
     morsel_launches = counted()
@@ -2823,7 +3089,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
                              if r["strategy"] == label)
                       for k in ("query_ms", "resident_query_ms",
                                 "resident_kernel_ms", "upload_bound_ms",
-                                "scanned_GB")}
+                                "model_ms", "scanned_GB")}
               for label in resident}
     print("morsel totals " + json.dumps(totals), flush=True)
     print("profile morsel q2.1 fused " + json.dumps(profiled(

@@ -1,6 +1,6 @@
 """Plan compiler: lower a logical plan to a physical strategy.
 
-The port of ``repro.sql.compile``.  Five strategies lower so far:
+The port of ``repro.sql.compile``: every strategy of the reference lowers.
 
 ``fused`` — collapse the whole SPJA subtree into one launch of the
             hand-written CUDA kernel ``kernels/csrc/ssb_fused.cu`` (the
@@ -52,12 +52,24 @@ end; a row plan concatenates its survivors as global row ids and sorts
 them once.  So any cut is bit-identical to the whole-table pass.  A
 table of one morsel — every test database under the default budget, and
 a fact table made resident with ``Database.to`` — runs whole.
-``sharded`` and ``auto`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+
+``sharded`` — the fused lowering over a row-partitioned fact table
+            (``repro_torch.sql.shard``): a host loop runs the fused fold
+            over each shard's own morsel stream (one ``spja`` launch a
+            shard a morsel), every shard adding into its own int64 grid
+            through the same dimension tables (built once); the grids
+            merge pairwise, exactly, and round to f32 once — bit-identical
+            to the solo fused pass at any shard count.  On one card the
+            shards are logical: they take turns on it.
+``auto``  — the bandwidth cost model (``repro_torch.sql.model``) picks
+            fused, opat, part or sharded per query at execute time, when
+            the database (and so the cardinalities) is known, with the
+            card's calibrated rates (``repro_torch.sql.calibrate``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,29 +83,18 @@ from repro_torch.sql import hashtable as HT
 from repro_torch.sql import model as M
 from repro_torch.sql import morsel as MS
 from repro_torch.sql import plan as P
+from repro_torch.sql import shard as SH
 from repro_torch.sql import ssb
 from repro_torch.sql import storage as ST
 
 STRATEGIES = ("fused", "opat", "part", "part_loop", "shared", "sharded",
               "auto")
 
-# where each strategy the reference has lands in the port (ROADMAP.md,
-# "Open items", queue 1)
-_NOT_PORTED = {
-    "sharded": "queue 1, item 10 (sharding)",
-    "auto": "queue 1, item 11 (cost model, calibration, tuner)",
-}
 # the radix width of ORDER BY's passes; the reference's tuner picks it
-# (``tune.tuned_r``, ROADMAP queue 1 item 11), whose default is 8
+# (``tune.tuned_r``, ROADMAP queue 1 item 11, the tuner), whose default is 8
 SORT_BITS = 8
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 _MEASURE_OP_CODE = {"first": 0, "mul": 1, "sub": 2}
-
-
-def _not_ported(strategy: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"strategy {strategy!r} is not in repro_torch yet; it comes with "
-        f"ROADMAP.md {_NOT_PORTED[strategy]}")
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +167,15 @@ def shareability(plan: P.Plan) -> Optional[str]:
     kernel's 8 + 8 slots do not apply.  Group-level compatibility (every
     member scanning the same fact table) is ``validate_wave``'s."""
     return _spja_reason(plan)
+
+
+def shardability(plan: P.Plan) -> Optional[str]:
+    """None if the plan can run sharded, else the reason.  The sharded
+    strategy runs the fused kernel on each shard unchanged, so a
+    shardable plan is exactly a fusable one (an aggregate root among its
+    rules: per-shard grids add, row order does not survive a
+    partition)."""
+    return fusability(plan)
 
 
 def partability(plan: P.Plan) -> Optional[str]:
@@ -281,27 +291,116 @@ def _fused_scan_cols(plan: P.Plan) -> List[str]:
     return cols
 
 
-def _fused_morsels(plan: P.Plan, db: ssb.Database, mode: str,
-                   cache: Optional[HT.HashTableCache], morsel_bytes: int,
-                   device: torch.device
-                   ) -> Tuple[np.ndarray, MS.MorselReport]:
-    """The fused lowering as a fold over the morsel stream: the dim
-    tables are fetched once, each morsel runs the fused kernel adding
-    into one int64 grid, which is rounded to f32 once at the end — so
-    any cut is bit-identical to the whole-table pass."""
-    fact = getattr(db, plan.scan.table)
+def _fused_fold(plan: P.Plan, db: ssb.Database, mode: str,
+                cache: Optional[HT.HashTableCache], morsel_bytes: int,
+                device: torch.device, fact=None,
+                prebuilt: Optional[List[torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, MS.MorselReport]:
+    """The fused lowering as a fold over the morsel stream of ``fact``
+    (the plan's fact table by default; a shard's in the sharded loop):
+    the dim tables are fetched once (or passed in ``prebuilt``), and each
+    morsel runs the fused kernel adding into one int64 grid, returned
+    unrounded with the stream's report."""
+    if fact is None:
+        fact = getattr(db, plan.scan.table)
     stream = MS.MorselStream(fact, morsel_bytes, cols=_fused_scan_cols(plan),
                              device=device)
     report = MS.MorselReport()
-    prebuilt: List[torch.Tensor] = []
-    for j in plan.joins:
-        prebuilt.extend(_join_tables(db, j, cache, device))
+    if prebuilt is None:
+        prebuilt = []
+        for j in plan.joins:
+            prebuilt.extend(_join_tables(db, j, cache, device))
     acc = torch.zeros((plan.n_groups,), dtype=torch.int64, device=device)
     if stream.n_morsels == 0:       # empty fact table: zero groups
         report.observe(0)
     stream.fold(lambda m: _execute_fused(plan, db, mode, cache, device,
                                          m.table, prebuilt, acc), report)
-    return acc.to(torch.float32).cpu().numpy(), report
+    return acc, report
+
+
+def _rounded(acc: torch.Tensor) -> np.ndarray:
+    """An exact int64 grid rounded to f32 once, on the host."""
+    return acc.to(torch.float32).cpu().numpy()
+
+
+def _fused_morsels(plan: P.Plan, db: ssb.Database, mode: str,
+                   cache: Optional[HT.HashTableCache], morsel_bytes: int,
+                   device: torch.device
+                   ) -> Tuple[np.ndarray, MS.MorselReport]:
+    """:func:`_fused_fold`, rounded to f32 once at the end — so any cut is
+    bit-identical to the whole-table pass."""
+    acc, report = _fused_fold(plan, db, mode, cache, morsel_bytes, device)
+    return _rounded(acc), report
+
+
+# ---------------------------------------------------------------------------
+# sharded lowering (the fused fold per fact shard, exact merge)
+# ---------------------------------------------------------------------------
+
+
+def _synced_clock(device: torch.device) -> float:
+    """The host clock once ``device`` has finished its queued work, so a
+    span between two readings is device time, not the time to enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _runs_sharded(db, table: str) -> bool:
+    """Whether a scan of ``table`` in ``db`` runs shard by shard: ``db``
+    is a ``ShardedDatabase`` of more than one shard of that table."""
+    return (isinstance(db, SH.ShardedDatabase) and db.n_shards > 1
+            and table == db.fact)
+
+
+def _shard_loop(sdb, device: torch.device, fold
+                ) -> Tuple[torch.Tensor, List[float], MS.MorselReport]:
+    """``fold(fact) -> (int64 grid, report)`` over each shard's fact
+    table in turn, each timed until the card has finished it -> (the
+    grids merged pairwise, exactly; each shard's seconds; the reports
+    merged: morsels add, peaks take the max, as the shards run one after
+    another, each freeing its double buffer)."""
+    partials, times = [], []
+    report = MS.MorselReport()
+    t0 = _synced_clock(device)
+    for shard in sdb.shards:
+        acc, rep = fold(getattr(shard, sdb.fact))
+        partials.append(acc)
+        report = report.merge(rep)
+        t1 = _synced_clock(device)
+        times.append(t1 - t0)
+        t0 = t1
+    return SH.tree_merge(partials), times, report
+
+
+def _execute_sharded(plan: P.Plan, db, mode: str,
+                     cache: Optional[HT.HashTableCache], morsel_bytes: int,
+                     device: torch.device
+                     ) -> Tuple[np.ndarray, List[float], int,
+                                MS.MorselReport]:
+    """Run ``plan`` fused per shard and merge the partial grids ->
+    ``(result, shard_times_s, device_count, morsel_report)``.
+
+    A plain Database, a single shard, or a plan that scans another table
+    than the sharded one runs the solo fused fold (timed, so callers
+    always get a breakdown).  Otherwise a host loop folds each shard's own
+    morsel stream into its own int64 grid, through dimension tables
+    fetched once from the base database; the grids merge pairwise
+    (:func:`shard.tree_merge`, exact) and round to f32 once
+    (:func:`_shard_loop`)."""
+    base = SH.base_of(db)
+    if not _runs_sharded(db, plan.scan.table):
+        t0 = _synced_clock(device)
+        out, report = _fused_morsels(plan, base, mode, cache, morsel_bytes,
+                                     device)
+        return out, [_synced_clock(device) - t0], 1, report
+    prebuilt: List[torch.Tensor] = []
+    for j in plan.joins:
+        prebuilt.extend(_join_tables(base, j, cache, device))
+    acc, times, report = _shard_loop(db, device, lambda fact: _fused_fold(
+        plan, base, mode, cache, morsel_bytes, device, fact=fact,
+        prebuilt=prebuilt))
+    return _rounded(acc), times, db.n_shards, report
 
 
 # ---------------------------------------------------------------------------
@@ -559,6 +658,69 @@ def _shared_prebuilt(plans: List[P.Plan], db,
     return tables
 
 
+@dataclass
+class _Wave:
+    """A wave lowered once for every fact table it folds over (the base,
+    or each shard): the footprint anchor, the tables of each distinct
+    build side, the probe groups and the fact columns streamed."""
+    plans: List[P.Plan]
+    pad_to: Optional[int]
+    anchor: Optional[List[P.Plan]]
+    tables: Dict[Tuple, Tuple]
+    groups: tuple
+    cols: List[str]
+    n_groups: int
+
+
+def _lower_wave(plans: List[P.Plan], db, cache: Optional[HT.HashTableCache],
+                pad_to: Optional[int], prebuilt: Optional[Dict[Tuple, Tuple]],
+                anchor: Optional[List[P.Plan]], device: torch.device) -> _Wave:
+    validate_wave(plans)
+    anchor = anchor_for(plans, anchor)
+    foot = list(plans) + list(anchor or [])
+    col_ix, join_nodes, mcol_ix = _wave_streams(foot, bool(anchor))
+    tables = _shared_prebuilt(foot, db, cache, prebuilt, device)
+    groups = probe_groups(join_nodes, db, cache, tables, device)
+    # each fact column once, however many build sides probe it
+    cols = [*col_ix, *(j.fact_col for j in join_nodes), *mcol_ix]
+    return _Wave(list(plans), pad_to, anchor, tables, groups, cols,
+                 max(plan.n_groups for plan in foot))
+
+
+def _wave_fold(wave: _Wave, db, fact, mode: str, morsel_bytes: int,
+               device: torch.device
+               ) -> Tuple[torch.Tensor, MS.MorselReport]:
+    """One ``multi_spja`` launch a morsel of ``fact``, each adding into
+    one (Q, n_groups) int64 grid, returned unrounded with the stream's
+    report."""
+    stream = MS.MorselStream(fact, morsel_bytes, cols=wave.cols,
+                             device=device)
+    report = MS.MorselReport()
+    acc = torch.zeros((max(len(wave.plans), wave.pad_to or 0),
+                       wave.n_groups), dtype=torch.int64, device=device)
+    if stream.n_morsels == 0:           # empty fact: all-zero grids
+        report.observe(0)
+
+    def run(m):
+        _, args, kwargs, n_groups = shared_params(
+            wave.plans, db, pad_to=wave.pad_to, prebuilt=wave.tables,
+            fact=m.table, anchor=wave.anchor, device=device,
+            groups=wave.groups)
+        faults.maybe_fault("kernel")
+        return ops.multi_spja(*args, n_groups=n_groups, mode=mode, acc=acc,
+                              **kwargs)
+
+    stream.fold(run, report)
+    return acc, report
+
+
+def _members(plans: List[P.Plan], acc: torch.Tensor) -> List[np.ndarray]:
+    """Each member's ``(n_groups,)`` f32 result of a wave's int64 grid,
+    rounded once."""
+    out = _rounded(acc)
+    return [out[qi, :plan.n_groups].copy() for qi, plan in enumerate(plans)]
+
+
 def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
                            mode: str = "auto",
                            cache: Optional[HT.HashTableCache] = None,
@@ -575,36 +737,11 @@ def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
     Returns ``(results, report)``, each member's ``(n_groups,)`` f32
     result in submission order.  ``pad_to`` and ``anchor`` as
     :func:`shared_params`."""
-    validate_wave(plans)
     device = resolve(device)
-    anchor = anchor_for(plans, anchor)
-    foot = list(plans) + list(anchor or [])
-    col_ix, join_nodes, mcol_ix = _wave_streams(foot, bool(anchor))
-    tables = _shared_prebuilt(foot, db, cache, prebuilt, device)
-    groups = probe_groups(join_nodes, db, cache, tables, device)
-    # each fact column once, however many build sides probe it
-    cols = [*col_ix, *(j.fact_col for j in join_nodes), *mcol_ix]
-    stream = MS.MorselStream(getattr(db, plans[0].scan.table), morsel_bytes,
-                             cols=cols, device=device)
-    report = MS.MorselReport()
-    acc = torch.zeros((max(len(plans), pad_to or len(plans)),
-                       max(plan.n_groups for plan in foot)),
-                      dtype=torch.int64, device=device)
-    if stream.n_morsels == 0:           # empty fact: all-zero grids
-        report.observe(0)
-
-    def run(m):
-        _, args, kwargs, n_groups = shared_params(
-            plans, db, pad_to=pad_to, prebuilt=tables, fact=m.table,
-            anchor=anchor, device=device, groups=groups)
-        faults.maybe_fault("kernel")
-        return ops.multi_spja(*args, n_groups=n_groups, mode=mode, acc=acc,
-                              **kwargs)
-
-    stream.fold(run, report)
-    out = acc.to(torch.float32).cpu().numpy()
-    return [out[qi, :plan.n_groups].copy()
-            for qi, plan in enumerate(plans)], report
+    wave = _lower_wave(plans, db, cache, pad_to, prebuilt, anchor, device)
+    acc, report = _wave_fold(wave, db, getattr(db, plans[0].scan.table),
+                             mode, morsel_bytes, device)
+    return _members(plans, acc), report
 
 
 def execute_shared(plans: List[P.Plan], db: ssb.Database,
@@ -624,6 +761,43 @@ def execute_shared(plans: List[P.Plan], db: ssb.Database,
                                         pad_to=pad_to, prebuilt=prebuilt,
                                         device=device)
     return results
+
+
+def execute_shared_sharded(plans: List[P.Plan], db, mode: str = "auto",
+                           cache: Optional[HT.HashTableCache] = None,
+                           pad_to: Optional[int] = None,
+                           prebuilt: Optional[Dict[Tuple, Tuple]] = None,
+                           morsel_bytes: int = MS.DEFAULT_MORSEL_BYTES,
+                           anchor: Optional[List[P.Plan]] = None,
+                           device=None
+                           ) -> Tuple[List[np.ndarray], List[float],
+                                      MS.MorselReport]:
+    """A shared wave over a sharded fact table on ``device`` (the card
+    unless named), each shard folding its own morsel stream -> ``(results
+    in submission order, shard_times_s, morsel_report)``.
+
+    The wave is lowered once on the base database (its tables built, or
+    fetched from ``cache``, once per distinct build side, its probe
+    groups merged once); each shard then runs the whole wave, one
+    ``multi_spja`` launch a morsel, into its own (Q, n_groups) int64 grid,
+    and the grids merge pairwise, exactly, and round to f32 once.  A
+    plain Database, a single shard or a wave over another table than the
+    sharded one runs :func:`execute_shared_morsels` on the base.  Each
+    shard's time ends when the card has finished it."""
+    validate_wave(plans)
+    device = resolve(device)
+    base = SH.base_of(db)
+    if not _runs_sharded(db, plans[0].scan.table):
+        t0 = _synced_clock(device)
+        results, report = execute_shared_morsels(
+            plans, base, mode=mode, cache=cache, pad_to=pad_to,
+            prebuilt=prebuilt, morsel_bytes=morsel_bytes, anchor=anchor,
+            device=device)
+        return results, [_synced_clock(device) - t0], report
+    wave = _lower_wave(plans, base, cache, pad_to, prebuilt, anchor, device)
+    acc, times, report = _shard_loop(db, device, lambda fact: _wave_fold(
+        wave, base, fact, mode, morsel_bytes, device))
+    return _members(plans, acc), times, report
 
 
 # ---------------------------------------------------------------------------
@@ -916,46 +1090,86 @@ class CompiledQuery:
     """An executable lowering of a logical plan.
 
     ``strategy`` is the strategy that runs; ``requested`` what the caller
-    asked for.  When the caller asked for ``fused`` on a plan the fused
-    kernel cannot express, or for ``part``/``part_loop`` on a plan with
-    nothing to partition, ``strategy == "opat"`` and ``fallback_reason``
-    says why, as in the reference (``shared`` on a plan no wave can take
-    falls back the same way).  After ``execute``, ``decided`` holds the
-    strategy that ran."""
+    asked for.  When the caller asked for ``fused`` or ``sharded`` on a
+    plan the fused kernel cannot express, or for ``part``/``part_loop`` on
+    a plan with nothing to partition, ``strategy == "opat"`` and
+    ``fallback_reason`` says why, as in the reference (``shared`` on a
+    plan no wave can take falls back the same way).
+
+    ``strategy == "auto"`` leaves the choice to the bandwidth cost model
+    at execute time (the cardinalities need the database): after
+    ``execute``, ``decided`` holds the strategy that ran and
+    ``predictions`` the model's predicted seconds per strategy (for the
+    other strategies ``decided`` is the strategy itself).  After a
+    ``sharded`` run, ``device_count`` holds the shards that ran and
+    ``shard_times_s`` each one's time, from the end of the one before it
+    to the card's finishing it."""
     plan: P.Plan
     strategy: str
     requested: str
     fallback_reason: Optional[str] = None
     decided: Optional[str] = None
+    predictions: Optional[Dict[str, float]] = field(default=None,
+                                                    repr=False)
+    device_count: Optional[int] = None
+    shard_times_s: Optional[List[float]] = field(default=None, repr=False)
     # the last execute's stream: its morsels and the double-buffer peak
     # (the encoded bytes of two adjacent morsels' scanned columns)
     n_morsels: Optional[int] = None
     peak_resident_bytes: Optional[int] = None
 
-    def execute(self, db: ssb.Database, mode: str = "auto",
+    def execute(self, db, mode: str = "auto",
                 cache: Optional[HT.HashTableCache] = None,
                 device=None,
                 morsel_bytes: int = MS.DEFAULT_MORSEL_BYTES) -> np.ndarray:
         """Run the plan on ``device`` (the current card when None; the
         CPU only when named), a morsel of at most ``morsel_bytes`` of
         scanned columns at a time -> (n_groups,) f32 numpy array, or the
-        surviving row ids of a row plan."""
+        surviving row ids of a row plan.  ``db`` is a Database or a
+        ``shard.ShardedDatabase``: only ``sharded`` looks inside the
+        latter, every other strategy runs on its base."""
         device = resolve(device)
-        self.decided = self.strategy
-        if self.strategy == "fused":
-            out, report = _fused_morsels(self.plan, db, mode, cache,
+        strategy = self.strategy
+        if strategy == "auto":
+            choice = M.choose(self.plan, db,
+                              hw=M.default_hardware(device),
+                              n_shards=SH.shard_count(db),
+                              morsel_bytes=_model_budget(
+                                  self.plan, db, device, morsel_bytes))
+            strategy = choice.strategy
+            self.predictions = choice.predictions
+        self.decided = strategy
+        base = SH.base_of(db)
+        if strategy == "sharded":
+            out, self.shard_times_s, self.device_count, report = \
+                _execute_sharded(self.plan, db, mode, cache, morsel_bytes,
+                                 device)
+        elif strategy == "fused":
+            out, report = _fused_morsels(self.plan, base, mode, cache,
                                          morsel_bytes, device)
-        elif self.strategy == "shared":     # a one-member wave
+        elif strategy == "shared":     # a one-member wave
             results, report = execute_shared_morsels(
-                [self.plan], db, mode=mode, cache=cache,
+                [self.plan], base, mode=mode, cache=cache,
                 morsel_bytes=morsel_bytes, device=device)
             out = results[0]
         else:
-            out, report = _chain_morsels(self.plan, db, mode, cache,
-                                         self.strategy, morsel_bytes, device)
+            out, report = _chain_morsels(self.plan, base, mode, cache,
+                                         strategy, morsel_bytes, device)
         self.n_morsels = report.n_morsels
         self.peak_resident_bytes = report.peak_resident_bytes
         return out
+
+
+def _model_budget(plan: P.Plan, db, device: torch.device,
+                  morsel_bytes: int) -> int:
+    """The morsel budget the cost model prices a run at: ``morsel_bytes``,
+    or every byte of the fact table when it is resident on ``device`` —
+    a resident table is one morsel whatever the budget
+    (``MorselStream``), so no copy crosses the host link."""
+    fact = getattr(db, plan.scan.table)
+    if fact.is_pinned(device):
+        return max(morsel_bytes, MS.scanned_morsel_bytes(fact, None))
+    return morsel_bytes
 
 
 def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
@@ -969,20 +1183,18 @@ def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:
     * ``part_loop`` — radix-partitioned joins probed partition at a time
       from the host; the same fallback rule;
     * ``shared`` — a one-member shared-scan wave; falls back to ``opat``
-      (reason set) when the plan cannot join a wave.
-
-    ``sharded`` and ``auto`` raise ``NotImplementedError`` naming the
-    ROADMAP item that brings them."""
+      (reason set) when the plan cannot join a wave;
+    * ``sharded`` — the fused fold per fact shard, merged exactly; the
+      fused fallback rule; on an unsharded database the solo fused pass;
+    * ``auto`` — the cost model's pick per database at execute time."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
     classify(plan)                      # raise on malformed chains
-    if strategy in _NOT_PORTED:
-        raise _not_ported(strategy)
-    if strategy == "opat":
-        return CompiledQuery(plan, "opat", "opat")
-    reason = {"fused": fusability, "shared": shareability}.get(
-        strategy, partability)(plan)
+    if strategy in ("opat", "auto"):
+        return CompiledQuery(plan, strategy, strategy)
+    reason = {"fused": fusability, "shared": shareability,
+              "sharded": shardability}.get(strategy, partability)(plan)
     if reason is None:
         return CompiledQuery(plan, strategy, strategy)
     return CompiledQuery(plan, "opat", strategy, fallback_reason=reason)

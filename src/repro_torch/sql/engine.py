@@ -6,7 +6,8 @@ oracle, copied so the port answers to the same ground truth.
 
   ``ssb_queries()``       -> Dict[str, Plan]
   ``run_query(db, plan)``  -> fused (Crystal) lowering on the card, or
-                             another ``strategy`` (opat, part, part_loop)
+                             another ``strategy`` (opat, part, part_loop,
+                             shared, sharded, auto)
   ``order_by(table, col)`` -> the table's columns sorted by one column
                              (the LSB radix sort, §4.4)
   ``run_query_oracle``    -> independent pure-numpy plan interpreter
@@ -188,12 +189,14 @@ def build_join_tables(db: Database, plan: Plan, device=None):
     return tables
 
 
-def run_query(db: Database, plan: Plan, mode: str = "auto",
+def run_query(db, plan: Plan, mode: str = "auto",
               cache: Optional[HashTableCache] = None,
               device=None, strategy: str = "fused") -> np.ndarray:
     """Execute through ``strategy``'s lowering (the Crystal fused SPJA
-    kernel by default) on ``device`` (the card unless the caller names
-    the CPU) -> (n_groups,) f32."""
+    kernel by default; any of ``compile.STRATEGIES``: ``sharded`` on a
+    ``shard.ShardedDatabase`` runs the fused kernel per shard, ``auto``
+    lets the cost model pick) on ``device`` (the card unless the caller
+    names the CPU) -> (n_groups,) f32."""
     return compile_plan(plan, strategy).execute(db, mode=mode, cache=cache,
                                                 device=device)
 

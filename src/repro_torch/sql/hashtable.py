@@ -24,7 +24,11 @@ by the key's low bits and builds one table per partition with the same
 partition (``part_loop``), or the dense ``(P, S)`` layout of
 ``PackedParts`` that the one-launch partitioned probe reads (``part``).
 
-Not here yet: the replicated build (ROADMAP queue 1, item 10).
+The sharded strategy (``repro_torch.sql.shard``) serves every shard from
+one build: a shard shares the base database's dimension tables by object,
+so the cache takes a ``ShardedDatabase``, or a shard of one, as its base
+(``db_fingerprint`` reads only the dimension tables), and
+``get_or_build_replicated`` places a table on each device of a set once.
 """
 from __future__ import annotations
 
@@ -305,7 +309,10 @@ def db_fingerprint(db, tables: Optional[Iterable[str]] = None) -> Tuple:
     other, and never a database of other data.
     ``tables`` restricts the fingerprint to the named attributes (the
     cache only ever builds from dimension tables); ``None``
-    fingerprints everything."""
+    fingerprints everything.  A ``shard.ShardedDatabase`` fingerprints
+    as its base (duck-typed by its ``base`` attribute): its shards
+    differ only in the fact table, which no build side reads."""
+    db = getattr(db, "base", db)
     names = None if tables is None else set(tables)
     items = []
     for attr, t in vars(db).items():
@@ -329,7 +336,10 @@ class HashTableCache:
     first compare ``db_fingerprint`` over the dims the cached entries
     reference — an equal-but-reloaded database rebinds and keeps the
     warmed entries, a genuinely different one raises rather than serving
-    wrong tables.  ``reset()`` drops the entries and the binding.
+    wrong tables.  A shard of a ``shard.ShardedDatabase`` shares the
+    base's dimension tables, so it passes that check and is served
+    without a rebuild; a ``ShardedDatabase`` binds as its base.
+    ``reset()`` drops the entries and the binding.
     """
     tables: Dict[Tuple, object] = field(default_factory=dict)
     hits: int = 0
@@ -344,6 +354,7 @@ class HashTableCache:
     _accepted: List[object] = field(default_factory=list, repr=False)
 
     def _bind(self, db) -> None:
+        db = getattr(db, "base", db)
         if self._db is db or any(db is a for a in self._accepted):
             return
         if self._db is None:
@@ -468,6 +479,34 @@ class HashTableCache:
         self.misses += 1
         built = build_dim_partitions(db, join, bits, packed=packed,
                                      device=device)
+        if _cacheable(key):
+            self.tables[key] = built
+            self._dims.add(join.dim)
+            self._touch(key)
+        return built
+
+    def get_or_build_replicated(self, db, join: P.HashJoin,
+                                devices: Sequence
+                                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """One join's table on each of ``devices`` -> ``[(htk, htv), ...]``
+        in their order: ``get_or_build`` on the first, then a copy to each
+        other (``shard.replicate``), cached under the build side's logical
+        key and the device set, so a sharded execution places each table
+        once.  The first device's entry is the solo path's own: on one
+        device this is one hit on a table already built and no second
+        upload."""
+        from repro_torch.sql.shard import replicate
+        devs = [resolve(d) for d in devices]
+        self._bind(db)
+        key = (join_cache_key(join), "replicated",
+               tuple(str(d) for d in devs))
+        hit = self.tables.get(key)
+        if hit is not None:
+            self.hits += 1
+            self._touch(key)
+            return hit
+        first = self.get_or_build(db, join, devs[0])
+        built = [first] + replicate(devs[1:], first)
         if _cacheable(key):
             self.tables[key] = built
             self._dims.add(join.dim)

@@ -122,6 +122,15 @@ class MorselReport:
         if resident_bytes > self.peak_resident_bytes:
             self.peak_resident_bytes = resident_bytes
 
+    def merge(self, other: "MorselReport") -> "MorselReport":
+        """The accounting of two streams folded apart (a shard each):
+        morsels add, peaks take the max, as each stream holds its own
+        double buffer and frees it before the next starts."""
+        return MorselReport(
+            n_morsels=self.n_morsels + other.n_morsels,
+            peak_resident_bytes=max(self.peak_resident_bytes,
+                                    other.peak_resident_bytes))
+
 
 def scanned_morsel_bytes(table, cols: Optional[Iterable[str]]) -> int:
     """Encoded bytes of the columns a query actually streams from one

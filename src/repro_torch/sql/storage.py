@@ -332,6 +332,31 @@ def slice_rows(table, lo: int, hi: int):
                                   for c, v in table.columns.items()})
 
 
+def pin_slice(part, table, lo: int, hi: int, device) -> None:
+    """Make ``part``, the ``slice_rows(table, lo, hi)`` of a table pinned
+    on ``device``, pinned there too without a second copy of the table: a
+    plain column, and a packed one cut on a word boundary, is a view of
+    the parent's device tensor (the rows, or the words, that
+    ``slice_rows`` kept); a packed column cut off a word boundary was
+    packed again on the host and is uploaded, once."""
+    dev = str(resolve(device))
+    if isinstance(table, PackedTable):
+        for name, col in part.columns.items():
+            enc = col.encoding
+            c = enc.values_per_word
+            if enc.kind == "plain":
+                col._resident[dev] = table.on_device(name, dev)[lo:hi]
+            elif lo % c == 0:
+                col._resident[dev] = table.on_device(name, dev)[
+                    lo // c:(hi + c - 1) // c]
+            else:
+                col.on_device(dev)
+    else:
+        for name in part.columns:
+            part._resident[name, dev] = table.on_device(name, dev)[lo:hi]
+    part._pinned.add(dev)
+
+
 def pack_table(table: ssb.Table) -> PackedTable:
     return PackedTable(table.name, {c: pack_column(v)
                                     for c, v in table.columns.items()})

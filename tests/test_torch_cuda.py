@@ -1476,3 +1476,79 @@ def test_page_locked_upload_is_the_host_bytes(cuda):
             t = morsel.upload(cut, cuda, (start, end))
         side.synchronize()
         assert torch.equal(t.cpu(), torch.from_numpy(cut))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("s", [2, 8])
+def test_sharded_on_card_matches_fused(cuda, s, packed):
+    from repro_torch.sql import shard
+    db = ssb.generate(sf=0.05, seed=7)
+    db = (storage.pack_database(db) if packed else db).to(cuda)
+    sdb = shard.shard_database(db, s)
+    cache = hashtable.HashTableCache()
+    for name, plan in engine.ssb_queries().items():
+        fused = compile_.compile_plan(plan, "fused").execute(db, cache=cache)
+        q = compile_.compile_plan(plan, "sharded")
+        before = ssb_fused.LAUNCHES
+        got = q.execute(sdb, cache=cache)
+        assert ssb_fused.LAUNCHES == before + s, name
+        assert q.device_count == s and len(q.shard_times_s) == s
+        np.testing.assert_array_equal(got, fused, err_msg=name)
+        np.testing.assert_array_equal(got, engine.run_query_oracle(db, plan),
+                                      err_msg=name)
+    plans = list(engine.ssb_queries().values())
+    before = multi_fused.LAUNCHES
+    waves, times, _ = compile_.execute_shared_sharded(plans, sdb, cache=cache,
+                                                      pad_to=16)
+    assert multi_fused.LAUNCHES == before + s and len(times) == s
+    for plan, got in zip(plans, waves):
+        np.testing.assert_array_equal(got, engine.run_query_oracle(db, plan),
+                                      err_msg=plan.name)
+
+
+def test_shard_of_a_pinned_table_holds_views_on_card(cuda):
+    from repro_torch.sql import shard
+    db = ssb.generate(sf=0.01, seed=3).to(cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sdb = shard.shard_database(db, 4)
+    assert torch.cuda.memory_allocated() == before
+    for i, x in enumerate(sdb.shards):
+        lo = int(sdb.bounds[i])
+        for col in x.lineorder.columns:
+            view = x.lineorder.on_device(col, cuda)
+            whole = db.lineorder.on_device(col, cuda)
+            assert view.untyped_storage().data_ptr() == \
+                whole.untyped_storage().data_ptr()
+            assert view.data_ptr() == whole.data_ptr() + 4 * lo
+            np.testing.assert_array_equal(view.cpu().numpy(),
+                                          x.lineorder[col])
+
+
+def test_calibration_on_card(cuda, tmp_path, monkeypatch):
+    from repro_torch.cost.model import H100
+    from repro_torch.sql import calibrate, model
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(tmp_path))
+    calib = calibrate.measure(cuda, stream_bytes=256 << 20,
+                              probes=1 << 24, h2d_bytes=64 << 20)
+    assert calib.backend == "cuda"
+    assert calib.device_name == torch.cuda.get_device_name(cuda)
+    for k in ("read_bw", "write_bw", "cache_bw", "launch_overhead_s",
+              "interconnect_bw"):
+        assert getattr(calib, k) > 0, k
+    assert model.default_hardware(cuda) is H100       # nothing cached yet
+    path = calibrate.save(calib)
+    assert path == calibrate.cache_path(cuda)
+    calibrate._MEMO.clear()
+    assert calibrate.load_cached(cuda) == calib
+    hw = model.default_hardware(cuda)
+    assert hw == calibrate.apply(calib, H100)
+    assert hw.interconnect_bw == calib.interconnect_bw
+    assert (hw.cache_size, hw.line_bytes) == (H100.cache_size,
+                                              H100.line_bytes)
+    plan = engine.ssb_queries()["q2.1"]
+    db = ssb.generate(sf=0.01, seed=3).to(cuda)
+    q = compile_.compile_plan(plan, "auto")
+    np.testing.assert_array_equal(q.execute(db),
+                                  engine.run_query_oracle(db, plan))
+    assert q.decided in ("fused", "opat", "part")

@@ -18,8 +18,11 @@ from repro_torch.kernels import (agg, hash_join, multi_fused, ops,
                                  select_scan, ssb_fused, unpack)
 from repro_torch.sql import compile as TC
 from repro_torch.sql import engine as TE
+from repro_torch.sql import calibrate as TCAL
 from repro_torch.sql import hashtable as THT
+from repro_torch.sql import model as TM
 from repro_torch.sql import morsel as MS
+from repro_torch.sql import shard as TSH
 from repro_torch.sql import ssb as TSSB
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -64,6 +67,21 @@ def test_morsel_spine_loads_neither_jax_nor_reference(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.sql.shard",
+                                    "repro_torch.sql.calibrate",
+                                    "repro_torch.cost.model"])
+def test_shard_cost_and_calibration_load_neither_jax_nor_reference(module):
+    """Sharding, the cost model and calibration, each imported alone."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_reference_or_jax_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -91,11 +109,17 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
     plan = TE.ssb_queries()["q2.1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.run_query(db, plan)
-    for strategy in ("fused", "opat", "part", "part_loop", "shared"):
+    for strategy in TC.STRATEGIES:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TC.compile_plan(plan, strategy).execute(db)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TC.execute_shared([plan], db)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.execute_shared_sharded([plan], TSH.shard_database(db, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TCAL.measure()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.default_hardware()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         THT.build_dim_table(db, plan.joins[0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -170,14 +194,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert radix_part.HIST_LAUNCHES == radix_part.SCATTER_LAUNCHES == 0
 
 
-def test_unported_strategies_raise_naming_the_roadmap():
-    """``sharded`` and ``auto`` are not in the port yet and say where they
-    come; ``shared`` lowers since the shared-scan slice."""
+def test_every_strategy_lowers_sharded_and_auto_too():
+    """Every strategy of the reference lowers in the port: ``shared``
+    since the shared-scan slice, ``sharded`` and ``auto`` since the
+    sharding and cost-model slice; none raises ``NotImplementedError``."""
     plan = TE.ssb_queries()["q1.1"]
-    for strategy in ("sharded", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.compile_plan(plan, strategy)
-    for strategy in ("part", "part_loop", "shared"):
+    assert not hasattr(TC, "_NOT_PORTED")
+    for strategy in TC.STRATEGIES:
+        q = TC.compile_plan(plan, strategy)
+        want = "opat" if strategy in ("part", "part_loop") else strategy
+        assert (q.strategy, q.requested) == (want, strategy)
+    for strategy in ("part", "part_loop", "shared", "sharded", "auto"):
         q = TC.compile_plan(TE.ssb_queries()["q2.1"], strategy)
         assert (q.strategy, q.requested, q.fallback_reason) == \
             (strategy, strategy, None)
@@ -195,6 +222,9 @@ def test_unported_strategies_raise_naming_the_roadmap():
     assert (q.strategy, q.fallback_reason) == ("opat", None)
     q = TC.compile_plan(rows().build(), "fused")
     assert (q.strategy, q.requested) == ("opat", "fused")
+    assert q.fallback_reason.startswith("row-returning plan")
+    q = TC.compile_plan(ordered, "sharded")
+    assert (q.strategy, q.requested) == ("opat", "sharded")
     assert q.fallback_reason.startswith("row-returning plan")
     with pytest.raises(ValueError, match="unknown strategy"):
         TC.compile_plan(plan, "bogus")
