@@ -151,7 +151,42 @@ exits non-zero without printing a result:
            phase 9's ``execute_shared``; ``compile_plan(plan, "auto")`` on
            the plain database and on its S = 4 shards — bit-identical to
            the oracle, the choice and each candidate's predicted time
-           beside the measured ``query_ms`` of phases 4, 5, 7 and 12.
+           beside the measured ``query_ms`` of phases 4, 5, 7 and 12;
+13. the tuner and the serving control plane (run after phase 12, on phase
+           4's resident database): ``tune.measure(SMOKE_GRID)`` on the card
+           into a cache of the run's own beside phase 12's calibration —
+           every swept configuration checked against its oracle, every
+           partition depth against the default depth's rows, before it is
+           timed — each family's winner (``r``, bits and budget, time,
+           speedup, ``select_scan``'s ``eff_bw`` at the streaming size),
+           ``default_hardware`` calibrated
+           then tuned, ``tuned_r`` and ``part_bits`` read from the store;
+           the 13 queries ``part`` under the tuned budget (the oracle's
+           bits) and ``auto`` on the calibrated and the tuned ``Hardware``,
+           each choice and prediction beside the measured ``query_ms`` of
+           phases 4, 5 and 7; then four serving runs, each result the
+           oracle's bits (the narrowed variants' oracles computed here):
+           a ``QueryServer`` on the card (its default device, mode
+           ``auto``) over the 13 queries ``fused``, ``opat``, ``part``,
+           ``shared`` and ``auto`` and ``sharded`` at S = 4, twice (the
+           second pass every build a hit), each result on its first
+           attempt with the strategy it asked for, its ``launch_config``
+           the families that ran, no retry and no fallback but ``part``'s
+           compile-time ones; a result cache answering the 5 narrowed
+           variants by subsumption; a ``ServingLoop`` over the 13 queries
+           and the variants (anchored and prewarmed) at ``ARRIVALS``
+           Poisson arrivals, asked as ``shared`` (a wave of two or more
+           must form) and as ``auto`` (the model decides whether a wave
+           shares; its shared and solo terms for the 13-query wave
+           printed beside the batch server's) — p50/p99 latency, waves
+           and their sizes, cache hits, no retry; and a fault run (an injected OOM, then
+           kernel and upload faults): every request the oracle's bits from
+           a rung on the card or a typed error (none answered on the
+           host), the OOM request's pressure shutting the door (a typed
+           shed) until the governor's cooldown, the halved morsels, the
+           breakers.
+           Every kernel of the path launched at least once
+           (``launches_serving``).
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -1209,7 +1244,9 @@ def resident_phases() -> dict:
     from repro_torch.sql import compile as TC
     from repro_torch.sql import model as M
     from repro_torch.sql import plan as P
-    from repro_torch.sql.compile import SORT_BITS, compile_plan, fused_inputs
+    from repro_torch.sql.compile import compile_plan, fused_inputs
+    # ORDER BY's digit width when no tunings file is cached
+    from repro_torch.sql.tune import DEFAULT_R as SORT_BITS
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
             for m, *_ in OPAT + PACKED + PARTITIONED + SHARED + JOIN_BENCH +
             LAST}
@@ -2617,15 +2654,17 @@ def resident_phases() -> dict:
     print(f"phase10_s {time.perf_counter() - t:.3f}")
     del base, vals, sum_inputs, tables
 
+    measured = {"fused": fused_ms, "opat": opat_ms,
+                "part": {r["query"]: r["part_query_ms"] for r in part_rows},
+                "shared": {"all13": main_wave["query_ms"]}}
     sharded = shard_phase(
         dev, card, db, pdb, cache, queries, oracle, kernels, mods,
         first=first, all13=waves["all13"], pad_to=pads["all13"],
         waves={label: wave_out[label, "all13"]
                for label in ("plain", "packed")},
-        measured={"fused": fused_ms, "opat": opat_ms,
-                  "part": {r["query"]: r["part_query_ms"]
-                           for r in part_rows},
-                  "shared": {"all13": main_wave["query_ms"]}})
+        measured=measured)
+    serving_phase(dev, card, db, cache, queries, oracle, kernels,
+                  sharded.pop("calib"), measured)
     launch = ("block", "blocks_per_sm", "warps_per_sm")
     shapes = {(label, r["query"]): {k: r[k] for k in launch}
               for label, rs in (("fused", rows), ("packed_fused", prows))
@@ -2841,7 +2880,430 @@ def shard_phase(dev, card, db, pdb, cache, queries, oracle, kernels, mods,
                              wave_launches)):
         entry["launches_sharded"] = launched
     print(f"phase12_s {time.perf_counter() - t:.3f}", flush=True)
-    return dict(hw=hw, sharded=at_morsel)
+    return dict(hw=hw, sharded=at_morsel, calib=calib)
+
+
+# phase 13: the launch counter of each kernel entry's function (the name's
+# last part): (wrapper module, counter)
+COUNTERS = {"spja": ("ssb_fused", "LAUNCHES"),
+            "multi_spja": ("multi_fused", "LAUNCHES"),
+            "select_scan": ("select_scan", "LAUNCHES"),
+            "select_scan_packed": ("select_scan", "PACKED_LAUNCHES"),
+            "select_scan_sparse": ("select_scan", "SPARSE_LAUNCHES"),
+            "unpack": ("unpack", "LAUNCHES"),
+            "probe_join": ("hash_join", "LAUNCHES"),
+            "probe_agg": ("hash_join", "AGG_LAUNCHES"),
+            "build": ("hash_join", "BUILD_LAUNCHES"),
+            "group_sum": ("agg", "LAUNCHES"),
+            "reduce_sum": ("agg", "SUM_LAUNCHES"),
+            "project": ("project", "LAUNCHES"),
+            "histogram": ("radix_part", "HIST_LAUNCHES"),
+            "digit_counts": ("radix_part", "COUNT_LAUNCHES"),
+            "partition_multi": ("radix_part", "SCATTER_LAUNCHES"),
+            "part_probe": ("part_probe", "LAUNCHES")}
+# the kernels phase 13's path launches (PERF.md rows 1-3, 8, 10-14,
+# radix_sort's digit counts with row 13), each at least once
+SERVING_PATH = ("spja", "multi_spja", "select_scan", "probe_join",
+                "group_sum", "project", "histogram", "digit_counts",
+                "partition_multi", "part_probe")
+# phase 13: the batch server's strategies; the serving loop's arrivals,
+# their seed, its result cache's grids and wave size; the fault run
+SERVER_STRATEGIES = ("fused", "opat", "part", "shared", "auto")
+ARRIVALS = 300
+ARRIVAL_SEED = 20
+LOOP_CACHE_ENTRIES = 4
+LOOP_BATCH = 8
+LOOP_SLOW = 1 / 8
+# (the first request's every kernel visit an injected OOM, four of them
+# down its ladder, which on the card has no host rung: a typed error, and
+# the next admission shed until the governor's cooldown passes; then the 13 queries fused, their kernel and upload
+# visits faulting at FAULT_RATES (every third fault an OOM), the OOMs
+# having released the resident table, in morsels of FAULT_MORSEL halved
+# at each OOM: one a query)
+FAULT_RATES = {"kernel": 0.2, "upload": 0.2}
+FAULT_MORSEL = 64 << 30
+
+
+def serving_phase(dev, card, db, cache, queries, oracle, kernels, calib,
+                  measured) -> None:
+    """Phase 13, on phase 4's resident database (before phase 11 frees
+    it): the tuner on the card, then the serving control plane."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.cost.model import H100
+    from repro_torch.sql import calibrate, engine, faults, morsel, server
+    from repro_torch.sql import model as M
+    from repro_torch.sql import resilience as RS
+    from repro_torch.sql import result_cache, serving, shard, tune
+    from repro_torch.sql import compile as TC
+    from repro_torch.sql.compile import compile_plan
+    t = phase(f"13 the tuner ({tune.SMOKE_GRID['n']} rows) and the serving "
+              f"control plane: batch server, result cache, serving loop of "
+              f"{ARRIVALS} arrivals, faults; SF {SF}")
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m, _ in COUNTERS.values()}
+
+    def counts():
+        return {fn: getattr(mods[m], c) for fn, (m, c) in COUNTERS.items()}
+
+    saved = os.environ.get("REPRO_CALIB_CACHE")
+    tmp = tempfile.mkdtemp(prefix="tune-")
+    os.environ["REPRO_CALIB_CACHE"] = tmp
+    calibrate.save(calib)
+    hw_cal = M.default_hardware(dev)
+    if hw_cal != calibrate.apply(calib, H100):
+        raise AssertionError(f"default_hardware did not read the "
+                             f"calibration: {hw_cal}")
+    for m, c in COUNTERS.values():
+        setattr(mods[m], c, 0)
+
+    # the tuner: every swept configuration is checked against its oracle
+    # (and every partition depth against the default depth's rows) before
+    # it is timed — measure raises otherwise
+    t0 = time.perf_counter()
+    tunings = tune.measure(grid=tune.SMOKE_GRID, device=dev)
+    tune_s = time.perf_counter() - t0
+    tune.save(tunings)
+    for key in sorted(tunings.configs):
+        c = tunings.configs[key]
+        print("tuner " + json.dumps({
+            "family": c.family, "width": c.width, "r": c.r,
+            "part_bits": c.part_bits,
+            "part_budget_bytes": c.part_budget_bytes, "best_us": c.best_us,
+            "default_us": c.default_us, "speedup": c.speedup,
+            "eff_GBps": None if c.eff_bw is None else c.eff_bw / 1e9,
+            "card": card}), flush=True)
+    store = tune.cached_store(dev)
+    hw = M.default_hardware(dev)
+    if hw != tune.apply_hardware(store, hw_cal):
+        raise AssertionError(f"default_hardware did not fold the tunings: "
+                             f"{hw}")
+    if tune.tuned_r(device=dev) != store.r():
+        raise AssertionError("tuned_r did not read the store")
+    pp = tunings.configs["part_probe/w32"]
+    if M.part_bits(tune.SMOKE_GRID["n_build"], hw) != pp.part_bits:
+        raise AssertionError("part_bits does not give the tuned depth")
+    print("tuned " + json.dumps({
+        "seconds": tune_s, "grid": tune.SMOKE_GRID, "card": card,
+        "calibrated_read_GBps": hw_cal.read_bw / 1e9,
+        "tuned_read_GBps": hw.read_bw / 1e9,
+        "part_budget_bytes": hw.part_budget_bytes,
+        "static_part_bits": M.part_bits(tune.SMOKE_GRID["n_build"], H100),
+        "tuned_part_bits": pp.part_bits, "tuned_r": store.r(),
+        "checked": "every swept configuration gave the default's bits"}),
+        flush=True)
+
+    # the 13 queries part under the tuned budget, and auto on both
+    # hardwares beside the measured times
+    auto_rows = []
+    for name, plan in queries.items():
+        bits = {label: [M.part_bits(cache.get_build_count(db, j), h)
+                        for j in plan.joins]
+                for label, h in (("calibrated", hw_cal), ("tuned", hw))}
+        q = compile_plan(plan, "part")
+        got = q.execute(db, cache=cache)
+        if not same_bits(got, oracle[name]):
+            raise AssertionError(f"part (tuned) {name}: differs from the "
+                                 "oracle")
+        # the last join launched (a chain that empties launches no more)
+        lc = q.launch_config.get("part_probe")
+        if plan.joins and lc["bits"] not in bits["tuned"]:
+            raise AssertionError(f"part (tuned) {name}: launched {lc}, the "
+                                 f"tuned bits are {bits['tuned']}")
+        budget = TC._model_budget(plan, db, dev,
+                                  morsel.DEFAULT_MORSEL_BYTES)
+        choice = {label: M.choose(plan, db, hw=h, n_shards=1,
+                                  morsel_bytes=budget)
+                  for label, h in (("calibrated", hw_cal), ("tuned", hw))}
+        q = compile_plan(plan, "auto")
+        got = q.execute(db, cache=cache)
+        if not same_bits(got, oracle[name]) or \
+                q.decided != choice["tuned"].strategy:
+            raise AssertionError(f"auto (tuned) {name}: {q.decided}, "
+                                 f"differs from the oracle or the choice")
+        row = {"query": name, "part_bits": bits,
+               **{f"{label}_decided": c.strategy for label, c in
+                  choice.items()},
+               **{f"{label}_predicted_ms": {k: v * 1e3 for k, v in
+                                            c.predictions.items()}
+                  for label, c in choice.items()},
+               "measured_ms": {k: v.get(name) for k, v in measured.items()
+                               if k != "shared"}}
+        auto_rows.append(row)
+        print("auto tuned " + json.dumps(row), flush=True)
+    moved = [r["query"] for r in auto_rows
+             if r["calibrated_decided"] != r["tuned_decided"]]
+    print(f"auto: {len(moved)} choices moved by the tuning {moved}; card "
+          f"{card}", flush=True)
+
+    # the oracles of the narrowed variants (the result cache's and the
+    # serving loop's subsumed answers)
+    t0 = time.perf_counter()
+    variants = engine.ssb_narrowed_variants(queries)
+    want = dict(oracle)
+    want.update({name: engine.run_query_oracle(db, plan)
+                 for name, (_, plan) in variants.items()})
+    print(f"variant oracles: {len(variants)}, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def expect_ran(plan, strategy, r):
+        """The strategy a clean result must report: what compile_plan
+        lowers a fixed strategy to, a wave member's "shared", or the
+        strategy auto decided (``model_choice``)."""
+        if r.shared_wave_size is not None:
+            return "shared"
+        if strategy == "auto":
+            return r.model_choice
+        return compile_plan(plan, strategy).strategy
+
+    def check_clean(label, srv, results, asked, before=None):
+        """Every result the oracle's bits on its first attempt, with no
+        error and the strategy it asked for; no retry, and no fallback but
+        the compile-time ones the results report (the server's counts
+        since ``before``, a copy of its stats)."""
+        fallbacks = 0
+        for rid, (plan, strategy) in asked.items():
+            r = results[rid]
+            if r.error is not None or r.attempts != 1 or r.result is None:
+                raise AssertionError(f"{label} {plan.name} {strategy}: "
+                                     f"error {r.error}, attempts "
+                                     f"{r.attempts}")
+            if not same_bits(r.result, want[plan.name]):
+                raise AssertionError(f"{label} {plan.name} {strategy}: "
+                                     "differs from the oracle")
+            if not r.cache_hit and r.strategy != expect_ran(plan, strategy,
+                                                            r):
+                raise AssertionError(f"{label} {plan.name} {strategy}: ran "
+                                     f"{r.strategy}")
+            fallbacks += r.fallback_reason is not None
+        grew = {k: srv.stats[k] - (before or {}).get(k, 0)
+                for k in ("retries", "fallbacks", "errors",
+                          "pressure_events")}
+        if grew != {"retries": 0, "fallbacks": fallbacks, "errors": 0,
+                    "pressure_events": 0}:
+            raise AssertionError(f"{label}: stats {grew}")
+
+    # 1. the batch server, on the card in auto mode: each strategy's 13
+    # queries twice (the second pass every build a hit), and sharded at
+    # S = WAVE_SHARDS
+    families = {"fused": {"spja"}, "sharded": {"spja"},
+                "shared": {"multi_spja"}, "part": {"part_probe"},
+                "opat": {"select_scan"}, "ref": set()}
+    srv = server.QueryServer(db, max_batch=16)
+    if (srv.device, srv.mode) != (dev, "auto"):
+        raise AssertionError(f"server on {srv.device} {srv.mode}")
+    ssrv = server.QueryServer(shard.shard_database(db, WAVE_SHARDS),
+                              max_batch=16)
+    batch = {}
+    for strategy in SERVER_STRATEGIES + ("sharded",):
+        s = ssrv if strategy == "sharded" else srv
+        for rep in range(2):
+            asked = {s.submit(plan, strategy): (plan, strategy)
+                     for plan in queries.values()}
+            before = {k: v for k, v in s.stats.items() if k != "occupancy"}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = s.run()
+            run_ms = (time.perf_counter() - t0) * 1e3
+            check_clean(f"server {strategy}", s, results, asked, before)
+        for rid, (plan, _) in asked.items():
+            r = results[rid]
+            if r.cache_misses:
+                raise AssertionError(f"server {strategy} {plan.name}: "
+                                     f"{r.cache_misses} builds on the "
+                                     "second pass")
+            ran = set(r.launch_config)
+            if not ran <= families[r.strategy] | families["opat"] or \
+                    (r.strategy != "opat" and not ran):
+                raise AssertionError(f"server {strategy} {plan.name}: "
+                                     f"launch_config {r.launch_config}")
+            if strategy == "sharded" and r.device_count != WAVE_SHARDS:
+                raise AssertionError(f"server sharded {plan.name}: "
+                                     f"{r.device_count} shards")
+        if strategy == "auto":
+            wave_pred = M.predict_shared(
+                list(queries.values()), db, hw=hw, n_shards=1,
+                morsel_bytes=TC._model_budget(
+                    queries["q1.1"], db, dev, morsel.DEFAULT_MORSEL_BYTES))
+            print("auto wave " + json.dumps({
+                "predicted_ms": {k: v * 1e3 for k, v in wave_pred.items()},
+                "shared_run_ms": batch["shared"]["run_ms"],
+                "fused_run_ms": batch["fused"]["run_ms"], "card": card}),
+                flush=True)
+        row = {"strategy": strategy, "run_ms": run_ms,
+               "latency_ms": {r.name: r.latency_s * 1e3
+                              for r in results.values()},
+               "ran": {r.name: r.strategy for r in results.values()},
+               "wave_sizes": sorted({r.shared_wave_size or 1
+                                     for r in results.values()}),
+               "launch_config": {r.name: r.launch_config
+                                 for r in list(results.values())[:2]},
+               "card": card}
+        batch[strategy] = row
+        print("server " + json.dumps(row), flush=True)
+    solo_ms = statistics.median(batch["fused"]["latency_ms"].values())
+
+    # 2. the result cache: the 13 queries, then the narrowed variants
+    # answered by subsumption
+    rsrv = server.QueryServer(db, result_cache=result_cache.ResultCache())
+    asked = {rsrv.submit(plan, "fused"): (plan, "fused")
+             for plan in queries.values()}
+    check_clean("result cache", rsrv, rsrv.run(), asked)
+    asked = {rsrv.submit(plan, "fused"): (plan, "fused")
+             for _, plan in variants.values()}
+    before = {k: v for k, v in rsrv.stats.items() if k != "occupancy"}
+    t0 = time.perf_counter()
+    results = rsrv.run()
+    sub_ms = (time.perf_counter() - t0) * 1e3
+    check_clean("result cache", rsrv, results, asked, before)
+    if not all(r.subsumption_hit for r in results.values()):
+        raise AssertionError("result cache: a variant was not subsumed")
+    print("result cache " + json.dumps({
+        "variants": len(variants), "run_ms": sub_ms,
+        "stats": rsrv.result_cache.stats(),
+        "subsume_hits": rsrv.stats["result_subsume_hits"], "card": card}),
+        flush=True)
+
+    # 3. the serving loop: a few hundred Poisson arrivals over the 13
+    # queries and their variants, the pool anchored and prewarmed, at the
+    # rate one solo fused query a time would serve: asked as "shared" (a
+    # wave serves its members faster, so waves form and run as one pass),
+    # then as "auto" (the cost model decides whether a formed wave shares)
+    # at that rate and at LOOP_SLOW of it
+    pool = list(queries.values()) + [p for _, p in variants.values()]
+
+    def loop_run(rate: float, strategy: str) -> dict:
+        sched = serving.poisson_arrivals(rate, ARRIVALS, seed=ARRIVAL_SEED)
+        pick = np.random.default_rng(ARRIVAL_SEED).integers(
+            0, len(pool), ARRIVALS)
+        loop = serving.ServingLoop(
+            db, max_batch=LOOP_BATCH, warm_pool=pool,
+            result_cache=result_cache.ResultCache(
+                max_entries=LOOP_CACHE_ENTRIES))
+        t0 = time.perf_counter()
+        buckets = loop.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        loop.server.stats.clear()
+        loop.server.stats["occupancy"] = []
+        tickets = []
+        with loop:
+            start = time.monotonic()
+            for at, i in zip(sched, pick):
+                pause = start + at - time.monotonic()
+                if pause > 0:
+                    time.sleep(pause)
+                tickets.append(loop.submit(pool[i], strategy))
+            results = [tk.wait(timeout=120) for tk in tickets]
+        span_s = time.monotonic() - start
+        check_clean("serving loop", loop.server,
+                    {tk.rid: r for tk, r in zip(tickets, results)},
+                    {tk.rid: (tk.plan, tk.strategy) for tk in tickets})
+        lat = np.array([tk.latency_s for tk in tickets]) * 1e3
+        waves = [r.shared_wave_size for r in results if r.shared_wave_size]
+        st = loop.server.stats
+        row = {"strategy": strategy, "arrivals": ARRIVALS, "rate_qps": rate,
+               "seed": ARRIVAL_SEED,
+               "span_s": span_s, "served_qps": ARRIVALS / span_s,
+               "prewarm_buckets": buckets, "prewarm_s": prewarm_s,
+               "p50_ms": float(np.percentile(lat, 50)),
+               "p99_ms": float(np.percentile(lat, 99)),
+               "mean_ms": float(lat.mean()), "max_ms": float(lat.max()),
+               "shared_waves": st["shared_waves"],
+               "wave_members": len(waves),
+               "mean_wave_size": float(np.mean(waves)) if waves else None,
+               "max_wave_size": max(waves) if waves else None,
+               "dispatch": loop.former.dispatch_reasons,
+               "former_model_calls": loop.predictor.model_calls,
+               "former_model_s": loop.predictor.model_s,
+               "arbitration_s": st["arbitration_s"],
+               "result_cache_hits": st["result_cache_hits"],
+               "subsume_hits": st["result_subsume_hits"],
+               "ran": {k: sum(r.strategy == k for r in results)
+                       for k in sorted({r.strategy for r in results})},
+               "retries": st["retries"], "card": card}
+        print("serving loop " + json.dumps(row), flush=True)
+        return row
+
+    rate = 1e3 / solo_ms
+    full = loop_run(rate, "shared")
+    if not full["max_wave_size"] or full["max_wave_size"] < 2:
+        raise AssertionError("serving loop: no wave of two members formed")
+    loop_run(rate, "auto")
+    loop_run(rate * LOOP_SLOW, "auto")
+
+    # 4. faults: an injected OOM, then kernel and upload faults — every
+    # request a result with the oracle's bits, or a typed error (the
+    # OOM's governor releases the resident fact table: the later rungs
+    # stream it from the host, where the upload site is visited)
+    t0 = time.perf_counter()
+    fsrv = server.QueryServer(db, morsel_bytes=FAULT_MORSEL)
+    mb0 = fsrv.morsel_bytes
+    asked = {}
+    with faults.active(faults.FaultPlan(ARRIVAL_SEED, {"kernel": 1.0},
+                                        oom_every=1)):
+        asked[fsrv.submit(queries["q2.1"], "fused")] = queries["q2.1"]
+        results = fsrv.run()
+    oom_ladder = {k: fsrv.stats[k] for k in ("pressure_events", "retries")}
+    # its pressure events shut the door (a typed MemoryPressure at
+    # admission) until SHED_COOLDOWN_S passes with no new one
+    try:
+        fsrv.submit(queries["q1.1"], "fused")
+    except RS.MemoryPressure:
+        pass
+    else:
+        raise AssertionError("faults: the governor admitted a request "
+                             "past its high-water mark")
+    time.sleep(RS.SHED_COOLDOWN_S)
+    plan_f = faults.FaultPlan(ARRIVAL_SEED, FAULT_RATES)
+    with faults.active(plan_f):
+        more = {fsrv.submit(plan, "fused"): plan
+                for plan in queries.values()}
+        results.update(fsrv.run())
+    asked.update(more)
+    kinds = {}
+    for rid, plan in asked.items():
+        r = results[rid]
+        if r.error is None:
+            if not same_bits(r.result, oracle[plan.name]):
+                raise AssertionError(f"faults {plan.name}: differs from the "
+                                     f"oracle ({r.strategy})")
+        elif not isinstance(r.error, RS.ErrorInfo) or \
+                not isinstance(r.error.exception, RS.QueryError):
+            raise AssertionError(f"faults {plan.name}: untyped {r.error}")
+        if r.strategy == "ref":
+            raise AssertionError(f"faults {plan.name}: answered on the host")
+        key = r.strategy if r.error is None else r.error.error_kind
+        kinds[key] = kinds.get(key, 0) + 1
+    if fsrv.morsel_bytes >= mb0 or not fsrv.stats["pressure_events"]:
+        raise AssertionError(f"faults: the governor did not halve the "
+                             f"morsels ({mb0} -> {fsrv.morsel_bytes})")
+    print("faults " + json.dumps({
+        "requests": len(asked), "rates": FAULT_RATES,
+        "seconds": time.perf_counter() - t0, "oom_request": oom_ladder,
+        "outcomes": kinds, "sheds": fsrv.stats["sheds"],
+        "morsel_bytes": [mb0, fsrv.morsel_bytes],
+        "stats": {k: v for k, v in fsrv.stats.items() if k != "occupancy"},
+        "injected": plan_f.stats(),
+        "breakers": {f"{k[0]}/{k[1]}": v for k, v in
+                     fsrv.breakers.snapshot().items()},
+        "card": card}), flush=True)
+
+    launched = counts()
+    missing = [fn for fn in SERVING_PATH if not launched[fn]]
+    if missing:
+        raise AssertionError(f"phase 13 launched none of {missing}")
+    for entry in kernels:
+        fn = entry["name"].split(".")[-1]
+        if fn in launched:
+            entry["launches_serving"] = launched[fn]
+    print("serving launches " + json.dumps(launched), flush=True)
+    if saved is None:
+        del os.environ["REPRO_CALIB_CACHE"]
+    else:
+        os.environ["REPRO_CALIB_CACHE"] = saved
+    shutil.rmtree(tmp)
+    print(f"phase13_s {time.perf_counter() - t:.3f}", flush=True)
 
 
 def cuda_tensors() -> list:

@@ -603,7 +603,11 @@ def main() -> int:
     from repro_torch.kernels import project as proj
     from repro_torch.kernels import radix_part as radix
     from repro_torch.sql import engine, hashtable, ssb
-    from repro_torch.sql.compile import SORT_BITS, compile_plan
+    from repro_torch.sql.compile import compile_plan
+    try:
+        from repro_torch.sql.tune import DEFAULT_R as SORT_BITS
+    except ImportError:             # a tree from before the tuner
+        from repro_torch.sql.compile import SORT_BITS
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

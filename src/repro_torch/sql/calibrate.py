@@ -43,6 +43,7 @@ import json
 import logging
 import os
 import re
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -217,10 +218,22 @@ def cache_dir() -> str:
         os.path.expanduser("~"), ".cache", "repro")
 
 
-def _path(backend: str, device_name: str) -> str:
+def _key(backend: str, device_name: str) -> str:
     key = f"{backend}-torch{torch.__version__}-{device_name}"
-    key = re.sub(r"[^A-Za-z0-9._-]+", "-", key).strip("-").lower()
-    return os.path.join(cache_dir(), f"torch-calibration-{key}.json")
+    return re.sub(r"[^A-Za-z0-9._-]+", "-", key).strip("-").lower()
+
+
+def _path(backend: str, device_name: str) -> str:
+    return os.path.join(cache_dir(),
+                        f"torch-calibration-{_key(backend, device_name)}"
+                        ".json")
+
+
+def fingerprint(device=None) -> str:
+    """``device``'s cache key (the card unless named): its type, the torch
+    version and the device name — the tuner's file shares it."""
+    device = resolve(device)
+    return _key(device.type, _device_name(device))
 
 
 def cache_path(device=None) -> str:
@@ -232,16 +245,20 @@ def cache_path(device=None) -> str:
 
 
 # in-process memo over the disk cache: ``model.default_hardware`` sits on
-# the per-query auto path, so the JSON is read once a path (absent too)
+# the per-query auto path, so the JSON is read once a path (absent too);
+# a serving loop's worker reads it beside the caller's thread, so under a
+# lock
 _MEMO: dict = {}
+_LOCK = threading.Lock()
 
 
 def save(calib: Calibration) -> str:
     path = _path(calib.backend, calib.device_name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(calib.to_json(), f, indent=1)
-    _MEMO[path] = calib
+    with _LOCK:
+        with open(path, "w") as f:
+            json.dump(calib.to_json(), f, indent=1)
+        _MEMO[path] = calib
     return path
 
 
@@ -251,25 +268,26 @@ def load_cached(device=None) -> Optional[Calibration]:
     logged, removed and reported as none, so the caller measures again
     and writes a fresh one."""
     path = cache_path(device)
-    if path in _MEMO:
-        return _MEMO[path]
-    calib = None
-    if os.path.exists(path):
-        try:
-            with open(path) as f:
-                calib = Calibration.from_json(json.load(f))
-        except (ValueError, TypeError, KeyError, AttributeError,
-                OSError) as e:
-            logging.getLogger(__name__).warning(
-                "discarding corrupt calibration cache %s (%s: %s); "
-                "will re-measure", path, type(e).__name__, e)
-            calib = None
+    with _LOCK:
+        if path in _MEMO:
+            return _MEMO[path]
+        calib = None
+        if os.path.exists(path):
             try:
-                os.remove(path)
-            except OSError:
-                pass
-    _MEMO[path] = calib
-    return calib
+                with open(path) as f:
+                    calib = Calibration.from_json(json.load(f))
+            except (ValueError, TypeError, KeyError, AttributeError,
+                    OSError) as e:
+                logging.getLogger(__name__).warning(
+                    "discarding corrupt calibration cache %s (%s: %s); "
+                    "will re-measure", path, type(e).__name__, e)
+                calib = None
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+        _MEMO[path] = calib
+        return calib
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,17 @@ a fact table made resident with ``Database.to`` — runs whole.
 ``auto``  — the bandwidth cost model (``repro_torch.sql.model``) picks
             fused, opat, part or sharded per query at execute time, when
             the database (and so the cardinalities) is known, with the
-            card's calibrated rates (``repro_torch.sql.calibrate``).
+            card's calibrated rates (``repro_torch.sql.calibrate``) and
+            the tuner's feedback (``repro_torch.sql.tune``).
+
+``LAUNCH_STATS`` counts probe and partition dispatches and the host
+syncs of probe-side counts per process, so the one-launch claim is
+observable: ``part`` issues one probe launch a join, ``part_loop`` one a
+non-empty partition.  ``LAUNCH_CONFIG`` records, per kernel family, the
+launch configuration the last execution used: the threads a block its
+kernel is compiled with (``LAUNCH_SHAPES``), the packed width, and the
+radix width or partition depth it ran at (the latter two from the tune
+store where it holds them); ``CompiledQuery.launch_config`` snapshots it.
 """
 from __future__ import annotations
 
@@ -76,7 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.kernels import ops
+from repro_torch.kernels import multi_fused, ops
 from repro_torch.kernels import ssb_fused
 from repro_torch.sql import faults
 from repro_torch.sql import hashtable as HT
@@ -86,15 +96,64 @@ from repro_torch.sql import plan as P
 from repro_torch.sql import shard as SH
 from repro_torch.sql import ssb
 from repro_torch.sql import storage as ST
+from repro_torch.sql import tune as TN
 
 STRATEGIES = ("fused", "opat", "part", "part_loop", "shared", "sharded",
               "auto")
 
-# the radix width of ORDER BY's passes; the reference's tuner picks it
-# (``tune.tuned_r``, ROADMAP queue 1 item 11, the tuner), whose default is 8
-SORT_BITS = 8
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 _MEASURE_OP_CODE = {"first": 0, "mul": 1, "sub": 2}
+
+# process-wide dispatch counters (reset via reset_launch_stats), at the
+# reference's sites: "probe" counts probe launches (a wave's launch a
+# morsel, opat's probe a join, part's one a join, part_loop's one a
+# non-empty partition), "partition" the partition passes, "host_syncs"
+# the probe-side counts brought to the host
+LAUNCH_STATS = {"probe": 0, "partition": 0, "host_syncs": 0}
+
+
+def reset_launch_stats() -> Dict[str, int]:
+    """Zero ``LAUNCH_STATS`` and return the previous counts."""
+    prev = dict(LAUNCH_STATS)
+    for k in LAUNCH_STATS:
+        LAUNCH_STATS[k] = 0
+    return prev
+
+
+# per family, the launch configuration the last execution used:
+# ``CompiledQuery.execute`` snapshots it onto the query for ``QueryResult``
+LAUNCH_CONFIG: Dict[str, Dict] = {}
+
+
+def reset_launch_config() -> Dict[str, Dict]:
+    """Clear ``LAUNCH_CONFIG`` and return the previous record."""
+    prev = dict(LAUNCH_CONFIG)
+    LAUNCH_CONFIG.clear()
+    return prev
+
+
+def snapshot_launch_config() -> Dict[str, Dict]:
+    """A copy of the current per-family launch record."""
+    return {k: dict(v) for k, v in LAUNCH_CONFIG.items()}
+
+
+# the threads a block each family's kernel is compiled with, one shape a
+# family (the shapes that lost on the card are in PERF.md): spja,
+# csrc/ssb_fused.cu's kBlock; multi_spja, csrc/multi_fused.cu's kThreads;
+# select_scan and part_probe, lookback.cuh's kSweepThreads; radix_sort and
+# partition_multi, compact.cuh's kThreads
+LAUNCH_SHAPES: Dict[str, int] = {
+    "spja": ssb_fused.THREADS, "multi_spja": multi_fused.THREADS,
+    "select_scan": 256, "part_probe": 256, "radix_sort": 256,
+    "partition_multi": 256}
+
+
+def _launch(family: str, width: int = 32, **extra) -> None:
+    """Record one kernel family's launch in ``LAUNCH_CONFIG``: its
+    compiled shape, the packed width it reads and any ``extra`` knobs
+    (radix width, partition depth)."""
+    LAUNCH_CONFIG[family] = {"threads": LAUNCH_SHAPES[family],
+                             "width": width, **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +360,7 @@ def _fused_fold(plan: P.Plan, db: ssb.Database, mode: str,
     the dim tables are fetched once (or passed in ``prebuilt``), and each
     morsel runs the fused kernel adding into one int64 grid, returned
     unrounded with the stream's report."""
+    _launch("spja")
     if fact is None:
         fact = getattr(db, plan.scan.table)
     stream = MS.MorselStream(fact, morsel_bytes, cols=_fused_scan_cols(plan),
@@ -706,6 +766,7 @@ def _wave_fold(wave: _Wave, db, fact, mode: str, morsel_bytes: int,
             wave.plans, db, pad_to=wave.pad_to, prebuilt=wave.tables,
             fact=m.table, anchor=wave.anchor, device=device,
             groups=wave.groups)
+        LAUNCH_STATS["probe"] += 1      # one whole-wave launch a morsel
         faults.maybe_fault("kernel")
         return ops.multi_spja(*args, n_groups=n_groups, mode=mode, acc=acc,
                               **kwargs)
@@ -738,6 +799,8 @@ def execute_shared_morsels(plans: List[P.Plan], db: ssb.Database,
     result in submission order.  ``pad_to`` and ``anchor`` as
     :func:`shared_params`."""
     device = resolve(device)
+    reset_launch_config()
+    _launch("multi_spja")
     wave = _lower_wave(plans, db, cache, pad_to, prebuilt, anchor, device)
     acc, report = _wave_fold(wave, db, getattr(db, plans[0].scan.table),
                              mode, morsel_bytes, device)
@@ -794,6 +857,8 @@ def execute_shared_sharded(plans: List[P.Plan], db, mode: str = "auto",
             prebuilt=prebuilt, morsel_bytes=morsel_bytes, anchor=anchor,
             device=device)
         return results, [_synced_clock(device) - t0], report
+    reset_launch_config()
+    _launch("multi_spja")
     wave = _lower_wave(plans, base, cache, pad_to, prebuilt, anchor, device)
     acc, times, report = _shard_loop(db, device, lambda fact: _wave_fold(
         wave, base, fact, mode, morsel_bytes, device))
@@ -818,6 +883,7 @@ def _probe_whole(node: P.HashJoin, fact, db: ssb.Database,
     it."""
     htk, htv = _join_tables(db, node, cache, device)
     keys = ST.take(fact, node.fact_col, rowids, device)
+    LAUNCH_STATS["probe"] += 1
     faults.maybe_fault("kernel")
     payload, sel, cnt = ops.probe_join(
         keys, _positions(rowids.shape[0], device), htk, htv, mode=mode)
@@ -827,14 +893,17 @@ def _probe_whole(node: P.HashJoin, fact, db: ssb.Database,
 
 
 def _part_bits_of(node: P.HashJoin, db: ssb.Database,
-                  cache: Optional[HT.HashTableCache]
+                  cache: Optional[HT.HashTableCache], device: torch.device
                   ) -> Tuple[int, Optional[tuple]]:
-    """Radix bits of one join's partitioned lowering, and the filtered
-    build side when it had to be computed (no cache given)."""
+    """Radix bits of one join's partitioned lowering, priced on
+    ``device``'s hardware (``model.default_hardware``: a tuned partition
+    budget reaches both this path and the model), and the filtered build
+    side when it had to be computed (no cache given)."""
+    hw = M.default_hardware(device)
     if cache is not None:
-        return M.part_bits(cache.get_build_count(db, node)), None
+        return M.part_bits(cache.get_build_count(db, node), hw), None
     side = HT.filtered_build_side(db, node)
-    return M.part_bits(len(side[0])), side
+    return M.part_bits(len(side[0]), hw), side
 
 
 def _probe_part_fused(node: P.HashJoin, fact, db: ssb.Database,
@@ -846,16 +915,20 @@ def _probe_part_fused(node: P.HashJoin, fact, db: ssb.Database,
     row ids and group ids, then ONE probe launch over every partition
     against the packed ``(P, S)`` tables (``ops.part_join``); surviving
     rows come back partition-major.  One host sync: the match count."""
-    bits, side = _part_bits_of(node, db, cache)
+    bits, side = _part_bits_of(node, db, cache, device)
     packed = (cache.get_or_build_parts(db, node, bits, packed=True,
                                        device=device)
               if cache is not None else
               HT.build_dim_partitions(db, node, bits, side=side, packed=True,
                                       device=device))
     col, width, colref = ST.column_stream(fact, node.fact_col, device)
+    _launch("part_probe", bits=bits)
+    LAUNCH_STATS["partition"] += 1      # the pass inside part_join
+    LAUNCH_STATS["probe"] += 1          # the one probe launch
     outr, outg, cnt = ops.part_join(col, rowids, group, packed.htk,
                                     packed.htv, node.mult, bits, mode=mode,
                                     width=width, ref=colref)
+    LAUNCH_STATS["host_syncs"] += 1
     cnt = int(cnt)
     return outr[:cnt], outg[:cnt]
 
@@ -871,16 +944,19 @@ def _probe_part_loop(node: P.HashJoin, fact, db: ssb.Database,
     against that partition's own table.  Partitions are probed at their
     own length (the reference pads each to a power of two for XLA's
     trace cache); surviving rows come back partition-major."""
-    bits, side = _part_bits_of(node, db, cache)
+    bits, side = _part_bits_of(node, db, cache, device)
     parts = (cache.get_or_build_parts(db, node, bits, device=device)
              if cache is not None else
              HT.build_dim_partitions(db, node, bits, side=side,
                                      device=device))
     keys = ST.take(fact, node.fact_col, rowids, device)
+    _launch("partition_multi", bits=bits)
+    LAUNCH_STATS["partition"] += 1
     hist = ops.radix_histogram(keys, 0, bits, mode=mode)
     outk, (orow, ogrp) = ops.radix_partition_multi(
         keys, (rowids, group), 0, bits, mode=mode, hist=hist)
     # partition boundaries: the column sums of the pass's histogram
+    LAUNCH_STATS["host_syncs"] += 1
     counts = hist.sum(0).cpu().numpy()
     ends = np.cumsum(counts)
     out_rows, out_grps = [], []
@@ -889,8 +965,10 @@ def _probe_part_loop(node: P.HashJoin, fact, db: ssb.Database,
         if s == e:
             continue
         htk, htv = parts[p]
+        LAUNCH_STATS["probe"] += 1
         payload, sel, cnt = ops.probe_join(
             outk[s:e], _positions(e - s, device), htk, htv, mode=mode)
+        LAUNCH_STATS["host_syncs"] += 1
         cnt = int(cnt)
         if cnt:
             sel = sel[:cnt]
@@ -950,6 +1028,7 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                         # row ids (identity rowids: value == position)
                         lo2, hi2 = ST.encoded_bounds(enc, lo, hi)
                         words, phys, _ = ST.column_stream(fact, col, device)
+                        _launch("select_scan", width=phys)
                         out, cnt = ops.select_scan_packed(
                             words, rowids, lo2, hi2, phys, mode=mode)
                         rowids = out[:int(cnt)]
@@ -960,6 +1039,7 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
                     # emit a selection vector, then gather each live
                     # column through it — the materialization traffic
                     # the fused path avoids
+                    _launch("select_scan")
                     sel, cnt = ops.select_scan(
                         x, _positions(rowids.shape[0], device), lo, hi,
                         mode=mode)
@@ -995,11 +1075,20 @@ def _execute_chain(plan: P.Plan, db: ssb.Database, mode: str,
             if empty or defer_order:
                 break
             keys = ST.take(fact, node.key_col, rowids, device)
-            _, rowids = ops.radix_sort(keys, rowids, mode=mode, r=SORT_BITS)
+            rowids = _sort_rows(keys, rowids, mode, device)
         else:
             raise TypeError(f"{plan.name}: cannot lower node {node!r}")
     # only row plans (classify()-checked at compile time) fall through
     return rowids.cpu().numpy()
+
+
+def _sort_rows(keys: torch.Tensor, rowids: torch.Tensor, mode: str,
+               device: torch.device) -> torch.Tensor:
+    """ORDER BY's stable LSB radix sort of ``rowids`` by ``keys``, at the
+    tuned digit width (``tune.tuned_r``) -> the sorted row ids."""
+    r = TN.tuned_r(device=device)
+    _launch("radix_sort", r=r)
+    return ops.radix_sort(keys, rowids, mode=mode, r=r)[1]
 
 
 def _chain_scan_cols(plan: P.Plan) -> Optional[List[str]]:
@@ -1076,7 +1165,7 @@ def _chain_morsels(plan: P.Plan, db: ssb.Database, mode: str,
     if order_node is None or rowids.numel() == 0:
         return rowids.cpu().numpy(), report
     keys = torch.cat([p[1] for p in pieces if p[1] is not None])
-    _, rowids = ops.radix_sort(keys, rowids, mode=mode, r=SORT_BITS)
+    rowids = _sort_rows(keys, rowids, mode, device)
     return rowids.cpu().numpy(), report
 
 
@@ -1103,7 +1192,8 @@ class CompiledQuery:
     other strategies ``decided`` is the strategy itself).  After a
     ``sharded`` run, ``device_count`` holds the shards that ran and
     ``shard_times_s`` each one's time, from the end of the one before it
-    to the card's finishing it."""
+    to the card's finishing it.  ``launch_config`` is the last execute's
+    per-family launch record (``LAUNCH_CONFIG``'s snapshot)."""
     plan: P.Plan
     strategy: str
     requested: str
@@ -1117,6 +1207,8 @@ class CompiledQuery:
     # (the encoded bytes of two adjacent morsels' scanned columns)
     n_morsels: Optional[int] = None
     peak_resident_bytes: Optional[int] = None
+    launch_config: Optional[Dict[str, Dict]] = field(default=None,
+                                                     repr=False)
 
     def execute(self, db, mode: str = "auto",
                 cache: Optional[HT.HashTableCache] = None,
@@ -1129,6 +1221,16 @@ class CompiledQuery:
         ``shard.ShardedDatabase``: only ``sharded`` looks inside the
         latter, every other strategy runs on its base."""
         device = resolve(device)
+        reset_launch_config()
+        try:
+            return self._execute(db, mode, cache, device,
+                                 morsel_bytes)
+        finally:
+            self.launch_config = snapshot_launch_config()
+
+    def _execute(self, db, mode: str,
+                 cache: Optional[HT.HashTableCache], device: torch.device,
+                 morsel_bytes: int) -> np.ndarray:
         strategy = self.strategy
         if strategy == "auto":
             choice = M.choose(self.plan, db,

@@ -15,7 +15,7 @@ oracle, copied so the port answers to the same ground truth.
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -175,6 +175,41 @@ def ssb_queries() -> Dict[str, Plan]:
     return q
 
 
+def ssb_narrowed_variants(qs: Optional[Dict[str, Plan]] = None
+                          ) -> Dict[str, Tuple[str, Plan]]:
+    """Narrowed SSB variants: each differs from its parent query only
+    by a *strictly stronger* filter on one group-key join — the shapes
+    the result cache (``repro_torch.sql.result_cache``) can answer from the
+    parent's cached grid by predicate subsumption.  Returns
+    ``{variant_name: (parent_name, plan)}``; the serving benchmark and
+    the subsumption-soundness tests drive both from this one list."""
+    import copy
+    if qs is None:
+        qs = ssb_queries()
+
+    def narrowed(name, parent, join_ix, new_filter):
+        v = copy.deepcopy(qs[parent])
+        v.name = name
+        v.joins[join_ix].filter = new_filter
+        return name, (parent, v)
+
+    return dict([
+        # q2.1's date join is unfiltered (TruePred) -> any year range
+        narrowed("q2.1n", "q2.1", 2, RangePred("d_year", 1993, 1996)),
+        # q2.2 brands 260..267 -> inner slice
+        narrowed("q2.2n", "q2.2", 1, RangePred("p_brand1", 261, 265)),
+        # q3.1 years 1992..1997 -> two of them
+        narrowed("q3.1n", "q3.1", 2, InPred("d_year", (1994, 1995))),
+        # q3.3 customer cities {UKI1, UKI5} -> just UKI5 (flag payload)
+        narrowed("q3.3n", "q3.3", 0, EqPred("c_city", ssb.CITY_UKI5)),
+        # q4.1's date join is unfiltered (all years) -> a 3-year slice.
+        # (q4.2 is NOT usable here: its s_region build side is empty at
+        # the small scale factors the tests/benchmarks run, so its grid
+        # layout never decomposes and narrowing it can only miss.)
+        narrowed("q4.1n", "q4.1", 3, RangePred("d_year", 1993, 1995)),
+    ])
+
+
 # ---------------------------------------------------------------------------
 # execution wrappers
 # ---------------------------------------------------------------------------
@@ -216,9 +251,18 @@ def order_by(table, key_col: str, mode: str = "auto",
     return {c: np.asarray(v)[perm] for c, v in table.columns.items()}
 
 
+def _live(table, col: str, rows: np.ndarray) -> np.ndarray:
+    """``col`` at the live ``rows`` (ascending): the column itself while
+    every row lives."""
+    values = np.asarray(table[col])
+    return values if rows.size == values.size else values[rows]
+
+
 def run_query_oracle(db: Database, plan: Plan) -> np.ndarray:
     """Independent pure-numpy plan interpreter (mask + np.add.at) — the
-    correctness ground truth (aggregate plans only)."""
+    correctness ground truth (aggregate plans only).  Each join looks up
+    only the rows every earlier step kept, in row order, so the sums are
+    added in the same order, to the same bits, as over the whole table."""
     if plan.project is None or plan.group is None:
         raise ValueError(
             f"{plan.name}: the oracle interprets aggregate plans "
@@ -228,13 +272,15 @@ def run_query_oracle(db: Database, plan: Plan) -> np.ndarray:
     mask = np.ones(n, bool)
     for pred in plan.filters:
         mask &= P.pred_mask(pred, lo)
-    group = np.zeros(n, np.int64)
+    rows = np.flatnonzero(mask)         # the live rows, ascending
+    group = np.zeros(rows.size, np.int64)
     for j in plan.joins:
         dim: ssb.Table = getattr(db, j.dim)
         dmask = P.pred_mask(j.filter, dim)
         keys = np.asarray(dim[j.key_col])
         if keys.size == 0 or not dmask.any():
-            mask &= False               # empty build side: every probe misses
+            rows = rows[:0]             # empty build side: every probe misses
+            group = group[:0]
             continue
         payload = P.expr_values(j.payload, dim).astype(np.int64)
         # offset-based lut over the surviving key range: negative dim
@@ -248,17 +294,18 @@ def run_query_oracle(db: Database, plan: Plan) -> np.ndarray:
         sel = np.flatnonzero(dmask)[::-1]
         lut[keys[sel].astype(np.int64) - kmin] = payload[sel]
         # a fact FK outside the dim key range is a probe miss
-        idx = np.asarray(lo[j.fact_col]).astype(np.int64) - kmin
+        idx = _live(lo, j.fact_col, rows).astype(np.int64) - kmin
         in_range = (idx >= 0) & (idx < size)
         pv = np.where(in_range, lut[np.clip(idx, 0, size - 1)], -1)
-        mask &= pv >= 0
-        group = group + np.where(pv >= 0, pv, 0) * j.mult
+        hit = pv >= 0
+        rows = rows[hit]
+        group = group[hit] + pv[hit] * j.mult
     proj = plan.project
-    m = np.asarray(lo[proj.m1]).astype(np.float64)
+    m = _live(lo, proj.m1, rows).astype(np.float64)
     if proj.op == "mul":
-        m = m * np.asarray(lo[proj.m2])
+        m = m * _live(lo, proj.m2, rows)
     elif proj.op == "sub":
-        m = m - np.asarray(lo[proj.m2])
+        m = m - _live(lo, proj.m2, rows)
     out = np.zeros(plan.n_groups, np.float64)
-    np.add.at(out, group[mask], m[mask])
+    np.add.at(out, group, m)
     return out.astype(np.float32)

@@ -43,6 +43,8 @@ in the port yet.
 """
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -74,17 +76,20 @@ SAMPLE_STRIDE_TARGET = 1 << 16          # fact rows sampled for selectivity
 
 
 def default_hardware(device=None) -> Hardware:
-    """The Hardware ``auto`` predicts with on ``device`` (the card unless
-    named): on a card, the H100 entry with the rates measured there when
-    ``repro_torch.sql.calibrate`` has them cached, else its published
-    rates; on the CPU, ``HOST``.  Reading the cache is a one-time JSON
-    read; nothing is measured unless asked (the calibrate CLI, the
-    smoke)."""
+    """The Hardware ``auto`` and the partitioned join's ``part_bits``
+    price with on ``device`` (the card unless named): on a card, the H100
+    entry with the rates measured there when ``repro_torch.sql.calibrate``
+    has them cached (else its published rates), then the tuner's feedback
+    when ``repro_torch.sql.tune`` has sweep results cached (the scan rate
+    ``select_scan`` reached, the measured partition budget); on the CPU,
+    ``HOST``.  Reading the caches is a one-time JSON read each; nothing
+    is measured unless asked (the calibrate and tune CLIs, the smoke)."""
     device = resolve(device)
     if device.type != "cuda":
         return HOST
-    from repro_torch.sql import calibrate
-    return calibrate.cached_hardware(H100, device) or H100
+    from repro_torch.sql import calibrate, tune
+    return tune.tuned_hardware(
+        calibrate.cached_hardware(H100, device) or H100, device)
 
 
 def ht_bytes(n_build: int) -> float:
@@ -140,15 +145,61 @@ def _pred_selectivity(pred, fact: ssb.Table, n: int) -> float:
     return float(m.mean()) if m.size else 1.0
 
 
+# this thread's memo of plan statistics and filtered build counts, set by
+# ``stats_memo`` (a server's, for the life of its database)
+_SCOPE = threading.local()
+
+
+@contextmanager
+def stats_memo(memo: dict):
+    """Memoize this thread's ``plan_stats`` and filtered build-side counts
+    in ``memo`` within the block, so pricing a new wave composition only
+    combines cached numbers.  Entries are keyed by the identity of the
+    plan, its join nodes and the tables they read (and the fact table's
+    pending ingest rows), and hold those objects, so an identity is never
+    reused while ``memo`` lives; a new table is a new entry."""
+    prev = getattr(_SCOPE, "memo", None)
+    _SCOPE.memo = memo
+    try:
+        yield memo
+    finally:
+        _SCOPE.memo = prev
+
+
+def _memoized(key: Tuple, hold: Tuple, compute):
+    memo = getattr(_SCOPE, "memo", None)
+    if memo is None:
+        return compute()
+    hit = memo.get(key)
+    if hit is None:
+        hit = memo[key] = (hold, compute())
+    return hit[1]
+
+
+def _build_rows(j: P.HashJoin, db: ssb.Database) -> int:
+    """Rows of ``j``'s build side that survive its dimension filter."""
+    dim: ssb.Table = getattr(db, j.dim)
+    return _memoized(("build", id(j), id(dim)), (j, dim),
+                     lambda: int(P.pred_mask(j.filter, dim).sum()))
+
+
 def plan_stats(plan: P.Plan, db: ssb.Database) -> PlanStats:
     fact: ssb.Table = getattr(db, plan.scan.table)
+    dims = tuple(getattr(db, j.dim) for j in plan.joins)
+    return _memoized(("stats", id(plan), id(fact), fact.n_rows,
+                      storage.delta_rows(fact), tuple(map(id, dims))),
+                     (plan, fact, dims),
+                     lambda: _plan_stats(plan, db, fact))
+
+
+def _plan_stats(plan: P.Plan, db: ssb.Database,
+                fact: ssb.Table) -> PlanStats:
     n = fact.n_rows
     pred_sels = tuple(_pred_selectivity(p, fact, n) for p in plan.filters)
     join_sels, join_builds = [], []
     for j in plan.joins:
         dim: ssb.Table = getattr(db, j.dim)
-        dmask = P.pred_mask(j.filter, dim)
-        n_keep = int(dmask.sum())
+        n_keep = _build_rows(j, db)
         join_builds.append(n_keep)
         # uniform-FK estimate: P(hit) = surviving dim fraction
         join_sels.append(n_keep / dim.n_rows if dim.n_rows else 0.0)
@@ -419,8 +470,7 @@ def predict_shared(plans, db: ssb.Database,
         else int(morsel_bytes)
     nm = max(1, len(MS.plan_cuts(n, MS.rows_per_morsel(stream_bpr,
                                                        budget))))
-    builds = [int(P.pred_mask(j.filter, getattr(db, j.dim)).sum())
-              for j in join_nodes]
+    builds = [_build_rows(j, db) for j in join_nodes]
     out_payload = float(sum(plan.n_groups * W for plan in uniq))
     shared_t = (morsel_pipeline_time(stream_bpr * n, nm, hw, 1)
                 + sum(_probe_time(n, ht_bytes(b), hw) for b in builds)

@@ -1552,3 +1552,101 @@ def test_calibration_on_card(cuda, tmp_path, monkeypatch):
     np.testing.assert_array_equal(q.execute(db),
                                   engine.run_query_oracle(db, plan))
     assert q.decided in ("fused", "opat", "part")
+
+
+@pytest.fixture
+def resident_db(cuda):
+    """SF 0.05 resident on the card, and the oracle of the 13 queries."""
+    db = ssb.generate(sf=0.05, seed=17).to(cuda)
+    return db, {name: engine.run_query_oracle(db, plan)
+                for name, plan in engine.ssb_queries().items()}
+
+
+@pytest.mark.parametrize("strategy", ["fused", "shared", "auto"])
+def test_query_server_on_card_bit_identical(resident_db, strategy):
+    """The server on the card (its default device and mode): the 13
+    queries in one batch, each the oracle's bits on its first attempt,
+    with no retry and no fallback."""
+    from repro_torch.sql import server
+    db, want = resident_db
+    srv = server.QueryServer(db, max_batch=16)
+    assert srv.device.type == "cuda" and srv.mode == "auto"
+    rids = {name: srv.submit(plan, strategy)
+            for name, plan in engine.ssb_queries().items()}
+    got = srv.run()
+    for name, rid in rids.items():
+        r = got[rid]
+        assert r.error is None and r.attempts == 1, (name, r.error)
+        assert r.result.tobytes() == want[name].tobytes(), name
+        assert r.strategy != "ref" and r.launch_config, name
+    assert srv.stats["retries"] == srv.stats["fallbacks"] == 0
+    if strategy == "shared":
+        assert {r.shared_wave_size for r in got.values()} == {13}
+
+
+def test_tuner_smoke_grid_on_card(cuda, tmp_path, monkeypatch):
+    """``tune.measure(SMOKE_GRID)`` on the card: every family swept (each
+    configuration checked before it is timed), the store written, and its
+    partition depth the one ``part_bits`` reads back."""
+    from repro_torch.sql import calibrate, model, tune
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(tmp_path))
+    tunings = tune.measure(grid=tune.SMOKE_GRID)
+    assert tunings.backend == "cuda"
+    assert {c.family for c in tunings.configs.values()} == \
+        set(tune.FAMILIES)
+    tune.save(tunings)
+    tune._MEMO.clear()
+    assert tune.load_cached(cuda) == tunings
+    pp = tunings.configs["part_probe/w32"]
+    hw = model.default_hardware(cuda)
+    assert hw.part_budget_bytes == pp.part_budget_bytes
+    assert hw.read_bw == tunings.configs["select_scan/w32"].eff_bw
+    assert model.part_bits(tune.SMOKE_GRID["n_build"], hw) == pp.part_bits
+    assert tune.tuned_r(device=cuda) == tunings.configs["radix_sort/w32"].r
+    calibrate._MEMO.clear()
+    tune._MEMO.clear()
+
+
+def test_out_of_memory_on_card_is_memory_pressure(cuda, monkeypatch):
+    """A real allocation failure on the card maps to ``MemoryPressure``;
+    out of the fused kernel's call it halves the server's morsels, and the
+    request still answers one rung down."""
+    from repro_torch.sql import resilience, server
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(1 << 46, dtype=torch.uint8, device=cuda)
+    assert isinstance(resilience.classify_error(ei.value),
+                      resilience.MemoryPressure)
+
+    def oom(*a, **k):
+        torch.empty(1 << 46, dtype=torch.uint8, device=cuda)
+
+    db = ssb.generate(sf=0.01, seed=3).to(cuda)
+    plan = engine.ssb_queries()["q2.1"]
+    monkeypatch.setattr(ops, "spja", oom)
+    srv = server.QueryServer(db, morsel_bytes=1 << 24)
+    rid = srv.submit(plan, "fused")
+    r = srv.run()[rid]
+    assert srv.stats["pressure_events"] == 2
+    assert srv.governor.morsel_bytes == 1 << 22
+    assert r.error is None and r.strategy == "opat"
+    np.testing.assert_array_equal(r.result, engine.run_query_oracle(db, plan))
+
+
+def test_kernel_failure_on_card_is_a_device_error(resident_db, monkeypatch):
+    """A kernel that fails on the card ends its request in a typed
+    ``DeviceError`` on the first attempt: no rung after it, none on the
+    host."""
+    from repro_torch.sql import server
+    db, want = resident_db
+
+    def broken(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    monkeypatch.setattr(ops, "spja", broken)
+    srv = server.QueryServer(db)
+    rid = srv.submit(engine.ssb_queries()["q2.1"], "fused")
+    r = srv.run()[rid]
+    assert r.result is None and r.error.error_kind == "DeviceError"
+    assert r.attempts == 1 and r.strategy == "fused"
+    assert srv.stats["retries"] == srv.stats["fallbacks"] == 0

@@ -82,6 +82,22 @@ def test_shard_cost_and_calibration_load_neither_jax_nor_reference(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.sql.tune",
+                                    "repro_torch.sql.server",
+                                    "repro_torch.sql.serving",
+                                    "repro_torch.sql.result_cache"])
+def test_tuner_and_serving_load_neither_jax_nor_reference(module):
+    """The tuner and the serving control plane, each imported alone."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_reference_or_jax_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -130,6 +146,21 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
         MS.MorselStream(db.lineorder, morsel_bytes=1 << 10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TC.execute_shared_morsels([plan], db, morsel_bytes=1 << 10)
+
+
+def test_serving_entry_points_without_device_raise(monkeypatch):
+    """The server, the serving loop and the tuner run on the card unless
+    the caller names the CPU: with no card and no device they raise."""
+    from repro_torch.sql import server as TSV
+    from repro_torch.sql import serving as TSVG
+    from repro_torch.sql import tune as TTN
+    _no_cuda(monkeypatch)
+    db = TSSB.generate(sf=0.001, seed=0)
+    for make in (lambda: TSV.QueryServer(db), lambda: TSVG.ServingLoop(db),
+                 TTN.measure, TTN.cached_store, TTN.tuned_r,
+                 lambda: TTN.tuned_hardware(TM.HOST)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 @pytest.mark.parametrize("mode", ["kernel", "auto", "ref"])
