@@ -188,6 +188,21 @@ exits non-zero without printing a result:
            Every kernel of the path launched at least once
            (``launches_serving``).
 
+14. the LM serving path (plain PyTorch, none of the 15 kernels: every
+           launch count stays 0): the 10 smoke configs in float32 from one
+           seed, ``forward``, ``loss``, ``prefill`` (every cache leaf) and
+           two ``decode`` steps on the card within 1e-4 of the host on the
+           same parameters; then qwen2-0.5b at full width (bf16, random
+           weights from the seed) on the card: a 4-slot ``BatchServer``
+           answering 4 prompts of 128 tokens and 2 of 4,096 (past
+           ``attn_chunk_threshold``: chunked attention), 32 new tokens
+           each, twice with the same tokens; for one prompt of each
+           length ``prefill`` of all but the last token and ``decode`` of
+           it against ``forward`` at those positions (``LM_BF16_ATOL``);
+           prefill ms per bucket, decode ms a step, tokens/s, peak device
+           memory, the decode loop's device busy share and launches a
+           step, beside the step's byte bound (every weight read once).
+
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
 """
@@ -3563,6 +3578,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
         if fn in morsel_launches:
             entry["launches_morsels"] = morsel_launches[fn]
     print(f"phase11_s {time.perf_counter() - t:.3f}")
+    lm_phase(dev, card)
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 
@@ -3571,6 +3587,168 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# phase 14: the LM serving path.  The 10 smoke configs in float32 from one
+# seed, card against host within the CPU tests' tolerance; then
+# qwen2-0.5b at full width (bf16, random weights from the seed): a
+# BatchServer of LM_SLOTS slots answering LM_REQUESTS (prompt tokens,
+# requests), LM_MAX_NEW new tokens each, twice; a decode loop of
+# LM_PROFILE_STEPS steps profiled
+LM_SEED = 14
+LM_TOL = 1e-4
+LM_ARCH = "qwen2-0.5b"
+LM_SLOTS = 4
+LM_REQUESTS = ((128, 4), (4096, 2))
+LM_MAX_NEW = 32
+LM_PROFILE_STEPS = 8
+# bf16 prefill and decode against forward at the same positions, each
+# through the same weights: the largest absolute logit difference allowed
+LM_BF16_ATOL = 0.1
+
+
+def lm_phase(dev, card) -> dict:
+    """Phase 14: the LM scaffold's serving path on the card.  It reaches
+    none of the 15 kernels: every count stays 0."""
+    from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+    from repro_torch.models import api, smoke
+    from repro_torch.serve.engine import BatchServer, Request
+    t = phase(f"14 the LM serving path: the {len(ARCH_IDS)} smoke configs "
+              f"on the card against the host; {LM_ARCH} at full width, a "
+              f"{LM_SLOTS}-slot BatchServer, prompts "
+              f"{[p for p, _ in LM_REQUESTS]}")
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m, _ in COUNTERS.values()}
+    for m, c in COUNTERS.values():
+        setattr(mods[m], c, 0)
+
+    smoke_err = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = smoke_config(arch)
+        host = api.init(cfg, torch.Generator().manual_seed(LM_SEED + i),
+                        device="cpu")
+        want = smoke.pass_outputs(host, cfg, smoke.batch(cfg, LM_SEED, "cpu"))
+        got = smoke.pass_outputs(api.to(host, dev), cfg,
+                                 smoke.batch(cfg, LM_SEED, dev))
+        smoke_err[arch] = smoke.assert_close(got, want, LM_TOL)
+    print("lm smoke max_abs_err " + json.dumps(smoke_err), flush=True)
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if params["embed"].device != dev or params["embed"].dtype != \
+            torch.bfloat16:
+        raise AssertionError(f"{LM_ARCH}: params {params['embed'].dtype} on "
+                             f"{params['embed'].device}")
+    weight_bytes = api.param_bytes(params)
+    rng = np.random.default_rng(LM_SEED)
+    requests = []
+    for plen, count in LM_REQUESTS:
+        requests += [(len(requests), rng.integers(0, cfg.vocab_size, plen)
+                      .tolist()) for _ in range(count)]
+    max_len = max(p for p, _ in LM_REQUESTS) + LM_MAX_NEW
+
+    def serve():
+        srv = BatchServer(cfg, params, max_batch=LM_SLOTS, max_len=max_len)
+        for rid, prompt in requests:
+            srv.submit(Request(rid, prompt, LM_MAX_NEW))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv.run()
+        torch.cuda.synchronize()
+        return out, srv.stats, time.perf_counter() - t0
+
+    allocated = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first, _, first_s = serve()
+    out, stats, wall_s = serve()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for rid, prompt in requests:
+        if len(out[rid].tokens) != LM_MAX_NEW:
+            raise AssertionError(f"request {rid}: {len(out[rid].tokens)} "
+                                 f"tokens, not {LM_MAX_NEW}")
+        if out[rid].tokens != first[rid].tokens:
+            raise AssertionError(f"request {rid}: a second run gave other "
+                                 f"tokens")
+    waves = [dict(w, prefill_ms=w["prefill_s"] * 1e3,
+                  decode_ms_per_step=w["decode_s"] * 1e3
+                  / max(w["decode_steps"], 1)) for w in stats["wave_log"]]
+
+    # prefill of all but the last token, then a decode of it, against the
+    # forward at those positions (one prompt of each length)
+    consistency = {}
+    for plen, _ in LM_REQUESTS:
+        prompt = next(p for _, p in requests if len(p) == plen)
+        tokens = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        full, _ = api.forward(params, cfg, {"tokens": tokens})
+        want_pre, want_dec = full[0, -2], full[0, -1]
+        del full
+        pre, cache = api.prefill(params, cfg, {"tokens": tokens[:, :-1]},
+                                 plen)
+        dec, cache = api.decode(params, cfg, cache, tokens[:, -1:], plen - 1)
+        errs = {"prefill": float((pre[0, 0] - want_pre).abs().max()),
+                "decode": float((dec[0, 0] - want_dec).abs().max())}
+        same = {"prefill": bool(pre[0, 0].argmax() == want_pre.argmax()),
+                "decode": bool(dec[0, 0].argmax() == want_dec.argmax())}
+        consistency[plen] = {"max_abs_err": errs, "argmax_agrees": same,
+                             "max_abs_logit": float(want_dec.abs().max())}
+        del cache
+        if max(errs.values()) > LM_BF16_ATOL:
+            raise AssertionError(f"{LM_ARCH} prompt {plen}: prefill/decode "
+                                 f"vs forward {errs} over {LM_BF16_ATOL}")
+
+    # the decode loop alone: LM_PROFILE_STEPS steps on the first bucket's
+    # wave, timed, then profiled
+    plen = LM_REQUESTS[0][0]
+    prompts = [p for _, p in requests if len(p) == plen][:LM_SLOTS]
+    tokens = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    _, cache = api.prefill(params, cfg, {"tokens": tokens},
+                           plen + 2 * LM_PROFILE_STEPS)
+    step_tok = tokens[:, -1:]
+
+    def loop(start):
+        for i in range(LM_PROFILE_STEPS):
+            api.decode(params, cfg, cache, step_tok, start + i)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(plen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+    prof = profiled(lambda: loop(plen + LM_PROFILE_STEPS))
+    kv_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    busy_ms = prof["busy_ms"] / LM_PROFILE_STEPS
+    row = {"arch": LM_ARCH, "card": card,
+           "params": sum(x.numel() for _, x in smoke.leaves(params)),
+              "weight_GB": weight_bytes / 1e9, "init_s": init_s,
+           "requests": len(requests), "max_new": LM_MAX_NEW,
+           "slots": LM_SLOTS, "waves": waves,
+           "first_run_s": first_s, "run_s": wall_s,
+           "tokens_per_s": stats["tokens"] / wall_s,
+           "peak_allocated_GB": peak / 1e9,
+           "peak_over_before_GB": (peak - allocated) / 1e9,
+           "decode_loop_ms_per_step": step_ms,
+           "decode_device_busy_ms_per_step": busy_ms,
+           "decode_launches_per_step": prof["launches"] / LM_PROFILE_STEPS,
+           "decode_busy_share": busy_ms / step_ms,
+           "decode_busy_share_profiled": prof["busy_share"],
+           "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_cache_MB": kv_bytes / 1e6,
+           "decode_kernels": prof["kernels"],
+           "consistency": consistency}
+    row["decode_over_bound"] = step_ms / row["decode_bound_ms"]
+    print("lm serve " + json.dumps(row), flush=True)
+    launched = {fn: getattr(mods[m], c) for fn, (m, c) in COUNTERS.items()}
+    if any(launched.values()):
+        raise AssertionError(f"the LM path launched kernels: {launched}")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase14_s {time.perf_counter() - t:.3f}", flush=True)
+    return row
 
 
 def main() -> int:

@@ -23,6 +23,11 @@ from repro_torch.kernels import (agg, build, hash_join, multi_fused, ops,
                                  select_scan, ssb_fused, unpack)
 from repro_torch.sql import compile as compile_, engine, hashtable, ssb, \
     storage
+from repro_torch.configs import base as lm_configs
+from repro_torch.configs.base import ARCH_IDS as LM_ARCH_IDS
+from repro_torch.models import api as lm_api
+from repro_torch.models import smoke as lm_smoke
+from repro_torch.serve import engine as lm_engine
 
 pytestmark = pytest.mark.cuda
 
@@ -1650,3 +1655,72 @@ def test_kernel_failure_on_card_is_a_device_error(resident_db, monkeypatch):
     assert r.result is None and r.error.error_kind == "DeviceError"
     assert r.attempts == 1 and r.strategy == "fused"
     assert srv.stats["retries"] == srv.stats["fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (plain PyTorch on the card; no kernel of its own)
+# ---------------------------------------------------------------------------
+
+LM_SEED = 14
+LM_TOL = 1e-4       # float32 on card and host, the CPU tests' tolerance
+
+
+@pytest.mark.parametrize("arch", LM_ARCH_IDS)
+def test_lm_smoke_config_on_card_matches_host(cuda, arch):
+    """forward, loss, prefill (every cache leaf) and two decode steps at
+    smoke width, float32: the card within 1e-4 of the host on the same
+    parameters."""
+    cfg = lm_configs.smoke_config(arch)
+    host = lm_api.init(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    want = lm_smoke.pass_outputs(host, cfg,
+                                 lm_smoke.batch(cfg, LM_SEED, "cpu"))
+    got = lm_smoke.pass_outputs(lm_api.to(host, cuda), cfg,
+                                lm_smoke.batch(cfg, LM_SEED, cuda))
+    lm_smoke.assert_close(got, want, LM_TOL)
+
+
+def test_lm_int8_cache_on_card_matches_host(cuda):
+    """The int8 KV cache: equal on card and host, the rest within 1e-4."""
+    cfg = lm_configs.smoke_config("qwen2-0.5b").replace(
+        kv_cache_dtype="int8")
+    host = lm_api.init(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    want = lm_smoke.pass_outputs(host, cfg,
+                                 lm_smoke.batch(cfg, LM_SEED, "cpu"))
+    got = lm_smoke.pass_outputs(lm_api.to(host, cuda), cfg,
+                                lm_smoke.batch(cfg, LM_SEED, cuda))
+    assert got["prefill.k"].dtype == torch.int8
+    lm_smoke.assert_close(got, want, LM_TOL)
+
+
+def test_lm_entry_points_default_to_the_card(cuda):
+    cfg = lm_configs.smoke_config("qwen2-0.5b")
+    params = lm_api.init(cfg)
+    assert params["embed"].device == cuda
+    assert lm_api.init_cache(cfg, 2, 8)["k"].device == cuda
+    assert lm_engine.BatchServer(cfg, params).device == cuda
+
+
+def test_batch_server_slot_isolation_on_card(cuda):
+    """A request served in a padded wave on the card gives the tokens of
+    the same prompt served alone, and the host's tokens."""
+    cfg = lm_configs.smoke_config("qwen2.5-3b")
+    host = lm_api.init(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    params = lm_api.to(host, cuda)
+    prompt = list(range(10, 18))
+    rng = np.random.default_rng(1)
+    others = [rng.integers(0, cfg.vocab_size, len(prompt)).tolist()
+              for _ in range(2)]
+
+    def serve(p, device, prompts, slots):
+        srv = lm_engine.BatchServer(cfg, p, max_batch=slots, device=device)
+        for rid, pr in enumerate(prompts):
+            srv.submit(lm_engine.Request(rid, pr, max_new=5))
+        return {rid: c.tokens for rid, c in srv.run().items()}
+
+    solo = serve(params, cuda, [prompt], 1)
+    waved = serve(params, cuda, [prompt] + others, 4)
+    assert solo[0] == waved[0]
+    assert waved == serve(host, "cpu", [prompt] + others, 4)

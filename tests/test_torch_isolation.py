@@ -98,6 +98,24 @@ def test_tuner_and_serving_load_neither_jax_nor_reference(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serve.engine",
+                                    "repro_torch.launch.serve"])
+def test_lm_serving_path_loads_neither_jax_nor_reference(module):
+    """The LM scaffold's serving path, each entry imported alone (with
+    the configs, models and step builders beneath it), and every arch
+    config loaded from the port's own modules."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "from repro_torch.configs.base import all_configs\n"
+            "all_configs()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_reference_or_jax_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -159,6 +177,25 @@ def test_serving_entry_points_without_device_raise(monkeypatch):
     for make in (lambda: TSV.QueryServer(db), lambda: TSVG.ServingLoop(db),
                  TTN.measure, TTN.cached_store, TTN.tuned_r,
                  lambda: TTN.tuned_hardware(TM.HOST)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_lm_entry_points_without_device_raise(monkeypatch):
+    """The models, their caches and the batch server run on the card
+    unless the caller names the CPU: with no card and no device they
+    raise."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import serve as TLS
+    from repro_torch.models import api as TA
+    from repro_torch.serve.engine import BatchServer
+    cfg = smoke_config("qwen2-0.5b")
+    params = TA.init(cfg, device="cpu")
+    _no_cuda(monkeypatch)
+    for make in (lambda: TA.init(cfg), lambda: TA.init_cache(cfg, 1, 8),
+                 lambda: TA.from_numpy({}, cfg),
+                 lambda: BatchServer(cfg, params),
+                 lambda: TLS.main(["--smoke"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
