@@ -202,6 +202,24 @@ exits non-zero without printing a result:
            prefill ms per bucket, decode ms a step, tokens/s, peak device
            memory, the decode loop's device busy share and launches a
            step, beside the step's byte bound (every weight read once).
+15. the LM training path: the 10 smoke configs in float32 from one seed,
+           ``loss_and_grads`` (the loss and every gradient leaf) and one
+           ``make_train_step`` (params, moments, step, metrics) on the
+           card within 1e-4 of the host on the same parameters and batch;
+           then qwen2-0.5b at full width (bf16 params, f32 master and
+           moments, remat) on the card, fed by a ``TokenPipeline`` (batch
+           8, seq 512): each ``batch_at`` launches ``select_scan`` once
+           (its ``(kept, count)`` the plain version's bits on the same
+           scores, its tokens the plain filter's; no other kernel
+           launched: ``launches_train``), ``TRAIN_WARM`` + ``TRAIN_TIMED``
+           steps — step ms, tokens/s, peak device memory over what was
+           resident, one step profiled (busy share, launches), beside the
+           FLOP bound ``6 N tokens`` at 989 TFLOP/s and the optimizer's
+           byte bound; ``FIT_STEPS`` steps on one fixed batch (lr 1e-3, no
+           decay): every loss finite, the last below the first; an async
+           checkpoint of ``{params, opt}`` while the next step runs,
+           restored into a fresh template on the card with the bits of
+           the snapshot before that step (GB, save and restore seconds).
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -3579,6 +3597,7 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
             entry["launches_morsels"] = morsel_launches[fn]
     print(f"phase11_s {time.perf_counter() - t:.3f}")
     lm_phase(dev, card)
+    train_phase(dev, card, kernels)
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 
@@ -3748,6 +3767,239 @@ def lm_phase(dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase14_s {time.perf_counter() - t:.3f}", flush=True)
+    return row
+
+
+# phase 15: the LM training path.  The 10 smoke configs in float32 from
+# one seed, card against host within the CPU tests' tolerance; then
+# TRAIN_ARCH at full width (its published config: bf16 params, remat),
+# fed by a TokenPipeline of TRAIN_BATCH x TRAIN_SEQ tokens: TRAIN_WARM +
+# TRAIN_TIMED steps on the stream, FIT_STEPS on one fixed batch, an async
+# checkpoint during a step
+TRAIN_SEED = 15
+TRAIN_TOL = 1e-4
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_WARM, TRAIN_TIMED = 2, 8
+FIT_STEPS = 8
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16, published peak
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits, as integers of its width."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def train_phase(dev, card, kernels) -> dict:
+    """Phase 15: the LM scaffold's training path on the card.  Its one
+    kernel is ``select_scan`` (the pipeline's quality filter), launched
+    once a batch; every other count stays 0."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops, ref, select_scan
+    from repro_torch.models import api, smoke
+    from repro_torch.models.api import leaves, tree_map
+    from repro_torch.train.optim import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    t = phase(f"15 the LM training path: the {len(ARCH_IDS)} smoke configs "
+              f"on the card against the host; {TRAIN_ARCH} at full width, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step from a "
+              f"TokenPipeline, a fixed batch, an async checkpoint")
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m, _ in COUNTERS.values()}
+
+    smoke_err = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = smoke_config(arch)
+        host = api.init(cfg, torch.Generator().manual_seed(TRAIN_SEED + i),
+                        device="cpu")
+        want = smoke.train_outputs(host, cfg,
+                                   smoke.batch(cfg, TRAIN_SEED, "cpu"))
+        if smoke.least_move(host, want) <= 5 * TRAIN_TOL:
+            raise AssertionError(f"{arch}: the host's step left a param "
+                                 f"within the tolerance of its start")
+        got = smoke.train_outputs(api.to(host, dev), cfg,
+                                  smoke.batch(cfg, TRAIN_SEED, dev))
+        smoke_err[arch] = smoke.assert_close(got, want, TRAIN_TOL)
+    print("train smoke max_abs_err " + json.dumps(smoke_err), flush=True)
+
+    cfg = get_config(TRAIN_ARCH)
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED))
+    opt = init_opt_state(params)
+    if params["embed"].dtype != torch.bfloat16 or \
+            opt["master"]["embed"].dtype != torch.float32 or \
+            opt["m"]["embed"].dtype != torch.float32 or not cfg.remat:
+        raise AssertionError(f"{TRAIN_ARCH}: not its published training "
+                             f"dtypes")
+    n_params = sum(p.numel() for _, p in leaves(params))
+    data = DataConfig(seed=TRAIN_SEED, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    pipe = TokenPipeline(cfg, data)
+    step_fn = make_train_step(cfg)
+    tokens_a_step = TRAIN_BATCH * TRAIN_SEQ
+
+    # the stream: every count 0 just before, read just after; each
+    # batch_at's select_scan outputs kept to be held to the plain version
+    calls = []
+    real_select = ops.select_scan
+
+    def recorded(*args, **kw):
+        out = real_select(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    losses, per_batch = [], []
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for m, c in COUNTERS.values():
+        setattr(mods[m], c, 0)
+    ops.select_scan = recorded
+    try:
+        for step in range(TRAIN_WARM + TRAIN_TIMED):
+            if step == TRAIN_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = select_scan.LAUNCHES
+            batch = pipe.batch_at(step)
+            per_batch.append(select_scan.LAUNCHES - before)
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    finally:
+        ops.select_scan = real_select
+    launched = {fn: getattr(mods[m], c) for fn, (m, c) in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if per_batch != [1] * len(per_batch) or \
+            launched["select_scan"] != len(per_batch) or \
+            any(v for fn, v in launched.items() if fn != "select_scan"):
+        raise AssertionError(f"the training stream launched {launched}, "
+                             f"{per_batch} select_scan a batch")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{TRAIN_ARCH}: losses {losses}")
+    filter_err = 0
+    for step, ((scores, ids, lo, hi), (kept, count)) in enumerate(calls):
+        want_kept, want_count = ref.select_scan(scores, ids, lo, hi)
+        if not (torch.equal(kept, want_kept) and
+                int(count) == int(want_count) and count.dtype == torch.int64
+                and scores.device == dev and scores.shape == (
+                    TRAIN_BATCH * data.pool_factor,)):
+            raise AssertionError(f"batch {step}: select_scan's "
+                                 f"({kept.tolist()}, {int(count)}) against "
+                                 f"the plain ({want_kept.tolist()}, "
+                                 f"{int(want_count)})")
+        docs, _, _ = pipe.draw(step)
+        idx = want_kept[torch.arange(TRAIN_BATCH, device=dev)
+                        % torch.clamp(want_count, min=1)]
+        want_tokens = torch.from_numpy(docs).to(dev)[idx.long()]
+        if not torch.equal(pipe.batch_at(step)["tokens"], want_tokens):
+            raise AssertionError(f"batch {step}: tokens not the plain "
+                                 f"filter's")
+    step_ms = stream_s * 1e3 / TRAIN_TIMED
+
+    # one step profiled; the optimizer alone on the last step's gradients
+    prof = profiled(lambda: step_fn(params, opt, batch))
+    _, grads = loss_and_grads(params, cfg, batch)
+    opt_cfg = AdamWConfig()
+    adam_ms = event_ms(lambda: adamw_update(opt_cfg, params, grads, opt), 3)
+    opt_bytes = sum(
+        2 * p.numel() * p.element_size()                  # param r + w
+        + grads_of.numel() * grads_of.element_size()      # grad r
+        + 2 * sum(leaf.numel() * leaf.element_size()      # master, m, v
+                  for leaf in (mast, mm, vv))
+        for (_, p), (_, grads_of), (_, mast), (_, mm), (_, vv) in zip(
+            leaves(params), leaves(grads), leaves(opt["master"]),
+            leaves(opt["m"]), leaves(opt["v"])))
+    del grads
+
+    # a fixed batch: the loss must fall
+    fit = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                           weight_decay=0.0))
+    opt = init_opt_state(params)
+    fixed = pipe.batch_at(0)
+    fit_losses = []
+    for _ in range(FIT_STEPS):
+        params, opt, metrics = fit(params, opt, fixed)
+        fit_losses.append(metrics["loss"])
+    fit_losses = [float(x) for x in fit_losses]
+    if not all(np.isfinite(fit_losses)) or \
+            not fit_losses[-1] < fit_losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH} on a fixed batch: losses "
+                             f"{fit_losses}")
+
+    # an async checkpoint while the next step runs, restored on the card
+    tree = {"params": params, "opt": opt}
+    snapshot = tree_map(torch.clone, tree)
+    ckpt_bytes = api.param_bytes(tree)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(FIT_STEPS, tree)
+        snapshot_s = time.perf_counter() - t0
+        fit(params, opt, fixed)
+        torch.cuda.synchronize()
+        step_done_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        template = tree_map(torch.empty_like, tree)
+        t0 = time.perf_counter()
+        got = mgr.restore(FIT_STEPS, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for (path, g), (_, w) in zip(leaves(got), leaves(snapshot)):
+            if g.device != dev or g.dtype != w.dtype or \
+                    not torch.equal(bits(g), bits(w)):
+                raise AssertionError(f"checkpoint {'/'.join(path)}: not "
+                                     f"the snapshot's bits")
+        if torch.equal(bits(params["embed"]),
+                       bits(snapshot["params"]["embed"])):
+            raise AssertionError("the step during the save changed nothing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del got, template, snapshot
+
+    flop_bound_ms = 6 * n_params * tokens_a_step / BF16_FLOPS_PER_S * 1e3
+    row = {"arch": TRAIN_ARCH, "card": card, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+           "steps_timed": TRAIN_TIMED, "step_ms": step_ms,
+           "tokens_per_s": tokens_a_step / step_ms * 1e3,
+           "losses": losses, "fit_losses": fit_losses,
+           "select_scan_a_batch": per_batch,
+           "peak_allocated_GB": peak / 1e9,
+           "peak_over_before_GB": (peak - allocated) / 1e9,
+           "allocated_before_GB": allocated / 1e9,
+           "step_device_busy_ms": prof["busy_ms"],
+           "step_busy_share": prof["busy_ms"] / step_ms,
+           "step_busy_share_profiled": prof["busy_share"],
+           "step_launches": prof["launches"],
+           "step_kernels": prof["kernels"],
+           "flop_bound_ms": flop_bound_ms,
+           "step_over_flop_bound": step_ms / flop_bound_ms,
+           "adamw_ms": adam_ms,
+           "adamw_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+           "adamw_GB": opt_bytes / 1e9,
+           "checkpoint_GB": ckpt_bytes / 1e9,
+           "checkpoint_snapshot_s": snapshot_s,
+           "checkpoint_step_during_save_s": step_done_s,
+           "checkpoint_save_s": save_s,
+           "checkpoint_restore_s": restore_s}
+    print("lm train " + json.dumps(row), flush=True)
+    for entry in kernels:
+        if entry["name"].split(".")[-1] == "select_scan":
+            entry["launches_train"] = launched["select_scan"]
+    del params, opt, tree, batch, fixed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase15_s {time.perf_counter() - t:.3f}", flush=True)
     return row
 
 

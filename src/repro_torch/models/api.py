@@ -9,6 +9,7 @@
   abstract_*                              -> trees on the meta device
   from_numpy(tree, cfg, device)           -> params from numpy arrays
   to(tree, device), param_bytes(tree)     -> a copy elsewhere, its bytes
+  leaves(tree), tree_map(fn, tree)        -> (key path, leaf) pairs, a map
 
 Parameters and caches are nested dicts of tensors with the reference's
 keys and shapes.  Entry points that make tensors run on the card unless
@@ -16,7 +17,7 @@ the caller names another device.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,16 +119,37 @@ def abstract_batch(cfg: ModelConfig, batch: int, seq: int) -> Params:
     return out
 
 
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+
+def leaves(tree: Params, prefix: Tuple[str, ...] = ()
+           ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(key path, tensor) of every leaf of a nested dict, keys sorted at
+    every level (the reference's tree order)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def tree_map(fn, tree: Params) -> Params:
+    """``fn`` of every leaf, in the same structure."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def to(tree: Params, device) -> Params:
     """A copy of a tree of tensors on ``device``."""
-    return {k: to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    return tree_map(lambda v: v.to(device), tree)
 
 
 def param_bytes(params: Params) -> int:
     """Bytes of every tensor in a tree."""
-    return sum(param_bytes(v) if isinstance(v, dict)
-               else v.numel() * v.element_size() for v in params.values())
+    return sum(v.numel() * v.element_size() for _, v in leaves(params))
 
 
 # ---------------------------------------------------------------------------
@@ -146,28 +168,32 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     return t.to(resolve(device))
 
 
+def carry(want: Params, got, device, path: str = "",
+          cast: bool = True) -> Params:
+    """``got`` (nested dicts of numpy arrays) as tensors on ``device`` in
+    the structure of ``want``: every key of ``want`` must be there with
+    its shape, and no other.  Values keep their bits; each leaf takes its
+    ``want`` leaf's dtype when ``cast``, else keeps its own."""
+    if set(want) != set(got):
+        raise ValueError(f"{path or 'params'}: keys {sorted(got)}, "
+                         f"expected {sorted(want)}")
+    out = {}
+    for k, w in want.items():
+        where = f"{path}.{k}" if path else k
+        if isinstance(w, dict):
+            out[k] = carry(w, got[k], device, where, cast)
+            continue
+        t = tensor_from_numpy(got[k], device)
+        if tuple(t.shape) != tuple(w.shape):
+            raise ValueError(f"{where}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(w.shape)}")
+        out[k] = t.to(w.dtype) if cast else t
+    return out
+
+
 def from_numpy(tree, cfg: ModelConfig, device=None) -> Params:
     """The parameters ``tree`` (nested dicts of numpy arrays, such as the
     reference's ``api.init`` gives) as this package's parameter tree:
     every key of ``abstract_params(cfg)`` must be there with its shape,
     and no other.  Values keep their bits; dtypes become the port's."""
-    device = resolve(device)
-
-    def carry(want: Params, got, path: str) -> Params:
-        if set(want) != set(got):
-            raise ValueError(f"{path or 'params'}: keys {sorted(got)}, "
-                             f"expected {sorted(want)}")
-        out = {}
-        for k, w in want.items():
-            where = f"{path}.{k}" if path else k
-            if isinstance(w, dict):
-                out[k] = carry(w, got[k], where)
-                continue
-            t = tensor_from_numpy(got[k], device)
-            if tuple(t.shape) != tuple(w.shape):
-                raise ValueError(f"{where}: shape {tuple(t.shape)}, "
-                                 f"expected {tuple(w.shape)}")
-            out[k] = t.to(w.dtype)
-        return out
-
-    return carry(abstract_params(cfg), tree, "")
+    return carry(abstract_params(cfg), tree, resolve(device))

@@ -10,8 +10,15 @@ family:
   * ``prefill``      — full-sequence forward that also fills a decode cache
   * ``decode_step``  — one-token step against the cache, updated in place
 
-Rematerialization only matters to a backward pass, so ``cfg.remat`` has
-no effect here.
+Every entry point takes each layer from one ``unbind(0)`` of every
+stacked leaf (``unstack``, views), so that the backward pass of the
+training forward gathers the layers' gradients with one ``stack`` a
+leaf.  ``forward`` is also the training forward: under
+``cfg.remat``, while grad is enabled, each layer body runs under
+``torch.utils.checkpoint`` (``run_layer``), where the reference wraps its
+scan body in ``jax.checkpoint``.  The reference also checkpoints the
+chunked-attention body (``layers._chunked_attention``); the port does
+not: that changes the memory a backward pass holds, not its values.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.ctx import constrain
@@ -73,10 +81,21 @@ def init_params(init: L.Init, cfg: ModelConfig) -> Params:
     return params
 
 
-def layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (views, no copies)."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+def unstack(tree: Params, n: int) -> list:
+    """The ``n`` layers of a stacked tree from one ``unbind(0)`` of each
+    leaf (views): under autograd each leaf's gradient is then one stack
+    of the layers' gradients, not a zero-filled stack added per layer."""
+    flat = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def run_layer(cfg: ModelConfig, body, *args):
+    """``body(*args)``, recomputed in the backward pass instead of saved
+    when ``cfg.remat`` and grad is enabled."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -155,20 +174,26 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = _embed_tokens(params, cfg, tokens, patch_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
 
+    layers = unstack(params["layers"], cfg.n_layers)
     if cfg.family in ("ssm", "hybrid"):
         shared = params.get("shared_attn")
+
+        def body(h, lp):
+            y, _ = M.mamba2_block(lp["mamba"], cfg,
+                                  L.rms_norm(h, lp["norm"], cfg.norm_eps))
+            return h + y
+
         for attn_first, s0, s1 in _segments(cfg):
             if attn_first:
                 h = _shared_attn_apply(shared, cfg, h, positions)
             for i in range(s0, s1):
-                lp = layer(params["layers"], i)
-                y, _ = M.mamba2_block(lp["mamba"], cfg,
-                                      L.rms_norm(h, lp["norm"], cfg.norm_eps))
-                h = h + y
+                h = run_layer(cfg, body, h, layers[i])
     else:
+        def body(h, lp):
+            return _dense_layer(lp, cfg, h, positions)
+
         for i in range(cfg.n_layers):
-            h, a = _dense_layer(layer(params["layers"], i), cfg, h,
-                                positions)
+            h, a = run_layer(cfg, body, h, layers[i])
             aux = aux + a
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -220,6 +245,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = L.arange_pos(s, tokens.device)
     h = _embed_tokens(params, cfg, tokens, patch_embeds)
 
+    layers = unstack(params["layers"], cfg.n_layers)
     if cfg.family in ("ssm", "hybrid"):
         shared = params.get("shared_attn")
         states = []
@@ -235,7 +261,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 attn_ks.append(ck)
                 attn_vs.append(cv)
             for i in range(s0, s1):
-                lp = layer(params["layers"], i)
+                lp = layers[i]
                 y, st = M.mamba2_block(lp["mamba"], cfg,
                                        L.rms_norm(h, lp["norm"], cfg.norm_eps))
                 h = h + y
@@ -248,7 +274,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
+            lp = layers[i]
             xin = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
             a, ck, cv = L.attention_prefill(lp["attn"], cfg, xin, positions,
                                             max_len)
@@ -281,6 +307,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     if cfg.family == "vlm":
         h = h * math.sqrt(cfg.d_model)
 
+    layers = unstack(params["layers"], cfg.n_layers)
     if cfg.family in ("ssm", "hybrid"):
         shared = params.get("shared_attn")
         slot = 0
@@ -295,7 +322,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                               L.rms_norm(h, shared["ffn_norm"], cfg.norm_eps))
                 slot += 1
             for i in range(s0, s1):
-                lp = layer(params["layers"], i)
+                lp = layers[i]
                 st = {k: cache[k][i] for k in ("ssm", "conv_x", "conv_bc")}
                 y, st_new = M.mamba2_decode(
                     lp["mamba"], cfg, L.rms_norm(h, lp["norm"], cfg.norm_eps),
@@ -306,7 +333,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     else:
         quant = cfg.kv_cache_dtype == "int8"
         for i in range(cfg.n_layers):
-            lp = layer(params["layers"], i)
+            lp = layers[i]
             xin = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
             if quant:
                 a, *_ = L.attention_decode_q8(

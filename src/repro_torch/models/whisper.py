@@ -3,7 +3,10 @@
 The conv frontend is a stub: the model consumes precomputed frame
 embeddings (B, encoder_len, d_model).  Positions are sinusoidal on both
 sides.  The decode cache holds the decoder's self-attention K/V and the
-encoder's cross-attention K/V, computed once at prefill.
+encoder's cross-attention K/V, computed once at prefill.  Every entry
+point walks its layers as ``lm`` does: one ``unstack`` of each stack;
+the encoder and the training forward run each body under
+``lm.run_layer`` (remat).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.lm import layer
+from repro_torch.models.lm import run_layer, unstack
 
 Params = Dict[str, Any]
 
@@ -54,14 +57,17 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
     cdt = L.cdtype(cfg)
     pos = L.arange_pos(f, frames.device)
     h = frames.to(cdt) + L.sinusoid_positions(f, d, frames.device).to(cdt)
-    for i in range(cfg.n_encoder_layers):
-        lp = layer(params["enc_layers"], i)
+
+    def body(h, lp):
         a = L.attention(lp["attn"], cfg,
                         L.rms_norm(h, lp["attn_norm"], cfg.norm_eps),
                         pos, causal=False, use_rope=False)
         h = h + a
-        h = h + L.ffn(lp["ffn"], cfg,
-                      L.rms_norm(h, lp["ffn_norm"], cfg.norm_eps))
+        return h + L.ffn(lp["ffn"], cfg,
+                         L.rms_norm(h, lp["ffn_norm"], cfg.norm_eps))
+
+    for lp in unstack(params["enc_layers"], cfg.n_encoder_layers):
+        h = run_layer(cfg, body, h, lp)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -81,8 +87,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     pos = L.arange_pos(s, tokens.device)
     enc_pos = L.arange_pos(enc.shape[1], tokens.device)
     h = _embed(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        lp = layer(params["dec_layers"], i)
+
+    def body(h, lp):
         a = L.attention(lp["attn"], cfg,
                         L.rms_norm(h, lp["attn_norm"], cfg.norm_eps),
                         pos, causal=True, use_rope=False)
@@ -92,8 +98,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                         pos, causal=False, use_rope=False,
                         kv_source=enc, kv_positions=enc_pos)
         h = h + c
-        h = h + L.ffn(lp["ffn"], cfg,
-                      L.rms_norm(h, lp["ffn_norm"], cfg.norm_eps))
+        return h + L.ffn(lp["ffn"], cfg,
+                         L.rms_norm(h, lp["ffn_norm"], cfg.norm_eps))
+
+    for lp in unstack(params["dec_layers"], cfg.n_layers):
+        h = run_layer(cfg, body, h, lp)
     h = L.rms_norm(h, params["dec_norm"], cfg.norm_eps)
     return (L.logits_from_hidden(params, cfg, h),
             torch.zeros((), dtype=torch.float32, device=tokens.device))
@@ -121,8 +130,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     enc_pos = L.arange_pos(enc.shape[1], tokens.device)
     h = _embed(params, cfg, tokens)
     ks, vs, xks, xvs = [], [], [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["dec_layers"], i)
+    for lp in unstack(params["dec_layers"], cfg.n_layers):
         xin = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         a, ck, cv = L.attention_prefill(lp["attn"], cfg, xin, pos, max_len,
                                         use_rope=False)
@@ -156,8 +164,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     pos = int(pos)
     h = params["embed"][tokens].to(L.cdtype(cfg))
     h = h + L.sinusoid_at(pos, cfg.d_model, tokens.device).to(h.dtype)
-    for i in range(cfg.n_layers):
-        lp = layer(params["dec_layers"], i)
+    for i, lp in enumerate(unstack(params["dec_layers"], cfg.n_layers)):
         xin = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         a, _, _ = L.attention_decode(lp["attn"], cfg, xin, pos,
                                      cache["k"][i], cache["v"][i],

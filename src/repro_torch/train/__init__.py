@@ -1,2 +1,2 @@
-"""Step builders.  Only the serving ones (prefill and decode) are ported;
-the training step comes with the training slice."""
+"""Training and serving step builders (``step``), AdamW (``optim``) and
+the step-time watchdog (``watchdog``)."""

@@ -1724,3 +1724,90 @@ def test_batch_server_slot_isolation_on_card(cuda):
     waved = serve(params, cuda, [prompt] + others, 4)
     assert solo[0] == waved[0]
     assert waved == serve(host, "cpu", [prompt] + others, 4)
+
+
+# ---------------------------------------------------------------------------
+# the LM training path (plain PyTorch on the card; the pipeline's filter is
+# the select_scan kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", LM_ARCH_IDS)
+def test_lm_train_step_on_card_matches_host(cuda, arch):
+    """The loss, every gradient leaf and one train step (params, moments,
+    step, metrics) at smoke width, float32: the card within 1e-4 of the
+    host on the same parameters and batch."""
+    cfg = lm_configs.smoke_config(arch)
+    host = lm_api.init(cfg, torch.Generator().manual_seed(LM_SEED),
+                       device="cpu")
+    want = lm_smoke.train_outputs(host, cfg,
+                                  lm_smoke.batch(cfg, LM_SEED, "cpu"))
+    got = lm_smoke.train_outputs(lm_api.to(host, cuda), cfg,
+                                 lm_smoke.batch(cfg, LM_SEED, cuda))
+    assert lm_smoke.least_move(host, want) > 5 * LM_TOL
+    lm_smoke.assert_close(got, want, LM_TOL)
+
+
+@pytest.mark.parametrize("band", [(0.2, 1.0), (0.9, 1.0), (2.0, 3.0)])
+def test_pipeline_batch_on_card_equals_host_and_launches_select_scan(
+        cuda, band):
+    """Each batch on the card launches ``select_scan`` once and equals
+    the host's batch (the plain filter), with survivors to spare, fewer
+    than the batch, and none."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    for arch in ("qwen2-0.5b", "paligemma-3b"):
+        cfg = lm_configs.smoke_config(arch)
+        pipe = TokenPipeline(cfg, DataConfig(batch=8, seq=32,
+                                             quality_lo=band[0],
+                                             quality_hi=band[1]))
+        for step in range(3):
+            before = select_scan.LAUNCHES
+            got = pipe.batch_at(step)
+            assert select_scan.LAUNCHES == before + 1
+            want = pipe.batch_at(step, "cpu")
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].device == cuda
+                assert torch.equal(got[k].cpu(), want[k]), (arch, step, k)
+
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A bf16 tree with its optimizer state saved from card tensors, one
+    train step on, restored on the host with every leaf's bits."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.api import leaves, tree_map
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = lm_configs.smoke_config("qwen2-0.5b").replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = lm_api.init(cfg)
+    opt = init_opt_state(params)
+    params, opt, _ = make_train_step(cfg)(params, opt,
+                                          lm_smoke.batch(cfg, 0, cuda))
+    tree = {"params": params, "opt": opt}
+    CheckpointManager(tmp_path).save(1, tree)
+    template = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                        tree)
+    got = CheckpointManager(tmp_path).restore(1, template)
+    for (path, g), (_, w) in zip(leaves(got), leaves(tree)):
+        assert g.device.type == "cpu" and g.dtype == w.dtype, path
+        assert torch.equal(g.flatten().view(torch.uint8),
+                           w.cpu().flatten().view(torch.uint8)), path
+
+
+def test_launch_train_smoke_on_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --smoke`` on the card (its
+    default device) for a few steps, checkpointed and resumed."""
+    from repro_torch.launch import train as lm_train
+    args = ["--smoke", "--steps", "6", "--batch", "2", "--seq", "32",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "3"]
+    before = select_scan.LAUNCHES
+    lm_train.main(args)
+    first = capsys.readouterr().out
+    assert "(cuda:" in first.splitlines()[0] and first.rstrip().endswith(
+        "done")
+    assert select_scan.LAUNCHES == before + 6
+    lm_train.main(args[:2] + ["8"] + args[3:])
+    out = capsys.readouterr().out
+    assert "resumed from step 6" in out and "step     7 loss" in out

@@ -116,6 +116,26 @@ def test_lm_serving_path_loads_neither_jax_nor_reference(module):
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.train.optim",
+                                    "repro_torch.train.step",
+                                    "repro_torch.train.watchdog",
+                                    "repro_torch.checkpoint.manager",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.distributed.compression",
+                                    "repro_torch.launch.train"])
+def test_lm_training_path_loads_neither_jax_nor_reference(module):
+    """The LM scaffold's training path, each module imported alone (the
+    watchdog is the port's own copy of the reference's jax-free one)."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_reference_or_jax_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -196,6 +216,25 @@ def test_lm_entry_points_without_device_raise(monkeypatch):
                  lambda: TA.from_numpy({}, cfg),
                  lambda: BatchServer(cfg, params),
                  lambda: TLS.main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_lm_training_entry_points_without_device_raise(monkeypatch):
+    """The pipeline's batches, the params' init and the training CLI run
+    on the card unless the caller names the CPU: with no card and no
+    device they raise."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as TLT
+    from repro_torch.models import api as TA
+    cfg = smoke_config("qwen2-0.5b")
+    pipe = TokenPipeline(cfg, DataConfig(batch=2, seq=8))
+    draws = pipe.draw(0)
+    _no_cuda(monkeypatch)
+    for make in (lambda: pipe.batch_at(0), lambda: pipe.assemble(*draws),
+                 lambda: TA.init(cfg),
+                 lambda: TLT.main(["--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
