@@ -72,7 +72,8 @@ exits non-zero without printing a result:
            call profiled), and part_loop's ``probe_join`` calls timed
            over one pass; then the Fig. 8 analogue, one FK join of 2^27 fact
            rows against dims of 2^12 to 2^24 rows, through fused, opat,
-           part and part_loop, each against the oracle;
+           part and part_loop (to 2^20: ``FIG8_LOOP_DIMS``), each against
+           the oracle;
 8. ORDER BY: ``engine.order_by`` of lineorder by ``lo_orderdate`` (one
            digit-count launch, then the two 8-bit passes of four that
            move rows) against numpy's stable argsort, and a filter + join
@@ -221,6 +222,28 @@ exits non-zero without printing a result:
            restored into a fresh template on the card with the bits of
            the snapshot before that step (GB, save and restore seconds).
 
+16. the mesh paths (run after phase 13, before phase 11 frees the
+           resident database): ``mesh.spawn`` worlds of ranks all on
+           ``cuda:0``, each generating SF 20 from the seed — S = 1 over
+           NCCL, S = 2 and 4 over gloo (NCCL refuses two ranks on one
+           device) — running the 13 queries ``sharded`` on
+           ``shard_database(db, mesh)``: each rank's shard resident, one
+           ``spja`` launch a query and one all-reduce; at S = 2 also 256
+           MiB windows of the host table and the packed database.  Every
+           rank's answer has phase 4's oracle bits, its ``spja`` launches
+           equal its windows and nothing else launches
+           (``launches_mesh``); ``query_ms`` of the slowest rank beside
+           phase 12's logical shards at the same S (phase 4's fused at S
+           = 1), the all-reduce of one grid, each rank's device memory
+           (its CUDA context, shard and tables); the interconnect's
+           all-reduce rate with its backend at S = 2 and 4; then
+           expert-parallel MoE on a world of 4: the two MoE smoke configs
+           in f32 on a 2 x 2 mesh (``moe_ffn`` and ``api.forward``)
+           within 1e-4 of the host's local path, and one deepseek-moe-16b
+           layer at full width in bf16 on a 1 x 4 mesh against
+           ``_moe_ffn_local`` on the card (``MOE_BF16_TOL``), each path's
+           ms.
+
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
 """
@@ -332,6 +355,10 @@ SORT_SYNTHETIC = [("negative", [0, 1, 2, 3]), ("top_byte", [0, 1, 2]),
 # table, past the 50 MB L2)
 FIG8_FACT = 1 << 27
 FIG8_DIMS = (1 << 12, 1 << 16, 1 << 20, 1 << 24)
+# part_loop's dims: its 256 per-partition tables at 2^24 take as long to
+# build on the host as part's packed ones (about 50 s), for a row the
+# 2^20 one already shows, so the sweep skips it there
+FIG8_LOOP_DIMS = (1 << 12, 1 << 16, 1 << 20)
 STRATEGIES = ("fused", "opat", "part", "part_loop")
 # phase 9's waves (query names; all13 is padded to 16 members)
 WAVES = {"all13": None, "flight1": ("q1.1", "q1.2", "q1.3"),
@@ -2107,6 +2134,8 @@ def resident_phases() -> dict:
                "part_bits": M.part_bits(n_dim),
                "setup_s": time.perf_counter() - t0}
         for strategy in STRATEGIES:
+            if strategy == "part_loop" and n_dim not in FIG8_LOOP_DIMS:
+                continue
             q = compile_plan(fig8_plan, strategy)
             t0 = time.perf_counter()
             got = q.execute(fdb, cache=fcache)      # builds its tables
@@ -2698,6 +2727,7 @@ def resident_phases() -> dict:
         measured=measured)
     serving_phase(dev, card, db, cache, queries, oracle, kernels,
                   sharded.pop("calib"), measured)
+    mesh_phase(card, oracle, kernels, fused_ms, sharded.pop("logical_ms"))
     launch = ("block", "blocks_per_sm", "warps_per_sm")
     shapes = {(label, r["query"]): {k: r[k] for k in launch}
               for label, rs in (("fused", rows), ("packed_fused", prows))
@@ -2913,7 +2943,10 @@ def shard_phase(dev, card, db, pdb, cache, queries, oracle, kernels, mods,
                              wave_launches)):
         entry["launches_sharded"] = launched
     print(f"phase12_s {time.perf_counter() - t:.3f}", flush=True)
-    return dict(hw=hw, sharded=at_morsel, calib=calib)
+    logical_ms = {s: {r["query"]: r["query_ms"] for r in shard_rows
+                      if (r["database"], r["S"]) == ("plain", s)}
+                  for s in SHARDS}
+    return dict(hw=hw, sharded=at_morsel, calib=calib, logical_ms=logical_ms)
 
 
 # phase 13: the launch counter of each kernel entry's function (the name's
@@ -3606,6 +3639,161 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# phase 16: the mesh paths.  Worlds of MESH_WORLDS ranks on the one card
+# (S = 1 over NCCL, S = 2 and 4 over gloo: NCCL refuses two ranks on one
+# device), each rank generating SF 20 from SEED and holding its own shard;
+# the runs of each world; the MoE checks on a 2 x 2 and a 1 x 4 mesh
+MESH_WORLDS = (1, 2, 4)
+MESH_TIMEOUT_S = 300
+MESH_RUNS = {
+    1: [{"label": "plain", "resident": True, "reps": QUERY_REPS}],
+    2: [{"label": "plain", "resident": True, "reps": QUERY_REPS},
+        {"label": "windows", "morsel_bytes": MORSEL_BYTES},
+        {"label": "packed", "pack": True, "resident": True,
+         "reps": QUERY_REPS}],
+    4: [{"label": "plain", "resident": True, "reps": QUERY_REPS}]}
+MOE_SEED = 16
+MOE_SMOKE = ("qwen3-moe-30b-a3b", "deepseek-moe-16b")
+# the full-width layer: deepseek-moe-16b's 64 experts of d_model 2048 and
+# d_ff 1408 in bf16 (1.1 GB), a batch of 4 x 512 tokens, 16 experts a rank
+MOE_FULL = {"arch": "deepseek-moe-16b", "smoke": False, "mesh": (1, 4),
+            "seed": MOE_SEED, "batch": 4, "seq": 512, "params_on": "card"}
+# bf16 keeps 8 significant bits: the local path rounds each of a token's
+# expert outputs as it accumulates them in bf16, the mesh path sums the
+# ranks' partial outputs in f32 and rounds once, so the two differ by a
+# few bf16 steps of the largest output (2^-8 of it a step); a wrong
+# expert slice or a lost rank moves outputs by their own size
+MOE_BF16_TOL = 2 ** -5
+
+
+def mesh_phase(card, oracle, kernels, fused_ms, logical_ms) -> None:
+    """Phase 16, after phase 13 and before phase 11 frees the resident
+    database: ``sharded`` over process groups of ranks sharing the card,
+    the interconnect's all-reduce, and expert-parallel MoE."""
+    from repro_torch.distributed import mesh as MESH
+    from repro_torch.distributed import ranks
+    from repro_torch.sql.calibrate import ALLREDUCE_ELEMS
+    t = phase(f"16 the mesh paths: the 13 queries sharded over worlds of "
+              f"{MESH_WORLDS} ranks on one card, SF {SF}; the interconnect; "
+              f"expert-parallel MoE on 2 x 2 and 1 x 4 meshes")
+    launches = 0
+    dev = torch.device("cuda", 0)
+    for world in MESH_WORLDS:
+        backend = MESH.backend_for(["cuda:0"] * world)
+        torch.cuda.synchronize()
+        parent_used = ranks.card_used_bytes(dev)
+        t0 = time.perf_counter()
+        out = MESH.spawn(ranks.sql_rank, world, backend,
+                         {"sf": SF, "seed": SEED, "runs": MESH_RUNS[world],
+                          "interconnect": [world] if world > 1 else []},
+                         timeout_s=MESH_TIMEOUT_S)
+        print("mesh_world " + json.dumps({
+            "S": world, "backend": backend,
+            "seconds": time.perf_counter() - t0,
+            "db": [r["db"] for r in out], "db_s": [r["db_s"] for r in out],
+            "pack_s": [r["pack_s"] for r in out]}), flush=True)
+        for run in MESH_RUNS[world]:
+            label = run["label"]
+            runs = [r["runs"][label] for r in out]
+            for rank, got in enumerate(runs):
+                for name, want in oracle.items():
+                    if not same_bits(got["results"][name], want):
+                        raise AssertionError(f"mesh S={world} {label} rank "
+                                             f"{rank} {name}: differs from "
+                                             "the oracle")
+                    if (got["device_count"][name],
+                            got["shard_times"][name]) != (world, 1):
+                        raise AssertionError(f"mesh S={world} {label} {name}:"
+                                             f" {got['device_count'][name]} "
+                                             "shards, "
+                                             f"{got['shard_times'][name]} "
+                                             "times")
+                windows = sum(got["morsels"].values())
+                if got["spja"] != got["morsels"] or got["launches"] != {
+                        "ssb_fused.LAUNCHES": windows}:
+                    raise AssertionError(
+                        f"mesh S={world} {label} rank {rank}: spja "
+                        f"{got['spja']} against windows {got['morsels']}; "
+                        f"launched {got['launches']}")
+                if label == "windows" and min(got["morsels"].values()) < 2:
+                    raise AssertionError(f"mesh S={world} windows rank "
+                                         f"{rank}: {got['morsels']} windows")
+                launches += windows
+            row = {"S": world, "run": label, "backend": backend,
+                   "bits": "the oracle's on every rank",
+                   "windows": {name: [g["morsels"][name] for g in runs]
+                               for name in oracle},
+                   "spja_launches": [sum(g["spja"].values()) for g in runs],
+                   "shard_rows": [g["shard_rows"] for g in runs],
+                   "shard_bytes": [g["shard_bytes"] for g in runs],
+                   "table_bytes": [g["table_bytes"] for g in runs],
+                   "reserved_bytes": [g["reserved_bytes"] for g in runs]}
+            # the ranks' share of the card's memory while each held its
+            # shard and tables, and the CUDA context: that share less what
+            # the allocators reserved (the parent's own held still)
+            ranks_used = runs[0]["card_used_bytes"] - parent_used
+            row["ranks_used_bytes"] = ranks_used
+            row["context_bytes_a_rank"] = (
+                ranks_used - sum(g["reserved_bytes"] for g in runs)) / world
+            if run.get("reps"):
+                row["query_ms"] = {name: max(g["query_ms"][name]
+                                             for g in runs)
+                                   for name in oracle}
+                row["rank_query_ms"] = [g["query_ms"] for g in runs]
+                row["allreduce_ms"] = max(g["allreduce_ms"] for g in runs)
+                logical = (fused_ms if world == 1 else
+                           logical_ms.get(world) if label == "plain"
+                           else None)
+                if logical:
+                    row["logical_query_ms"] = logical
+                    row["total_ms"] = sum(row["query_ms"].values())
+                    row["logical_total_ms"] = sum(logical.values())
+            print("mesh_run " + json.dumps(row), flush=True)
+        if world > 1:
+            links = [r["interconnect"][0] for r in out]
+            if len({(x["rate"], x["backend"]) for x in links}) != 1 or \
+                    not links[0]["rate"] or links[0]["backend"] != backend:
+                raise AssertionError(f"interconnect S={world}: {links}")
+            print("mesh_interconnect " + json.dumps({
+                "S": world, "backend": links[0]["backend"],
+                "GBps": links[0]["rate"] / 1e9,
+                "elems": ALLREDUCE_ELEMS, "card": card}), flush=True)
+        del out
+    next(k for k in kernels
+         if k["name"] == "ssb_fused.spja")["launches_mesh"] = launches
+
+    cases = [{"arch": arch, "mesh": (2, 2), "seed": MOE_SEED, "batch": 4,
+              "seq": 32, "forward": True} for arch in MOE_SMOKE]
+    t0 = time.perf_counter()
+    out = MESH.spawn(ranks.moe_rank, 4, MESH.backend_for(["cuda:0"] * 4),
+                     {"cases": cases + [MOE_FULL]}, timeout_s=MESH_TIMEOUT_S)
+    for i, case in enumerate(cases + [MOE_FULL]):
+        got = [r["cases"][i] for r in out]
+        full = case is MOE_FULL
+        tol = MOE_BF16_TOL * max(g["local_max_abs"] for g in got) if full \
+            else LM_TOL
+        errs = [g["max_abs_err"] for g in got]
+        fwd = [g.get("forward_err") for g in got]
+        if max(errs) > tol or max(g["aux_err"] for g in got) > LM_TOL or \
+                (not full and max(fwd) > LM_TOL):
+            raise AssertionError(f"moe {case['arch']} {case['mesh']}: errors "
+                                 f"{errs}, aux {[g['aux_err'] for g in got]},"
+                                 f" forward {fwd} (tolerance {tol})")
+        print("mesh_moe " + json.dumps({
+            "arch": case["arch"], "mesh": case["mesh"],
+            "dtype": got[0]["dtype"], "full_width": full,
+            "max_abs_err": max(errs), "tolerance": tol,
+            "aux_err": max(g["aux_err"] for g in got),
+            "forward_err": None if full else max(fwd),
+            "local_on": got[0]["local_on"],
+            "local_ms": got[0]["local_ms"],
+            "mesh_ms": [g["mesh_ms"] for g in got],
+            "expert_bytes_a_rank": got[0]["expert_bytes"],
+            "card": card}), flush=True)
+    print(f"moe_world_s {time.perf_counter() - t0:.3f}")
+    print(f"phase16_s {time.perf_counter() - t:.3f}", flush=True)
 
 
 # phase 14: the LM serving path.  The 10 smoke configs in float32 from one

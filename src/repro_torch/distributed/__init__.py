@@ -1,1 +1,3 @@
-"""Distribution hooks the models call (one card: no mesh)."""
+"""Process groups, meshes and the collectives the port runs across ranks
+(``mesh``), the ambient mesh the models read (``ctx``), and gradient
+compression (``compression``)."""

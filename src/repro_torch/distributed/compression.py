@@ -10,11 +10,12 @@ Formulation (per leaf and participant; the reference's):
 Error feedback keeps the *accumulated* quantization error bounded, so SGD
 convergence is preserved (Karimireddy et al., 2019).
 
-One card has no data axis: ``compressed_psum`` and ``bf16_psum`` take the
-P participants' gradients stacked on a leading axis and compute the
-reference's ``psum`` formulas over it, as ``sql.shard`` runs S logical
-shards on one card.  The reduction across cards waits for a host with
-several GPUs.
+``compressed_psum`` and ``bf16_psum`` take the P participants' gradients
+stacked on a leading axis and compute the reference's ``psum`` formulas
+over it in one process.  The query and MoE paths already reduce across
+the ranks of a process group (``distributed.mesh``); these reductions
+over a real group come with the sharded train step, which is not ported
+yet.
 """
 from __future__ import annotations
 

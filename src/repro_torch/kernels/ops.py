@@ -5,10 +5,16 @@ contract (``repro.kernels.ops``), decided by the device of the data:
   kernel -> the kernel; raises on a CPU tensor (a CUDA kernel has no CPU
             form — the reference's interpret mode has no counterpart)
   ref    -> the plain version on either device (the kernels' oracle)
+
+``spja`` and ``multi_spja`` take ``group``, the counterpart of the
+reference's ``axis_name``: each rank runs the kernel on its own shard's
+streams, and its exact int64 grid is all-reduced over the process group
+(``reduce_grid``) before it is rounded to f32 once.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import agg as _agg
 from repro_torch.kernels import hash_join as _hj
@@ -38,24 +44,57 @@ def use_kernel(mode: str, device) -> bool:
     return False
 
 
+def reduce_grid(acc: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum the exact int64 grid ``acc`` over the ranks of ``group`` in
+    place (one ``all_reduce``; every rank gets the same bits) ->
+    ``acc``.  Without a group, ``acc`` untouched."""
+    if group is not None:
+        if acc.dtype != torch.int64:
+            raise TypeError(f"reduce_grid sums exact int64 grids, got "
+                            f"{acc.dtype}")
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    return acc
+
+
+def _reduced(fn, acc, group, shape, device):
+    """``fn(acc=grid)`` into a zero int64 grid, all-reduced over
+    ``group`` -> ``acc`` with the reduced sums added, or (no ``acc``)
+    the grid rounded to f32 once."""
+    grid = torch.zeros(shape, dtype=torch.int64, device=device)
+    fn(acc=grid)
+    reduce_grid(grid, group)
+    if acc is None:
+        return grid.to(torch.float32)
+    acc += grid
+    return acc
+
+
 def spja(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
          m1, m2=None, measure_op: str = "first", n_groups: int = 1,
          mode: str = "auto", pred_widths=None, key_widths=None,
-         key_refs=None, m_widths=None, m_refs=None, n_rows=None, acc=None):
+         key_refs=None, m_widths=None, m_refs=None, n_rows=None, acc=None,
+         group=None):
     """Whole SPJA query over int32 fact streams, plain or bit-packed ->
     (n_groups,) f32 on the streams' device, or ``acc`` (an int64 grid)
     with the exact sums added.  Arguments as ``ssb_fused.spja``; an m2
     given with ``measure_op="first"`` is ignored (never loaded).
     ``n_rows`` is required when the measure stream is packed (its length
-    is then the word count)."""
+    is then the word count).  ``group``: this rank's streams are its
+    shard; the sums of every rank of the process group are all-reduced
+    in int64 before any rounding."""
     if measure_op not in ("mul", "sub"):
         m2 = None
     fn = _fused.spja if use_kernel(mode, m1.device) else _ref.spja
-    return fn(pred_cols, pred_bounds, join_keys, join_tables, group_mults,
-              m1, m2, measure_op=measure_op, n_groups=n_groups,
+    kw = dict(measure_op=measure_op, n_groups=n_groups,
               pred_widths=pred_widths, key_widths=key_widths,
               key_refs=key_refs, m_widths=m_widths, m_refs=m_refs,
-              n_rows=n_rows, acc=acc)
+              n_rows=n_rows)
+    args = (pred_cols, pred_bounds, join_keys, join_tables, group_mults,
+            m1, m2)
+    if group is not None:
+        return _reduced(lambda acc: fn(*args, acc=acc, **kw), acc, group,
+                        (n_groups,), m1.device)
+    return fn(*args, acc=acc, **kw)
 
 
 def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
@@ -63,7 +102,7 @@ def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
                n_groups: int = 1, mode: str = "auto", pred_widths=None,
                key_widths=None, key_refs=None, m_widths=None, m_refs=None,
                n_rows=None, member_groups=None, acc=None,
-               probe_groups=None):
+               probe_groups=None, group=None):
     """A whole wave of SPJA queries in one fact pass -> (Q, n_groups) f32
     on the streams' device, or ``acc`` (an int64 grid) with the exact sums
     added (arguments as ``ref.multi_spja``).  ``n_rows`` is required when
@@ -71,7 +110,18 @@ def multi_spja(pred_cols, pred_bounds, join_keys, join_tables, join_mults,
     count).  ``member_groups`` (each member's reachable groups) only tells
     the kernel where to take each sum; ``probe_groups`` is the lowering
     of the joins to one probe a fact key column (``ref.multi_spja``),
-    which both versions follow."""
+    which both versions follow.  ``group`` as ``spja``'s: the whole
+    wave's (Q, n_groups) grid is all-reduced over the process group."""
+    if group is not None:
+        return _reduced(lambda acc: multi_spja(
+            pred_cols, pred_bounds, join_keys, join_tables, join_mults,
+            join_use, q_valid, measure_cols, measure_sel,
+            n_groups=n_groups, mode=mode, pred_widths=pred_widths,
+            key_widths=key_widths, key_refs=key_refs, m_widths=m_widths,
+            m_refs=m_refs, n_rows=n_rows, member_groups=member_groups,
+            acc=acc, probe_groups=probe_groups), acc, group,
+            (_ref._host_ints(q_valid).size, n_groups),
+            measure_cols[0].device)
     if use_kernel(mode, measure_cols[0].device):
         return _multi.multi_spja(
             pred_cols, pred_bounds, join_keys, join_tables, join_mults,

@@ -6,17 +6,23 @@ counts and a shuffle into (capacity,) blocks, the reference's compaction
 layout; the expert FFNs then run on the gathered blocks only.  Slots past
 an expert's capacity are dropped (GShard semantics).
 
-One card holds the whole expert set, so ``moe_ffn`` always takes the local
-path; the reference's expert-parallel ``shard_map`` path needs a mesh of
-several cards and is not ported.
+Under an ambient mesh with a "model" axis that divides the expert count
+(``ctx.use_mesh``), ``moe_ffn`` takes the expert-parallel path, the
+reference's ``shard_map`` layout on a process group: each rank runs its
+own batch rows (``local_rows``) through its slice of the experts
+(``moe_shard_params``), the partial outputs are all-reduced over the
+"model" ranks and the aux loss averaged over the data ranks.  Otherwise
+the local path runs the whole expert set.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh as MESH
 from repro_torch.distributed.ctx import _ambient_axes
 from repro_torch.models.layers import Init, Params, _act, dense_init, dtype_of
 
@@ -138,10 +144,90 @@ def _moe_ffn_local(p: Params, cfg: ModelConfig, x: torch.Tensor
     return out, _aux_loss(cfg, gates, counts, s * cfg.moe_top_k)
 
 
+def _data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's batch rows of ``x`` (B, ...): the reference's ``bspec``
+    split of B over the data axes when they divide it, else all of
+    ``x``, as the reference replicates an indivisible batch."""
+    daxes = _data_axes(mesh)
+    dtot, index = 1, 0
+    for a in daxes:
+        n = MESH.axis_size(mesh, a)
+        dtot, index = dtot * n, index * n + mesh.get_local_rank(a)
+    if dtot == 1 or x.shape[0] % dtot:
+        return x
+    return x.chunk(dtot)[index]
+
+
+def _expert_slice(mesh, cfg: ModelConfig) -> Tuple[int, int]:
+    e_local = cfg.n_experts // MESH.axis_size(mesh, "model")
+    return mesh.get_local_rank("model") * e_local, e_local
+
+
+def moe_shard_params(p: Params, mesh) -> Params:
+    """``p`` (a MoE block's parameters, or any tree holding them, such as a
+    model's from ``api.from_numpy``) with every block's expert weights cut
+    to this rank's slice ``[e_start, e_start + E/model)`` on the expert
+    axis (copies, so the full set can be freed); the router and the
+    shared experts stay whole, and a block whose expert count the
+    "model" axis does not divide (it runs the local path) stays whole."""
+    if not isinstance(p, dict):
+        return p
+    if "router" in p and "w_gate" in p:
+        e, model = p["w_gate"].shape[-3], MESH.axis_size(mesh, "model")
+        if e % model:
+            return p
+        e_local = e // model
+        e_start = mesh.get_local_rank("model") * e_local
+        return {k: (v.narrow(-3, e_start, e_local).clone()
+                    if k in ("w_gate", "w_up", "w_down") else v)
+                for k, v in p.items()}
+    return {k: moe_shard_params(v, mesh) for k, v in p.items()}
+
+
+def _moe_ffn_mesh(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel layout over ``mesh`` ("model" plus data axes):
+    ``x`` is this rank's batch rows (``local_rows``), ``p`` its expert
+    slice (``moe_shard_params``) or the whole set (cut here, as views).
+    Routing runs over every expert; the slice's partial output is
+    all-reduced over the "model" ranks (in f32, then cast back: the
+    ranks' experts are disjoint, so the sum is the local path's up to
+    its rounding), and the aux loss is the mean over the data ranks."""
+    b, s, d = x.shape
+    e_start, e_local = _expert_slice(mesh, cfg)
+    cap = _capacity(cfg, s)
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if wg.shape[-3] == cfg.n_experts:
+        wg, wu, wd = (w.narrow(-3, e_start, e_local) for w in (wg, wu, wd))
+    elif wg.shape[-3] != e_local:
+        raise ValueError(f"{wg.shape[-3]} experts on a rank of {e_local}")
+    gates, top_w, top_i = _route(p, cfg, x)
+    out, counts = _experts_slice(cfg, x, top_w, top_i, wg, wu, wd,
+                                 e_start, e_local, cap)
+    total = out.float().contiguous()
+    dist.all_reduce(total, group=mesh.get_group("model"))
+    out = total.to(out.dtype)
+    aux = _aux_loss(cfg, gates, counts, s * cfg.moe_top_k).reshape(1)
+    dtot = 1
+    for a in _data_axes(mesh):
+        dtot *= MESH.axis_size(mesh, a)
+        dist.all_reduce(aux, group=mesh.get_group(a))
+    if "shared" in p:
+        out = out + _shared_ffn(p, cfg, x)
+    return out, aux[0] / dtot
+
+
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> (out, aux_loss)."""
-    if _ambient_axes() is not None:
-        raise NotImplementedError("expert-parallel MoE over a mesh of cards "
-                                  "is not ported")
+    """x: (B,S,d) -> (out, aux_loss).  Under an ambient mesh whose "model"
+    axis divides the experts, the expert-parallel path on this rank's
+    rows; else the local path (the reference's rule)."""
+    am = _ambient_axes()
+    if am is not None and "model" in am.axis_names \
+            and cfg.n_experts % am.shape["model"] == 0:
+        return _moe_ffn_mesh(p, cfg, x, am.mesh)
     return _moe_ffn_local(p, cfg, x)

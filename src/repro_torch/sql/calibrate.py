@@ -16,12 +16,18 @@ jnp, outside any kernel):
               (§4.3), the index and output streams subtracted;
   launch_overhead_s — a tiny op, timed round trip to a synchronise: what
               each of a partition loop's 2^bits dispatches costs;
-  interconnect_bw — on a card, the host-to-device copy rate from host
-              memory page-locked in place, as a morsel's upload reads it
+  interconnect_bw — over a process group of two or more ranks
+              (``_measure_interconnect(..., group=)``, which every rank of
+              the group calls), the reference's all-reduce microbenchmark: an
+              f32 payload of ``ALLREDUCE_ELEMS`` a rank all-reduced, priced
+              at the ring volume ``2(D-1) * elems * 4`` bytes over the
+              slowest rank's time, with the group's backend beside it
+              (``interconnect_backend``).  With no group, or a world of
+              one, on a card the host-to-device copy rate from host memory
+              page-locked in place, as a morsel's upload reads it
               (``morsel_pipeline_time``'s link), PCIe as in the paper's
-              Table 2.  None on the CPU, as in the reference.
-              (The reference measures an all-reduce across devices there;
-              that waits for a host with several GPUs.)
+              Table 2 (backend ``"h2d"``; the reference gives None on one
+              device); None on the CPU, as in the reference.
 
 Every time on the card is taken with CUDA events around launches queued
 back to back, or ends at a synchronise, never at the enqueue.
@@ -50,6 +56,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.cost.model import H100, Hardware
 from repro_torch.device import resolve
@@ -61,6 +68,7 @@ GATHER_TABLE_BYTES = {"cuda": 8 << 20, "cpu": 1 << 16}
 GATHER_PROBES = {"cuda": 1 << 26, "cpu": 1 << 21}
 LINE_BYTES = {"cuda": H100.line_bytes, "cpu": 64}
 H2D_BYTES = 256 << 20
+ALLREDUCE_ELEMS = 1 << 20       # f32 a rank, the reference's payload
 
 
 @dataclass(frozen=True)
@@ -73,6 +81,9 @@ class Calibration:
     measured_at: float          # unix time
     interconnect_bw: Optional[float] = None     # B/s; None on the CPU
     device_name: str = "cpu"
+    # what interconnect_bw crossed: "nccl" or "gloo" (an all-reduce over
+    # a group), "h2d" (the host link), None (nothing, on the CPU)
+    interconnect_backend: Optional[str] = None
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -133,11 +144,52 @@ def _round_trip(fn: Callable[[], object], device: torch.device,
     return best
 
 
+def _world_of(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def interconnect_backend(device: torch.device, group=None) -> Optional[str]:
+    """What :func:`_measure_interconnect` measures on ``device`` with
+    ``group``: the group's backend over two or more ranks, else ``"h2d"``
+    on a card, None on the CPU."""
+    if _world_of(group) >= 2:
+        return str(dist.get_backend(group))
+    return "h2d" if device.type == "cuda" else None
+
+
+def _measure_allreduce(device: torch.device, group, warmup: int = 2,
+                       iters: int = 5) -> float:
+    """The reference's all-reduce rate over ``group`` in B/s: the ring
+    volume ``2(D-1) * elems * 4`` over the least seconds of one
+    ``all_reduce`` of ``elems = ALLREDUCE_ELEMS`` f32 a rank (host clock to a synchronise:
+    gloo stages a card's tensors through the host), the slowest rank's
+    least, so every rank returns the same rate.  A collective: every rank
+    of ``group`` calls it."""
+    d, elems = _world_of(group), ALLREDUCE_ELEMS
+    x = torch.ones(elems, dtype=torch.float32, device=device)
+    best = float("inf")
+    for i in range(warmup + iters):
+        _sync(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        _sync(device)
+        if i >= warmup:
+            best = min(best, time.perf_counter() - t0)
+    slowest = torch.tensor([best], dtype=torch.float64, device=device)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=group)
+    return float(2.0 * (d - 1) * elems * 4 / slowest.item())
+
+
 def _measure_interconnect(device: torch.device,
-                          n_bytes: int = H2D_BYTES) -> Optional[float]:
-    """The host-to-device copy rate of ``device`` in B/s, as a morsel
+                          n_bytes: int = H2D_BYTES,
+                          group=None) -> Optional[float]:
+    """The interconnect rate of ``device`` in B/s: over a ``group`` of two
+    or more ranks the all-reduce rate (:func:`_measure_allreduce`, a
+    collective); otherwise the host-to-device copy rate as a morsel
     crosses it (a host array page-locked in place, ``morsel.page_lock``,
     copied asynchronously), or None on the CPU (no link to cross)."""
+    if _world_of(group) >= 2:
+        return _measure_allreduce(device, group)
     if device.type != "cuda":
         return None
     from repro_torch.sql.morsel import page_lock
@@ -197,7 +249,8 @@ def measure(device=None, stream_bytes: Optional[int] = None,
                        measured_at=time.time(),
                        interconnect_bw=_measure_interconnect(device,
                                                              h2d_bytes),
-                       device_name=_device_name(device))
+                       device_name=_device_name(device),
+                       interconnect_backend=interconnect_backend(device))
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +412,7 @@ def main(argv=None) -> None:
     print(f"launch_overhead={calib.launch_overhead_s * 1e6:.2f} us")
     if calib.interconnect_bw:
         print(f"interconnect_bw={calib.interconnect_bw / 1e9:.2f} GB/s "
-              "(host to device, page-locked)")
+              f"({calib.interconnect_backend})")
     else:
         print("interconnect_bw=n/a (no host link on the CPU)")
     if args.json:

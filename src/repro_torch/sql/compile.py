@@ -60,7 +60,10 @@ a fact table made resident with ``Database.to`` — runs whole.
             through the same dimension tables (built once); the grids
             merge pairwise, exactly, and round to f32 once — bit-identical
             to the solo fused pass at any shard count.  On one card the
-            shards are logical: they take turns on it.
+            shards are logical: they take turns on it.  Over a mesh of
+            ranks (``shard.shard_database(db, mesh)``) each rank folds its
+            own shard and the ranks' int64 grids meet in one all-reduce,
+            the reference's ``shard_map`` + ``psum`` path.
 ``auto``  — the bandwidth cost model (``repro_torch.sql.model``) picks
             fused, opat, part or sharded per query at execute time, when
             the database (and so the cardinalities) is known, with the
@@ -408,9 +411,10 @@ def _synced_clock(device: torch.device) -> float:
 
 def _runs_sharded(db, table: str) -> bool:
     """Whether a scan of ``table`` in ``db`` runs shard by shard: ``db``
-    is a ``ShardedDatabase`` of more than one shard of that table."""
-    return (isinstance(db, SH.ShardedDatabase) and db.n_shards > 1
-            and table == db.fact)
+    is a ``ShardedDatabase`` of that table with more than one shard, or
+    with a mesh (whose ranks all-reduce even when there is one)."""
+    return (isinstance(db, SH.ShardedDatabase) and table == db.fact
+            and (db.n_shards > 1 or db.mesh is not None))
 
 
 def _shard_loop(sdb, device: torch.device, fold
@@ -441,26 +445,63 @@ def _execute_sharded(plan: P.Plan, db, mode: str,
     """Run ``plan`` fused per shard and merge the partial grids ->
     ``(result, shard_times_s, device_count, morsel_report)``.
 
-    A plain Database, a single shard, or a plan that scans another table
-    than the sharded one runs the solo fused fold (timed, so callers
-    always get a breakdown).  Otherwise a host loop folds each shard's own
-    morsel stream into its own int64 grid, through dimension tables
-    fetched once from the base database; the grids merge pairwise
-    (:func:`shard.tree_merge`, exact) and round to f32 once
-    (:func:`_shard_loop`)."""
+    A plain Database, a single logical shard, or a plan that scans another
+    table than the sharded one runs the solo fused fold (timed, so callers
+    always get a breakdown).  On a mesh with a compiled mode the ranks run
+    :func:`_execute_fused_map`; otherwise (no mesh, or ``mode="ref"``, as
+    the reference's rule) a host loop folds each shard's own morsel stream
+    into its own int64 grid, through dimension tables fetched once from
+    the base database; the grids merge pairwise (:func:`shard.tree_merge`,
+    exact) and round to f32 once (:func:`_shard_loop`)."""
     base = SH.base_of(db)
     if not _runs_sharded(db, plan.scan.table):
         t0 = _synced_clock(device)
         out, report = _fused_morsels(plan, base, mode, cache, morsel_bytes,
                                      device)
         return out, [_synced_clock(device) - t0], 1, report
+    if db.mesh is not None and mode != "ref":
+        return _execute_fused_map(plan, db, mode, cache, morsel_bytes,
+                                  device)
     prebuilt: List[torch.Tensor] = []
     for j in plan.joins:
         prebuilt.extend(_join_tables(base, j, cache, device))
-    acc, times, report = _shard_loop(db, device, lambda fact: _fused_fold(
-        plan, base, mode, cache, morsel_bytes, device, fact=fact,
-        prebuilt=prebuilt))
+    acc, times, report = _shard_loop(
+        SH.logical(db), device, lambda fact: _fused_fold(
+            plan, base, mode, cache, morsel_bytes, device, fact=fact,
+            prebuilt=prebuilt))
     return _rounded(acc), times, db.n_shards, report
+
+
+def _execute_fused_map(plan: P.Plan, sdb, mode: str,
+                       cache: Optional[HT.HashTableCache], morsel_bytes: int,
+                       device: torch.device
+                       ) -> Tuple[np.ndarray, List[float], int,
+                                  MS.MorselReport]:
+    """The mesh path, the counterpart of the reference's ``shard_map``:
+    this rank folds its own shard's morsel stream (at most two windows of
+    ``morsel_bytes`` in flight; one, whole, when the shard is resident)
+    through the fused kernel into its own int64 grid, with the dimension
+    tables built once on its device (the rank's own cache), and the
+    ranks' grids meet in ONE all-reduce over the mesh (``ops.reduce_grid``)
+    -> every rank the same f32 bits, rounded once.  A rank whose shard is
+    empty folds nothing and still joins the all-reduce with a zero grid,
+    and ragged shards fold different numbers of morsels before it.
+    ``shard_times_s`` has one entry, the whole mesh launch on this rank."""
+    mesh = sdb.mesh
+    if device.type != mesh.device_type:
+        raise ValueError(f"a mesh of {mesh.device_type} ranks cannot run "
+                         f"on {device}")
+    base = sdb.base
+    prebuilt: List[torch.Tensor] = []
+    for j in plan.joins:
+        prebuilt.extend(_join_tables(base, j, cache, device))
+    t0 = _synced_clock(device)
+    acc, report = _fused_fold(plan, base, mode, cache, morsel_bytes, device,
+                              fact=getattr(sdb.shards[0], sdb.fact),
+                              prebuilt=prebuilt)
+    ops.reduce_grid(acc, sdb.group)
+    out = _rounded(acc)
+    return out, [time.perf_counter() - t0], sdb.n_shards, report
 
 
 # ---------------------------------------------------------------------------
@@ -846,7 +887,9 @@ def execute_shared_sharded(plans: List[P.Plan], db, mode: str = "auto",
     and the grids merge pairwise, exactly, and round to f32 once.  A
     plain Database, a single shard or a wave over another table than the
     sharded one runs :func:`execute_shared_morsels` on the base.  Each
-    shard's time ends when the card has finished it."""
+    shard's time ends when the card has finished it.  On a mesh every
+    rank runs this loop over all S shards of the base, as the
+    reference's host loop does."""
     validate_wave(plans)
     device = resolve(device)
     base = SH.base_of(db)
@@ -860,7 +903,8 @@ def execute_shared_sharded(plans: List[P.Plan], db, mode: str = "auto",
     reset_launch_config()
     _launch("multi_spja")
     wave = _lower_wave(plans, base, cache, pad_to, prebuilt, anchor, device)
-    acc, times, report = _shard_loop(db, device, lambda fact: _wave_fold(
+    acc, times, report = _shard_loop(SH.logical(db), device,
+                                     lambda fact: _wave_fold(
         wave, base, fact, mode, morsel_bytes, device))
     return _members(plans, acc), times, report
 
@@ -1233,10 +1277,12 @@ class CompiledQuery:
                  morsel_bytes: int) -> np.ndarray:
         strategy = self.strategy
         if strategy == "auto":
-            choice = M.choose(self.plan, db,
-                              hw=M.default_hardware(device),
+            hw = getattr(db, "hw", None) or M.default_hardware(device)
+            choice = M.choose(self.plan, db, hw=hw,
                               n_shards=SH.shard_count(db),
                               morsel_bytes=_model_budget(
+                                  self.plan, db, device, morsel_bytes),
+                              shard_morsel_bytes=_shard_budget(
                                   self.plan, db, device, morsel_bytes))
             strategy = choice.strategy
             self.predictions = choice.predictions
@@ -1272,6 +1318,17 @@ def _model_budget(plan: P.Plan, db, device: torch.device,
     if fact.is_pinned(device):
         return max(morsel_bytes, MS.scanned_morsel_bytes(fact, None))
     return morsel_bytes
+
+
+def _shard_budget(plan: P.Plan, db, device: torch.device,
+                  morsel_bytes: int) -> int:
+    """The budget the cost model prices ``sharded``'s folds at:
+    :func:`_model_budget`'s, judged on a mesh by this rank's own shard,
+    which is what the rank scans there (the base stays on the host, so
+    the other strategies stream it)."""
+    if _runs_sharded(db, plan.scan.table) and db.mesh is not None:
+        db = db.shards[0]
+    return _model_budget(plan, db, device, morsel_bytes)
 
 
 def compile_plan(plan: P.Plan, strategy: str = "fused") -> CompiledQuery:

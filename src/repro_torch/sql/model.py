@@ -295,7 +295,8 @@ def _shared_stream_cols(plans):
 def predict(plan: P.Plan, db: ssb.Database,
             hw: Optional[Hardware] = None,
             n_shards: Optional[int] = None,
-            morsel_bytes: Optional[int] = None) -> Dict[str, float]:
+            morsel_bytes: Optional[int] = None,
+            shard_morsel_bytes: Optional[int] = None) -> Dict[str, float]:
     """Predicted seconds per physical strategy.  ``fused`` is absent when
     the plan is not fusable (the compiler would silently fall back — the
     model scores what would actually run).  ``sharded`` appears when the
@@ -311,7 +312,9 @@ def predict(plan: P.Plan, db: ssb.Database,
     prices morsel size and ``auto`` keeps ranking correctly out of
     core.  A budget the whole scan fits in (every in-memory database
     under the default) collapses the pipeline to the original
-    single-pass formulas exactly."""
+    single-pass formulas exactly.  ``shard_morsel_bytes`` is the budget
+    of ``sharded``'s per-shard folds, ``morsel_bytes`` unless given (on a
+    mesh a rank's resident shard is one morsel while the base streams)."""
     from repro_torch.sql.compile import fusability, partability
     hw = hw or default_hardware()
     st = plan_stats(plan, db)
@@ -403,8 +406,9 @@ def predict(plan: P.Plan, db: ssb.Database,
             # per-shard scan + probes run concurrently (wall time is one
             # shard's share, itself morsel-pipelined), then the reduce
             # pays the interconnect
-            nm_s = max(1, len(MS.plan_cuts(
-                -(-n // s), MS.rows_per_morsel(bpr, budget))))
+            nm_s = max(1, len(MS.plan_cuts(-(-n // s), MS.rows_per_morsel(
+                bpr, budget if shard_morsel_bytes is None
+                else int(shard_morsel_bytes)))))
             out["sharded"] = (scan_t(scan_bytes / s, nm_s, 1)
                               + sum(_probe_time(n / s, ht_bytes(b), hw)
                                     for b in st.join_builds)
@@ -569,16 +573,19 @@ _CANDIDATES = ("fused", "opat", "part", "sharded")
 def choose(plan: P.Plan, db: ssb.Database,
            hw: Optional[Hardware] = None,
            n_shards: Optional[int] = None,
-           morsel_bytes: Optional[int] = None) -> Choice:
+           morsel_bytes: Optional[int] = None,
+           shard_morsel_bytes: Optional[int] = None) -> Choice:
     """The ``auto`` strategy's decision: argmin of ``predict`` over the
     executable candidates (the ``part_loop`` baseline is excluded).
     ``n_shards`` is the shard count the caller could run sharded at
     (``shard.shard_count(db)``); ``morsel_bytes`` the streaming budget
-    the executor will fold under — the single- vs multi-device
+    the executor will fold under (``shard_morsel_bytes`` that of a
+    shard's fold, :func:`predict`) — the single- vs multi-device
     arbitration happens right here, per query, priced at the morsel
     pipeline that would actually run."""
     preds = predict(plan, db, hw, n_shards=n_shards,
-                    morsel_bytes=morsel_bytes)
+                    morsel_bytes=morsel_bytes,
+                    shard_morsel_bytes=shard_morsel_bytes)
     best = min((s for s in preds if s in _CANDIDATES),
                key=lambda s: (preds[s], _PREFERENCE.index(s)))
     return Choice(best, preds)

@@ -191,6 +191,15 @@ def page_lock(arr: np.ndarray) -> Tuple[int, int]:
     return start, end
 
 
+def locked_range(arr: np.ndarray) -> Tuple[int, int]:
+    """The address range ``page_lock`` locked for ``arr``'s owner, or
+    ``(0, 0)`` while it is not locked."""
+    own = _owner(arr)
+    start = -(-own.ctypes.data // _PAGE) * _PAGE
+    end = (own.ctypes.data + own.nbytes) // _PAGE * _PAGE
+    return (start, end) if (start, end) in _REGISTERED else (0, 0)
+
+
 def upload(host: np.ndarray, device: torch.device,
            locked: Tuple[int, int]) -> torch.Tensor:
     """A contiguous int32 host view as a tensor on ``device``, queued on

@@ -1,49 +1,64 @@
 """Sharded fact-table execution: S row partitions of the fact table.
 
-The port of ``repro.sql.shard``, the host-loop half.  The paper's
-bandwidth argument extends to many devices: N devices scanning disjoint
-fact shards deliver N times the scan rate, provided each shard runs the
-same one-pass kernel and the only traffic between them is the final
-``(n_groups,)`` grid.  This module owns that decomposition:
+The port of ``repro.sql.shard``.  The paper's bandwidth argument extends
+to many devices: N devices scanning disjoint fact shards deliver N times
+the scan rate, provided each shard runs the same one-pass kernel and the
+only traffic between them is the final ``(n_groups,)`` grid.  This
+module owns that decomposition:
 
-  shard     — ``shard_database(db, n)`` cuts the fact table into
+  shard     — ``shard_database(db, parts)`` cuts the fact table into
               contiguous row ranges (``storage.slice_rows``: plain
               columns slice as views, packed columns cut off a word
               boundary are packed again under the parent encoding).
               The dimension tables are the base database's own objects,
-              so one hash-table build serves every shard.  A shard of a
-              fact table resident on the card is resident too, as views
-              of the base's device tensors (``storage.pin_slice``): no
-              second copy of the table.
+              so one hash-table build serves every shard.
   replicate — :func:`replicate` places small shared state (dimension
-              hash tables) on every device once; on one device it is the
-              identity.
+              hash tables) on every device once.
   reduce    — per-shard partial grids merge pairwise (:func:`tree_merge`,
-              :func:`merge_partials`).  The port's partials are exact:
-              int64 sums (the fused and wave kernels sum the int32
-              measures in int64) or f64 sums (:class:`GroupPartial` of f32
-              values), rounded to f32 once after the merge, so any
-              association order gives the same bits.  (The reference's
-              partials are f32, exact only below 2^24; at SF 20 q1.1's
-              sum is 2,246,830,080.)
+              :func:`merge_partials`), or in one ``all_reduce`` across
+              ranks.  The port's partials are exact: int64 sums (the
+              fused and wave kernels sum the int32 measures in int64) or
+              f64 sums (:class:`GroupPartial` of f32 values), rounded to
+              f32 once after the merge, so any association order gives
+              the same bits.  (The reference's partials are f32, exact
+              only below 2^24; at SF 20 q1.1's sum is 2,246,830,080.)
 
-The compiler's ``sharded`` strategy (``repro_torch.sql.compile``) runs
-the shards from a host loop, one fused fold each, over S logical shards
-on one card.  The reference's other path, a ``shard_map`` over a mesh of
-devices with the merge as a ``psum`` (its ``default_mesh``,
-``stacked_stream``/``stacked_window``/``validity_*`` and
-``_execute_fused_map``), waits for a host with several GPUs.
+``parts`` takes two forms, and the compiler's ``sharded`` strategy
+(``repro_torch.sql.compile``) runs each:
+
+  an int    — S logical shards in one process: a host loop runs one fused
+              fold a shard on one device, in turns.  A shard of a fact
+              table resident on the card is resident too, as views of the
+              base's device tensors (``storage.pin_slice``).
+  a mesh    — a 1-D ``DeviceMesh`` over a process group of S ranks
+              (``distributed.mesh.default_mesh``), the counterpart of the
+              reference's ``shard_map`` path: each rank holds only its own
+              shard (``shards == [own]``, rows ``bounds[rank]`` to
+              ``bounds[rank + 1]``; ``to`` makes it alone resident on the
+              rank's device), folds it, and the ranks' int64 grids meet in
+              one all-reduce.  The reference stacks every shard into one
+              ``(S, pad_rows)`` batch with a validity stream, because
+              ``shard_map`` needs one shape on every device; a rank folds
+              its own contiguous shard, of whatever length, so neither has
+              a counterpart here: a ragged or an empty shard is a shorter
+              (or no) morsel stream, and its rank still joins the
+              all-reduce.  ``hw`` is rank 0's ``Hardware``, broadcast when
+              the sharded database is made, so ``auto`` chooses alike on
+              every rank.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve
+from repro_torch.distributed import mesh as MESH
 from repro_torch.sql import ssb
 from repro_torch.sql import storage as ST
 
@@ -58,20 +73,36 @@ class ShardedDatabase:
     delegates to ``base`` (``sdb.lineorder``, ``sdb.sf``, ...), so a
     ShardedDatabase answers like its Database for the oracle, the cost
     model, the hash-table cache and every other strategy; only the
-    ``sharded`` paths look inside."""
+    ``sharded`` paths look inside.  With a ``mesh``, ``shards`` holds
+    this rank's shard alone (see the module's docstring)."""
     base: ssb.Database
     shards: List[ssb.Database]
     bounds: np.ndarray                  # (S+1,) fact-row offsets
     fact: str
+    mesh: Optional[DeviceMesh] = None
+    hw: object = None                   # rank 0's Hardware on a mesh
+    # on a mesh, the S shards as logical ones, cut on first need (logical)
+    _logical: Optional["ShardedDatabase"] = field(default=None, repr=False,
+                                                  compare=False)
 
     @property
     def n_shards(self) -> int:
-        return len(self.shards)
+        return len(self.bounds) - 1
+
+    @property
+    def group(self):
+        """The mesh's ``data`` process group (None without a mesh)."""
+        return (None if self.mesh is None
+                else self.mesh.get_group(MESH.SHARD_AXIS))
 
     def to(self, device) -> "ShardedDatabase":
         """Make the base's fact table resident on ``device`` and every
-        shard with it, as views of its tensors (``storage.pin_slice``).
+        shard with it, as views of its tensors (``storage.pin_slice``);
+        on a mesh, this rank's shard alone (the base stays on the host).
         Returns ``self``."""
+        if self.mesh is not None:
+            getattr(self.shards[0], self.fact).pin(device)
+            return self
         table = getattr(self.base, self.fact)
         table.pin(device)
         for i, shard in enumerate(self.shards):
@@ -95,32 +126,72 @@ def shard_count(db) -> int:
     return db.n_shards if isinstance(db, ShardedDatabase) else 1
 
 
-def shard_database(db, parts: Optional[int] = None,
-                   fact: str = "lineorder") -> ShardedDatabase:
-    """Partition ``db``'s fact table row-wise into ``parts`` contiguous
-    shards (None: one per visible card, one on a host without a card).
+def shard_database(db, parts=None, fact: str = "lineorder",
+                   hw=None) -> ShardedDatabase:
+    """Partition ``db``'s fact table row-wise into contiguous shards.
+    ``parts`` is a shard count (None: one per visible card, one on a host
+    without a card) or a 1-D ``DeviceMesh`` of S ranks (every rank of
+    which calls this with the same database).
 
     Shard ``i`` holds rows ``[i*n//S, (i+1)*n//S)``: sizes differ by at
     most one row, and S may exceed the row count (the tail shards are
-    then empty; execution and the merge take zero-row shards).  The
-    shard count is a logical choice, decoupled from the devices, so the
-    results are the same at any S.  Where the fact table is resident on a
-    device, every shard is resident there too (:meth:`ShardedDatabase.to`)."""
+    then empty; execution and the merge take zero-row shards).  A shard
+    count is a logical choice, decoupled from the devices, so the results
+    are the same at any S; where the fact table is resident on a device,
+    every shard is resident there too (:meth:`ShardedDatabase.to`).  On a
+    mesh each rank cuts its own shard alone and keeps the base's
+    dimension tables; ``hw`` (this rank's ``Hardware``, else
+    ``model.default_hardware`` of its device) is replaced by rank 0's."""
     db = base_of(db)
-    s = max(1, torch.cuda.device_count()) if parts is None else int(parts)
+    mesh = parts if isinstance(parts, DeviceMesh) else None
+    if mesh is not None:
+        if mesh.ndim != 1:
+            raise ValueError(f"a sharded database needs a 1-D mesh, got "
+                             f"{mesh.mesh_dim_names}")
+        s = mesh.size()
+    else:
+        s = max(1, torch.cuda.device_count()) if parts is None \
+            else int(parts)
     if s < 1:
         raise ValueError(f"shard count must be >= 1, got {s}")
     table = getattr(db, fact)
     n = table.n_rows
     bounds = np.array([(i * n) // s for i in range(s + 1)], np.int64)
+    own = range(s) if mesh is None else [mesh.get_local_rank(MESH.SHARD_AXIS)]
     shards = [dataclasses.replace(
         db, **{fact: ST.slice_rows(table, int(bounds[i]),
                                    int(bounds[i + 1]))})
-        for i in range(s)]
+        for i in own]
+    if mesh is not None:
+        return ShardedDatabase(db, shards, bounds, fact, mesh,
+                               _rank0_hardware(mesh, hw))
     sdb = ShardedDatabase(db, shards, bounds, fact)
     for dev in sorted(table._pinned):
         sdb.to(dev)
     return sdb
+
+
+def _rank0_hardware(mesh: DeviceMesh, hw):
+    """Rank 0's ``Hardware`` on every rank of ``mesh`` (one broadcast)."""
+    if hw is None:
+        from repro_torch.sql.model import default_hardware
+        hw = default_hardware(MESH.mesh_device(mesh))
+    box = [hw]
+    group = mesh.get_group(MESH.SHARD_AXIS)
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def logical(sdb: ShardedDatabase) -> ShardedDatabase:
+    """The S shards of ``sdb`` as logical shards in this process (the host
+    loop's form): ``sdb`` itself without a mesh; on a mesh, cut once and
+    kept on ``sdb``."""
+    if sdb.mesh is None:
+        return sdb
+    if sdb._logical is None:
+        sdb._logical = shard_database(sdb.base, sdb.n_shards, sdb.fact)
+    return sdb._logical
 
 
 # ---------------------------------------------------------------------------

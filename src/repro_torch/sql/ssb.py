@@ -45,6 +45,20 @@ CITY_UKI1 = NATION_UK * 10 + 1
 CITY_UKI5 = NATION_UK * 10 + 5
 
 
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array's int32 values as a tensor on ``device``.  Memory a
+    morsel stream page-locked in place (``morsel.page_lock``) is copied
+    around its locked pages (``morsel.upload``): one copy that mixes
+    locked and unlocked pages fails on a card."""
+    from repro_torch.sql import morsel
+    host = np.ascontiguousarray(arr, np.int32)
+    locked = morsel.locked_range(host) if device.type == "cuda" \
+        else (0, 0)
+    if locked == (0, 0):
+        return torch.from_numpy(host).to(device)
+    return morsel.upload(host, device, locked)
+
+
 @dataclass
 class Table:
     name: str
@@ -71,8 +85,7 @@ class Table:
         key = (col, str(device))
         t = self._resident.get(key)
         if t is None:
-            t = torch.from_numpy(
-                np.ascontiguousarray(self.columns[col], np.int32)).to(device)
+            t = host_to_device(self.columns[col], device)
             self._resident[key] = t
         return t
 

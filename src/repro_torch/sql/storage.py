@@ -37,6 +37,7 @@ no flush, and ``flush_deltas`` compacts them into one fresh table.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Set, Tuple
 
@@ -227,11 +228,11 @@ class PackedColumn:
         """The word stream (a plain column: its int32 values) on
         ``device``, uploaded on first use and held for every later
         query."""
-        dev = str(resolve(device))
+        device = resolve(device)
+        dev = str(device)
         t = self._resident.get(dev)
         if t is None:
-            t = torch.from_numpy(
-                np.ascontiguousarray(self.words, np.int32)).to(dev)
+            t = ssb.host_to_device(self.words, device)
             self._resident[dev] = t
         return t
 
@@ -357,9 +358,17 @@ def pin_slice(part, table, lo: int, hi: int, device) -> None:
     part._pinned.add(dev)
 
 
+# columns packed at once by ``pack_table``: numpy's array passes release
+# the GIL; each column in flight holds about 24 bytes a row of temporaries
+PACK_THREADS = 4
+
+
 def pack_table(table: ssb.Table) -> PackedTable:
-    return PackedTable(table.name, {c: pack_column(v)
-                                    for c, v in table.columns.items()})
+    """Encode every column of a table, ``PACK_THREADS`` columns at once."""
+    names = list(table.columns)
+    with ThreadPoolExecutor(max(1, min(PACK_THREADS, len(names)))) as pool:
+        cols = pool.map(lambda c: pack_column(table.columns[c]), names)
+        return PackedTable(table.name, dict(zip(names, cols)))
 
 
 def pack_database(db: ssb.Database) -> ssb.Database:

@@ -1811,3 +1811,69 @@ def test_launch_train_smoke_on_card(cuda, tmp_path, capsys):
     lm_train.main(args[:2] + ["8"] + args[3:])
     out = capsys.readouterr().out
     assert "resumed from step 6" in out and "step     7 loss" in out
+
+
+def test_sharded_over_a_world_of_two_ranks_on_card(cuda):
+    """A gloo world of 2 ranks sharing the card (NCCL refuses two ranks on
+    one device): the 13 queries ``sharded`` at SF 0.01, each rank folding
+    its own resident shard with one ``spja`` launch a query, the grids
+    all-reduced — every rank the oracle's bits."""
+    from repro_torch.distributed import mesh, ranks
+    db = ssb.generate(0.01, seed=3)
+    backend = mesh.backend_for(["cuda:0", "cuda:0"])
+    assert backend == "gloo"
+    out = mesh.spawn(ranks.sql_rank, 2, backend, {
+        "db": db, "runs": [{"label": "plain", "resident": True}],
+        "interconnect": [2]}, timeout_s=300)
+    for name, plan in engine.ssb_queries().items():
+        want = engine.run_query_oracle(db, plan)
+        for r in out:
+            run = r["runs"]["plain"]
+            assert np.array_equal(run["results"][name], want), name
+            assert run["spja"][name] == 1 and run["device_count"][name] == 2
+    for r in out:
+        assert r["device"] == "cuda:0"
+        assert r["runs"]["plain"]["launches"] == {"ssb_fused.LAUNCHES": 13}
+        [link] = r["interconnect"]
+        assert link["backend"] == "gloo" and link["rate"] > 0
+
+
+def test_moe_mesh_on_card_matches_host(cuda):
+    """Expert-parallel MoE on a 2 x 2 mesh of gloo ranks on the card: each
+    rank's rows, aux and ``api.forward`` logits within 1e-4 of the host's
+    local path on the same parameters (phase 14's tolerance)."""
+    from repro_torch.distributed import mesh, ranks
+    cases = [{"arch": arch, "mesh": (2, 2), "seed": 5, "batch": 4,
+              "seq": 16, "forward": True}
+             for arch in ("qwen3-moe-30b-a3b", "deepseek-moe-16b")]
+    out = mesh.spawn(ranks.moe_rank, 4, "gloo", {"cases": cases},
+                     timeout_s=300)
+    for r in out:
+        for case in r["cases"]:
+            assert case["local_on"] == "cpu"
+            assert case["max_abs_err"] <= 1e-4, case["arch"]
+            assert case["aux_err"] <= 1e-4 and case["forward_err"] <= 1e-4
+
+
+def test_pin_after_a_morsel_stream_locked_the_columns_on_card(cuda):
+    """A table pinned after a morsel stream page-locked its columns in
+    place (the mesh phase's windows run, then its packed run): the
+    upload is copied around the locked pages, plain and packed, and the
+    shard of a rank, a view into the middle of a locked column, too."""
+    from repro_torch.sql import morsel
+    db = ssb.generate(0.01, seed=4)
+    fact = db.lineorder
+    for col in fact.columns:
+        morsel.page_lock(fact.columns[col])
+        assert morsel.locked_range(fact.columns[col]) != (0, 0)
+    n = fact.n_rows
+    for table in (fact, storage.pack_table(fact),
+                  storage.slice_rows(fact, n // 3, n),
+                  storage.slice_rows(storage.pack_table(fact), n // 2, n)):
+        table.pin(cuda)
+        for col in table.columns:
+            got = table.on_device(col, cuda).cpu().numpy()
+            want = (table.columns[col].words
+                    if isinstance(table, storage.PackedTable)
+                    else table.columns[col])
+            assert np.array_equal(got, np.asarray(want, np.int32)), col

@@ -12,9 +12,9 @@ f32 partial sums stay below 2^24 at this scale, so they are exact too);
 the sharded wave is bit-identical to the oracle and within
 ``tests/test_ssb.py``'s rtol 1e-5 / atol 1e-3 of the reference's wave,
 which sums f32 copies of the measures.  The mesh cases
-(``test_shard.py:150``, ``test_morsel.py:227``) wait for a host with
-several GPUs, the server cases (``test_shard.py:186-230``) for the
-port's query server.
+(``test_shard.py:150``, ``test_morsel.py:227``) are held in
+``tests/test_torch_mesh.py``, over ranks of a process group; the server
+cases (``test_shard.py:186-230``) wait for the port's query server.
 """
 import dataclasses
 
