@@ -243,6 +243,31 @@ exits non-zero without printing a result:
            layer at full width in bf16 on a 1 x 4 mesh against
            ``_moe_ffn_local`` on the card (``MOE_BF16_TOL``), each path's
            ms.
+17. the training side of the mesh paths (after phase 15 freed its
+           params): one ``mesh.spawn`` world of 4 ranks on ``cuda:0``
+           over gloo.  The sharded AdamW step (``make_train_step(cfg,
+           mesh=, zero1=)``) on a 2 x 2 ``("data", "model")`` mesh: three
+           smoke configs in f32 (qwen2.5-3b with the reference test's
+           overrides, mamba2-2.7b, qwen3-moe-30b-a3b), ZeRO-1 off and on,
+           each rank's blocks, losses and gradient norms against the
+           single-rank step on the host; qwen2-0.5b at full width (bf16
+           params, f32 master and moments, remat), ZeRO-1 on, 8 x 512
+           tokens a step, each data rank drawing 4 x 512 from its
+           ``TokenPipeline`` shard (one ``select_scan`` a batch a rank,
+           held to ``ref.select_scan``; ``launches_train_mesh``),
+           ``TRAIN_MESH_WARM`` + ``TRAIN_MESH_TIMED`` steps against the
+           same steps on one rank on the card (``TRAIN_MESH_FULL_TOL``),
+           each rank's blocks the placements' bytes; step ms of the
+           slowest rank beside phase 15's, each collective's bytes, ms
+           and GB/s, peak memory a rank beside the placements' bytes;
+           ``compressed_psum`` / ``bf16_psum`` of 2^22 elements a rank
+           against the stacked forms (the int8 path's bits; bf16 within
+           the backend's roundings), their wire bytes and ms beside an
+           f32 all-reduce; GPipe over 4 stages: the reference test's
+           network against the serial one on the host, then qwen2-0.5b's
+           width (D 896, 512 rows, F 16): ms a tick, stage 0's idle
+           share beside ``bubble_fraction``.  Every path calls only
+           ``all_reduce`` (checked with ``ranks.recording``).
 
 The line before the last lists every kernel of every path as JSON; the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA device.
@@ -3630,7 +3655,8 @@ def morsel_phase(t_all, card, dev, kernels, db, pdb, cache, queries, oracle,
             entry["launches_morsels"] = morsel_launches[fn]
     print(f"phase11_s {time.perf_counter() - t:.3f}")
     lm_phase(dev, card)
-    train_phase(dev, card, kernels)
+    train = train_phase(dev, card, kernels)
+    train_mesh_phase(dev, card, kernels, train["step_ms"])
     print(f"total_s {time.perf_counter() - t_all:.3f}")
     print(f"card {card}", flush=True)
 
@@ -4189,6 +4215,306 @@ def train_phase(dev, card, kernels) -> dict:
     torch.cuda.empty_cache()
     print(f"phase15_s {time.perf_counter() - t:.3f}", flush=True)
     return row
+
+
+# phase 17: the training side of the mesh paths, on one world of
+# TRAIN_MESH_WORLD ranks sharing the card over gloo: the sharded AdamW step
+# of three smoke configs (f32, each with ZeRO-1 off and on) and of
+# TRAIN_ARCH at full width (its published dtypes, ZeRO-1 on) on a 2 x 2
+# ("data", "model") mesh, each held to the single-rank step; int8 and bf16
+# all-reduce over the world; GPipe over it as a "pipe" group
+TRAIN_MESH_WORLD = 4
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_TIMEOUT_S = 600
+TRAIN_MESH_SMOKE = {"qwen2.5-3b": {"n_heads": 4, "n_kv_heads": 2,
+                                   "head_dim": 16, "vocab_size": 512},
+                    "mamba2-2.7b": {}, "qwen3-moe-30b-a3b": {}}
+TRAIN_MESH_STEPS = 2            # smoke configs: steps a case
+TRAIN_MESH_WARM, TRAIN_MESH_TIMED = 1, 2
+# the smoke cases, card against host: phase 15's 1e-4 for the loss, the
+# gradient norm and the params; the moments, whose entries run down to
+# 1e-9, within 1e-4 of themselves or of their block's largest entry
+TRAIN_MESH_SMOKE_TOL = {"params": (TRAIN_TOL, TRAIN_TOL),
+                        "m": (TRAIN_TOL, 0.0, TRAIN_TOL),
+                        "v": (TRAIN_TOL, 0.0, TRAIN_TOL)}
+# full width: the ranks run each data shard's microbatch on the same
+# weights with the same kernels as the single rank, and the f32 sum of 2
+# shards is exact, so the two should agree bit for bit.  What may differ
+# is a GEMM's accumulation order, which moves a bf16 gradient by at most
+# a rounding (2^-8 of it).  A first AdamW step moves a master entry by
+# lr g / (|g| + eps): a change of g moves it by at most lr 2^-8 / 4 (the
+# derivative's peak at |g| = eps), the later steps' averages by at most
+# lr 2^-8, so 3 steps keep the masters within 3 lr 2^-8 (1.2e-4 at
+# smoke.TRAIN_OPT's lr 1e-2, under the 1e-2 a step moves a param, checked
+# against smoke.least_move); a bf16 param may round one step (2^-7 of it)
+# further.  The moments sum (1 - b) of each step's g or g^2: within
+# 2^-7 (m) and 2^-6 (v) of their block's largest entry; the loss and the
+# gradient norm within 2^-8.
+FULL_MASTER_ATOL = 3 * 1e-2 * 2.0 ** -8
+TRAIN_MESH_FULL_TOL = {"params": (2.0 ** -7, FULL_MASTER_ATOL),
+                       "master": (0.0, FULL_MASTER_ATOL),
+                       "m": (0.0, 0.0, 2.0 ** -7),
+                       "v": (0.0, 0.0, 2.0 ** -6)}
+TRAIN_MESH_FULL_RTOL = 2.0 ** -8
+# int8 / bf16 all-reduce: a rank's gradient, and reps timed
+COMPRESS_N = 1 << 22
+COMPRESS_REPS = 5
+# GPipe: the reference test's shapes, and qwen2-0.5b's width
+PIPE_CHECK = {"S": 4, "F": 8, "MB": 2, "D": 16, "seed": 17}
+PIPE_WIDE = {"S": 4, "F": 16, "MB": 512, "D": 896, "seed": 17, "reps": 3}
+
+
+def placed_bytes(cfg) -> dict:
+    """Each (data, model) coordinate of ``TRAIN_MESH``: the bytes its
+    blocks hold by the placements (params; the AdamW state, ZeRO-1 on),
+    and those plus a step's transients (the whole params gathered, the
+    f32 gradient buffer, one microbatch's gradients in the params'
+    dtype)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import api
+    from repro_torch.models.api import leaves
+    from repro_torch.train.step import placements
+    shapes, pspecs, ospecs = placements(cfg, SH.MeshShape(TRAIN_MESH, (
+        "data", "model")), True)
+    dtype_of = {p: t.dtype for p, t in leaves(api.abstract_params(cfg))}
+    spec_of = {k: dict(leaves(ospecs[k])) for k in ospecs if k != "step"}
+    spec_of["params"] = dict(leaves(pspecs))
+    whole = sum(SH.numel(s) * torch.empty((), dtype=dtype_of[p])
+                .element_size() for p, s in leaves(shapes))
+    n = sum(SH.numel(s) for _, s in leaves(shapes))
+    out = {}
+    for coord in np.ndindex(*TRAIN_MESH):
+        mesh = SH.MeshShape(TRAIN_MESH, ("data", "model"), coord)
+        size = {k: sum(SH.numel(SH.block_shape(s, spec_of[k][p], mesh))
+                       * (torch.empty((), dtype=dtype_of[p]).element_size()
+                          if k == "params" else 4)
+                       for p, s in leaves(shapes)) for k in spec_of}
+        blocks = {"params": size["params"],
+                  "opt": sum(v for k, v in size.items() if k != "params")
+                  + 4}                                  # the int32 step
+        out[coord] = {"blocks": blocks,
+                      "step": sum(blocks.values()) + 2 * whole
+                      + 4 * (n + 1)}
+    return out
+
+
+def train_mesh_phase(dev, card, kernels, single_step_ms: float) -> None:
+    """Phase 17, after phase 15 freed its params: one world of ranks on
+    the card (gloo) runs the sharded train step, the compressed reduces
+    and GPipe.  Its one kernel is ``select_scan``, once a batch a rank."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import mesh as MESH
+    from repro_torch.distributed import pipeline as PL
+    from repro_torch.distributed import ranks
+    from repro_torch.models import api, smoke
+    from repro_torch.train.step import placements
+    t = phase(f"17 the training side of the mesh paths: the sharded AdamW "
+              f"step on a {TRAIN_MESH[0]} x {TRAIN_MESH[1]} mesh of ranks on "
+              f"one card ({len(TRAIN_MESH_SMOKE)} smoke configs, "
+              f"{TRAIN_ARCH} at full width with ZeRO-1), int8 / bf16 "
+              f"all-reduce, GPipe over {TRAIN_MESH_WORLD} stages")
+    opt = dataclasses.asdict(smoke.TRAIN_OPT)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_train_")
+    try:
+        cases, single = [], {}
+        for arch, overrides in TRAIN_MESH_SMOKE.items():
+            base = {"arch": arch, "overrides": overrides,
+                    "mesh": TRAIN_MESH, "seed": TRAIN_SEED, "batch": 8,
+                    "seq": 32, "steps": TRAIN_MESH_STEPS, "opt": opt,
+                    "tol": TRAIN_MESH_SMOKE_TOL,
+                    "want": f"{tmp}/{arch}.pt"}
+            single[arch] = ranks.single_rank_train(
+                base, torch.device("cpu"), base["want"])
+            for zero1 in (False, True):
+                cases.append(dict(base, zero1=zero1))
+        full = {"arch": TRAIN_ARCH, "smoke": False, "mesh": TRAIN_MESH,
+                "zero1": True, "seed": TRAIN_SEED, "init_on": "card",
+                "tokens": "pipeline", "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ, "steps": TRAIN_MESH_WARM + TRAIN_MESH_TIMED,
+                "opt": opt, "tol": TRAIN_MESH_FULL_TOL,
+                "want": f"{tmp}/{TRAIN_ARCH}.pt"}
+        t0 = time.perf_counter()
+        single[TRAIN_ARCH] = ranks.single_rank_train(full, dev, full["want"])
+        single_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        cases.append(full)
+        moved = {k: v["least_move"] for k, v in single.items()}
+        if moved.pop(TRAIN_ARCH) <= 10 * FULL_MASTER_ATOL or \
+                min(moved.values()) <= 10 * TRAIN_TOL:
+            raise AssertionError(f"a single-rank step moved a param leaf "
+                                 f"within 10 tolerances: {moved}, "
+                                 f"{single[TRAIN_ARCH]['least_move']}")
+
+        t0 = time.perf_counter()
+        out = MESH.spawn(ranks.chain_rank, TRAIN_MESH_WORLD,
+                         MESH.backend_for(["cuda:0"] * TRAIN_MESH_WORLD),
+                         {"bodies": [
+                             ("train_rank", {"cases": cases}),
+                             ("compress_rank", {"n": COMPRESS_N,
+                                                "seed": TRAIN_SEED,
+                                                "reps": COMPRESS_REPS}),
+                             ("pipe_rank", {"cases": [PIPE_CHECK,
+                                                      PIPE_WIDE]})]},
+                         timeout_s=TRAIN_MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    allowed = {"all_reduce", "broadcast"}
+    for i, case in enumerate(cases):
+        got = [r["train_rank"]["cases"][i] for r in out]
+        is_full = case is full
+        rtol = TRAIN_MESH_FULL_RTOL if is_full else TRAIN_TOL
+        label = f"{case['arch']} zero1={case['zero1']}"
+        for g in got:
+            bad = [k for k, e in g["errors"].items() if e["excess"] > 1.0]
+            names = set(g["collectives"])
+            if bad or g["loss_rel"] > rtol or g["grad_norm_rel"] > rtol \
+                    or not g["step_equal"] or not names <= allowed:
+                raise AssertionError(
+                    f"train mesh {label} rank {g['coord']}: errors "
+                    f"{g['errors']}, loss {g['loss_rel']}, grad_norm "
+                    f"{g['grad_norm_rel']}, collectives {sorted(names)}")
+            want_launches = ({"select_scan.LAUNCHES": case["steps"]}
+                             if is_full else {})
+            if g["launches"] != want_launches or not g["select_scan_ok"] \
+                    or g["select_scan_calls"] != (case["steps"] if is_full
+                                                  else 0):
+                raise AssertionError(
+                    f"train mesh {label} rank {g['coord']}: launched "
+                    f"{g['launches']}, select_scan calls "
+                    f"{g['select_scan_calls']} (plain's bits: "
+                    f"{g['select_scan_ok']})")
+        row = {"arch": case["arch"], "zero1": case["zero1"],
+               "mesh": list(TRAIN_MESH), "full_width": is_full,
+               "loss": got[0]["loss"], "single_loss":
+                   single[case["arch"]]["loss"],
+               "loss_rel": max(g["loss_rel"] for g in got),
+               "grad_norm_rel": max(g["grad_norm_rel"] for g in got),
+               "max_abs_err": {k: max(g["errors"][k]["max_abs_err"]
+                                      for g in got) for k in got[0]["errors"]},
+               "share_of_tolerance": {k: max(g["errors"][k]["excess"]
+                                             for g in got)
+                                      for k in got[0]["errors"]},
+               "least_move": single[case["arch"]]["least_move"],
+               "collectives": sorted({n for g in got
+                                      for n in g["collectives"]})}
+        if is_full:
+            timed = slice(TRAIN_MESH_WARM, None)
+            step_ms = [max(g["step_ms"][k] for g in got)
+                       for k in range(case["steps"])]
+            spans = {}
+            for name in ("param_gather", "grad_reduce", "zero1_regather"):
+                per = [max(g["stats"][k][name]["ms"] for g in got)
+                       for k in range(case["steps"])][timed]
+                nbytes = got[0]["stats"][-1][name]["bytes"]
+                spans[name] = {"bytes": nbytes, "ms": per,
+                               "GBps": [nbytes / m / 1e6 for m in per]}
+            predicted = placed_bytes(ranks.train_config(case))
+            for g in got:
+                coord = (g["coord"]["data"], g["coord"]["model"])
+                if g["block_bytes"] != predicted[coord]["blocks"]:
+                    raise AssertionError(
+                        f"rank {coord} holds {g['block_bytes']}, the "
+                        f"placements {predicted[coord]['blocks']}")
+            whole = single[TRAIN_ARCH]
+            row.update(
+                step_ms=step_ms[timed], warm_step_ms=step_ms[0],
+                single_rank_step_ms=whole["step_ms"][timed],
+                phase15_step_ms=single_step_ms,
+                tokens_per_s=[case["batch"] * case["seq"] / m * 1e3
+                              for m in step_ms[timed]],
+                collectives_a_step=spans,
+                peak_allocated_GB=[g["peak_allocated"] / 1e9 for g in got],
+                allocated_before_GB=[g["allocated_before"] / 1e9
+                                     for g in got],
+                block_GB=[{k: v / 1e9 for k, v in g["block_bytes"].items()}
+                          for g in got],
+                predicted_step_GB=[
+                    predicted[g["coord"]["data"], g["coord"]["model"]][
+                        "step"] / 1e9 for g in got],
+                select_scan_launches=[g["select_scan_launches"]
+                                      for g in got],
+                single_rank_s=single_s, world_s=world_s, card=card)
+        print("train_mesh " + json.dumps(row), flush=True)
+
+    # int8 / bf16 all-reduce over the world, against the stacked forms
+    res = [r["compress_rank"] for r in out]
+    g, err = ranks.compress_inputs(COMPRESS_N, TRAIN_MESH_WORLD, TRAIN_SEED)
+    gs = torch.from_numpy(g).to(dev)
+    want, new_errs = C.compressed_psum_stacked(gs, torch.from_numpy(err)
+                                               .to(dev))
+    want_b16 = C.bf16_psum_stacked(gs).double().cpu()
+    # the backend's n - 1 bf16 roundings of partial sums against one
+    bound = 2.0 ** -8 * gs.to(torch.bfloat16).double().abs().sum(dim=0).cpu()
+    got_b16 = torch.from_numpy(res[0]["bf16"]).double()
+    if len({r["digest"]["compressed"] for r in res}) != 1 or \
+            len({r["digest"]["bf16"] for r in res}) != 1 or \
+            not same_bits(res[0]["compressed"], want.cpu().numpy()) or \
+            any(r["digest"]["new_err"] != ranks.digest(new_errs[r["rank"]])
+                for r in res) or \
+            not bool(((got_b16 - want_b16).abs() <= bound).all()) or \
+            any(not set(r["collectives"]) <= allowed for r in res):
+        raise AssertionError("compressed / bf16 all-reduce over the world "
+                             "differs from the stacked forms")
+    print("train_mesh_compress " + json.dumps({
+        "ranks": TRAIN_MESH_WORLD, "elements_a_rank": COMPRESS_N,
+        "int8_bits": "the stacked form's",
+        "bf16_max_abs_err": float((got_b16 - want_b16).abs().max()),
+        "bf16_bound_max": float(bound.max()),
+        "wire_bytes": res[0]["wire_bytes"],
+        "ms": {k: max(r["ms"][k] for r in res) for k in res[0]["ms"]},
+        "GBps": {k: res[0]["wire_bytes"][k] / max(r["ms"][k] for r in res)
+                 / 1e6 for k in res[0]["ms"]},
+        "card": card}), flush=True)
+    del gs, want, new_errs
+
+    # GPipe: the reference test's shapes against the serial network on
+    # the host (its tolerances), then qwen2-0.5b's width timed
+    rs = [r["pipe_rank"]["cases"][0] for r in out]
+    y, loss, grads = ranks.pipe_serial(PIPE_CHECK)
+    by_rank = {r["rank"]: r for r in rs}
+    got = {k: np.concatenate([by_rank[s]["grads"][k]
+                              for s in range(PIPE_CHECK["S"])])
+           for k in grads}
+    if len({r["digest"] for r in rs}) != 1 or \
+            not np.allclose(rs[0]["y"], y, rtol=1e-4, atol=1e-6) or \
+            any(abs(r["loss"] - loss) > 1e-5 * abs(loss) for r in rs) or \
+            any(not np.allclose(got[k], grads[k], rtol=1e-4, atol=1e-6)
+                for k in grads) or \
+            any(set(r["collectives"]) != {"all_reduce"} for r in rs):
+        raise AssertionError("GPipe on the card differs from the serial "
+                             "network")
+    wide = [r["pipe_rank"]["cases"][1] for r in out]
+    by_rank_wide = {r["rank"]: r for r in wide}
+    stage0 = by_rank_wide[0]
+    print("train_mesh_gpipe " + json.dumps({
+        "check": {k: PIPE_CHECK[k] for k in ("S", "F", "MB", "D")},
+        "loss": rs[0]["loss"], "serial_loss": loss,
+        "y_max_abs_err": float(np.abs(rs[0]["y"] - y).max()),
+        "grad_max_abs_err": max(float(np.abs(got[k] - grads[k]).max())
+                                for k in grads),
+        "wide": {k: PIPE_WIDE[k] for k in ("S", "F", "MB", "D")},
+        "bubble_fraction": PL.bubble_fraction(PIPE_WIDE["F"],
+                                              PIPE_WIDE["S"]),
+        "tick_ms": max(r["tick_ms"] for r in wide),
+        "forward_ms": max(r["forward_ms"] for r in wide),
+        "forward_backward_ms": max(r["forward_backward_ms"] for r in wide),
+        "stage0_idle_share": stage0["idle_share"],
+        "idle_share_by_stage": [by_rank_wide[s]["idle_share"]
+                                for s in range(PIPE_WIDE["S"])],
+        "card": card}), flush=True)
+
+    launches = sum(r["train_rank"]["cases"][-1]["select_scan_launches"]
+                   for r in out)
+    for entry in kernels:
+        if entry["name"].split(".")[-1] == "select_scan":
+            entry["launches_train_mesh"] = launches
+    print(f"phase17_s {time.perf_counter() - t:.3f}", flush=True)
 
 
 def main() -> int:

@@ -35,7 +35,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -113,9 +113,25 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return rank_device(mesh.device_type)
 
 
-def axis_size(mesh: DeviceMesh, name: str = SHARD_AXIS) -> int:
-    """The number of ranks along ``mesh``'s axis ``name``."""
-    return mesh.size(mesh.mesh_dim_names.index(name))
+def axis_sizes(mesh) -> Dict[str, int]:
+    """The number of ranks along each axis of ``mesh``, in its order: a
+    ``DeviceMesh`` (``mesh_dim_names`` and a ``shape`` tuple), or a view
+    with ``axis_names`` and a ``shape`` dict (``sharding.MeshShape``)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def axis_size(mesh, name: str = SHARD_AXIS) -> int:
+    """The number of ranks along ``mesh``'s axis ``name`` (1 for an axis
+    it does not have)."""
+    return axis_sizes(mesh).get(name, 1)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """The data-parallel axes: every axis but "model", in the mesh's
+    order."""
+    return tuple(a for a in axis_sizes(mesh) if a != "model")
 
 
 # ---------------------------------------------------------------------------

@@ -136,9 +136,20 @@ def leaves(tree: Params, prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
-def tree_map(fn, tree: Params) -> Params:
-    """``fn`` of every leaf, in the same structure."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+def tree_map(fn, tree: Params, *rest) -> Params:
+    """``fn`` of every leaf, in the same structure; with ``rest`` (trees
+    of ``tree``'s structure, whose leaves may be anything but a dict),
+    ``fn`` of the leaf and the same leaf of each."""
+    return {k: (tree_map(fn, v, *(r[k] for r in rest))
+                if isinstance(v, dict) else fn(v, *(r[k] for r in rest)))
+            for k, v in tree.items()}
+
+
+def tree_map_with_path(fn, tree: Params, path: Tuple[str, ...] = ()
+                       ) -> Params:
+    """``fn(key path, leaf)`` of every leaf, in the same structure."""
+    return {k: (tree_map_with_path(fn, v, path + (k,))
+                if isinstance(v, dict) else fn(path + (k,), v))
             for k, v in tree.items()}
 
 

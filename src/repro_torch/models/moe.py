@@ -144,15 +144,11 @@ def _moe_ffn_local(p: Params, cfg: ModelConfig, x: torch.Tensor
     return out, _aux_loss(cfg, gates, counts, s * cfg.moe_top_k)
 
 
-def _data_axes(mesh) -> Tuple[str, ...]:
-    return tuple(a for a in mesh.mesh_dim_names if a != "model")
-
-
 def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's batch rows of ``x`` (B, ...): the reference's ``bspec``
     split of B over the data axes when they divide it, else all of
     ``x``, as the reference replicates an indivisible batch."""
-    daxes = _data_axes(mesh)
+    daxes = MESH.dp_axes(mesh)
     dtot, index = 1, 0
     for a in daxes:
         n = MESH.axis_size(mesh, a)
@@ -213,7 +209,7 @@ def _moe_ffn_mesh(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh
     out = total.to(out.dtype)
     aux = _aux_loss(cfg, gates, counts, s * cfg.moe_top_k).reshape(1)
     dtot = 1
-    for a in _data_axes(mesh):
+    for a in MESH.dp_axes(mesh):
         dtot *= MESH.axis_size(mesh, a)
         dist.all_reduce(aux, group=mesh.get_group(a))
     if "shared" in p:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -98,13 +98,18 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: Tree
+def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: Tree,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, Tree, Dict[str, torch.Tensor]]:
     """One AdamW step, written in place into ``params`` and ``state``
-    (which are returned).  -> (params, state, {"grad_norm", "lr"})."""
+    (which are returned).  -> (params, state, {"grad_norm", "lr"}).
+
+    ``grad_norm``: the norm to clip by, when ``grads`` is a part of the
+    gradient (a rank's blocks): the whole gradient's.  Without it the
+    norm is ``grads``' own."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(gnorm.new_full((), cfg.grad_clip)
                         / torch.clamp(gnorm, min=1e-12), max=1.0) \
         if cfg.grad_clip > 0 else gnorm.new_ones(())

@@ -1877,3 +1877,86 @@ def test_pin_after_a_morsel_stream_locked_the_columns_on_card(cuda):
                     if isinstance(table, storage.PackedTable)
                     else table.columns[col])
             assert np.array_equal(got, np.asarray(want, np.int32)), col
+
+
+@pytest.fixture(scope="module")
+def train_mesh_world(tmp_path_factory):
+    """One gloo world of 2 ranks sharing the card: the sharded smoke
+    step (a 2 x 1 mesh with ZeRO-1, a 1 x 2 mesh without), the group
+    compression and GPipe over 2 stages; the single-rank steps on the
+    host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the ranks run on the card")
+    import dataclasses
+    from repro_torch.distributed import mesh, ranks
+    tmp = tmp_path_factory.mktemp("train_mesh")
+    tol = {"params": (1e-4, 1e-4), "m": (1e-4, 0.0, 1e-4),
+           "v": (1e-4, 0.0, 1e-4)}
+    cases = []
+    for arch, shape, zero1 in (("qwen2.5-3b", (2, 1), True),
+                               ("mamba2-2.7b", (1, 2), False)):
+        case = {"arch": arch, "mesh": shape, "zero1": zero1, "seed": 3,
+                "batch": 4, "seq": 16, "steps": 2, "tol": tol,
+                "opt": dataclasses.asdict(lm_smoke.TRAIN_OPT),
+                "want": str(tmp / f"{arch}.pt")}
+        ranks.single_rank_train(case, torch.device("cpu"), case["want"])
+        cases.append(case)
+    pipe = {"S": 2, "F": 4, "MB": 2, "D": 16, "seed": 4}
+    out = mesh.spawn(ranks.chain_rank, 2, mesh.backend_for(["cuda:0"] * 2), {
+        "bodies": [("train_rank", {"cases": cases}),
+                   ("compress_rank", {"n": 1 << 16, "seed": 6, "reps": 1}),
+                   ("pipe_rank", {"cases": [pipe]})]}, timeout_s=300)
+    return cases, pipe, out
+
+
+def test_sharded_train_step_on_card_matches_host(train_mesh_world):
+    """Each rank's blocks, loss and gradient norm within 1e-4 of the
+    single-rank step on the host (phase 15's card-vs-host tolerance; the
+    moments within 1e-4 of their block's largest entry)."""
+    cases, _, out = train_mesh_world
+    for r in out:
+        assert r["train_rank"]["device"] == "cuda:0"
+        for case, got in zip(cases, r["train_rank"]["cases"]):
+            assert got["loss_rel"] <= 1e-4 and got["grad_norm_rel"] <= 1e-4
+            assert got["step_equal"] and got["launches"] == {}
+            for name, e in got["errors"].items():
+                assert e["excess"] <= 1.0, (case["arch"], name, e)
+            assert set(got["collectives"]) <= {"all_reduce", "broadcast"}
+
+
+def test_group_compression_on_card_matches_stacked(train_mesh_world):
+    """int8 over the group the stacked form's bits; bf16 within the
+    backend's one rounding of 2 ranks."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import ranks
+    _, _, out = train_mesh_world
+    res = [r["compress_rank"] for r in out]
+    g, err = ranks.compress_inputs(1 << 16, 2, 6)
+    gs = torch.from_numpy(g).cuda()
+    want, new_errs = C.compressed_psum_stacked(gs, torch.from_numpy(err)
+                                               .cuda())
+    assert np.array_equal(res[0]["compressed"].view(np.int32),
+                          want.cpu().numpy().view(np.int32))
+    for r in res:
+        assert r["digest"]["new_err"] == ranks.digest(new_errs[r["rank"]])
+        assert r["digest"]["compressed"] == res[0]["digest"]["compressed"]
+    bound = 2.0 ** -8 * gs.to(torch.bfloat16).double().abs().sum(0).cpu()
+    got = torch.from_numpy(res[0]["bf16"]).double()
+    assert bool(((got - C.bf16_psum_stacked(gs).double().cpu()).abs()
+                 <= bound).all())
+
+
+def test_gpipe_on_card_matches_serial(train_mesh_world):
+    """GPipe over 2 ranks on the card against the serial network on the
+    host, the reference test's tolerances."""
+    from repro_torch.distributed import ranks
+    _, pipe, out = train_mesh_world
+    y, loss, grads = ranks.pipe_serial(pipe)
+    rs = {c["rank"]: c for c in (r["pipe_rank"]["cases"][0] for r in out)}
+    np.testing.assert_allclose(rs[0]["y"], y, rtol=1e-4, atol=1e-6)
+    for s, r in rs.items():
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        for k in grads:
+            np.testing.assert_allclose(r["grads"][k][0], grads[k][s],
+                                       rtol=1e-4, atol=1e-6)
+        assert r["collectives"] == ["all_reduce"]

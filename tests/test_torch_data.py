@@ -3,9 +3,9 @@ CPU: the pipeline's determinism and sharding; ``assemble`` on the
 reference's own ``jax.random`` draws (recomputed here) gives the
 reference's ``batch_at`` tokens and frontend inputs bit for bit, with
 every doc kept, some, and none; ``quantize`` bit for bit, error
-feedback; and ``compressed_psum`` / ``bf16_psum`` over 8 logical
-participants against the reference's 8-device ``shard_map`` run in a
-subprocess."""
+feedback; and ``compressed_psum_stacked`` / ``bf16_psum_stacked`` over 8
+logical participants against the reference's 8-device ``shard_map`` run
+in a subprocess."""
 import os
 import subprocess
 import sys
@@ -207,14 +207,15 @@ def test_compressed_psum_matches_reference_shard_map(tmp_path):
          str(tmp_path)], capture_output=True, text=True, cwd=REPO, env=env,
         timeout=600)
     assert "REFERENCE_PSUM_OK" in res.stdout, res.stderr[-3000:]
-    out, new_err = TC.compressed_psum(torch.from_numpy(g),
-                                      torch.from_numpy(err))
+    out, new_err = TC.compressed_psum_stacked(torch.from_numpy(g),
+                                              torch.from_numpy(err))
     assert out.shape == (1024,) and new_err.shape == (8, 1024)
     np.testing.assert_allclose(new_err.numpy(),
                                np.load(tmp_path / "new_err.npy"),
                                rtol=0, atol=1e-6)
     np.testing.assert_array_equal(out.numpy(), np.load(tmp_path / "out.npy"))
-    np.testing.assert_array_equal(TC.bf16_psum(torch.from_numpy(g)).numpy(),
-                                  np.load(tmp_path / "b16.npy"))
+    np.testing.assert_array_equal(
+        TC.bf16_psum_stacked(torch.from_numpy(g)).numpy(),
+        np.load(tmp_path / "b16.npy"))
     exact = g.mean(axis=0)
     assert np.abs(out.numpy() - exact).max() / np.abs(exact).max() < 0.15
